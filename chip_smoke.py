@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (rrrmc_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, any failure exits non-zero:
+
+1. Device: the card's name and power limit (nvidia-smi), and the build of
+   both CUDA kernels from rrrmc_tpu_torch/csrc/ (nvcc, sm_90a).
+2. Kernel versus plain: each kernel and its plain torch version get the same
+   inputs and the same Philox bits on GraphRRG(10_000, 3) (+-J) and
+   GraphRRGNormal(10_000, 3), at the shapes the main path gives the kernels:
+   1024 chains, the site kernel for 10 000 moves, the race kernel in bkl,
+   wtm and rrr mode for one chunk of 1024 moves. Integer couplings must
+   agree exactly; float couplings within the tolerances stated in
+   `_compare`. Both times are printed.
+3. Main path: standardMC(backend="kernel"), rrrMC, bklMC and wtmMC on
+   GraphRRG(10_000, 3) with 1024 chains at beta=2 through the public API,
+   then bklMC on GraphRRGNormal. After each run: the launch counter rose,
+   LAST_ROUTE names the CUDA kernel route, the checkpoint series is finite
+   and of the expected shape, and the running energy equals energy(sigma)
+   (exactly for integer couplings).
+
+The last lines are the kernels' JSON record, the card line, and
+{"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
+device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+SEED = 167
+N_MAIN = 10_000
+BETA = 2.0
+CHAINS = 1024
+#: main-path run lengths, each sized to take seconds on an H100
+ITERS_MET, ITERS_RRR, ITERS_BKL, WTM_SAMPLES = 3_000_000, 32_768, 2_000_000, 200
+#: moves per kernel-versus-plain comparison: the race kernel gets the main
+#: path's chunk; the site kernel a slice of its launch (the plain version
+#: takes ~0.3 ms per move)
+SITE_MOVES, RACE_MOVES = 10_000, 1024
+#: the device every phase runs on (the script refuses to run without one)
+DEV = "cuda"
+REPLACES = {
+    "site_metropolis": "rrrmc_tpu/ops/site_pallas.py:47",
+    "rejfree_sparse": "rrrmc_tpu/ops/rejfree_pallas.py:870",
+}
+SOURCES = {
+    "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
+    "rejfree_sparse": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
+}
+
+
+def require(ok: bool, what: str):
+    """A check that stays under python -O."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def _events_ms(fn) -> float:
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _compare(name, integer, kern: dict, plain: dict, B: int, N: int):
+    """Kernel versus plain outputs. Integer couplings: every output must be
+    EQUAL, bit for bit: spins, local fields, energies, accepted counts, the
+    coordinates and both streams, and the float32 z/N sums and wtm clock
+    too, because the plain version adds z in the kernel's order
+    (ops/rejfree.py::block_sum) and both build without FMA contraction or
+    fast math. Float couplings: at most one chain of B may diverge (a
+    float32 local field that rounds differently can flip a borderline
+    acceptance or race, after which that chain follows another path); on
+    the others lf within 1e-3, E within 1e-5 * N, z/N and the wtm clock
+    within rtol 1e-4 (float32 accumulation). Returns the max abs
+    difference over E and lf."""
+    import torch
+
+    same = (kern["sigma"] == plain["sigma"]).all(dim=-1) \
+        & (kern["acc"] == plain["acc"])
+    if "coord" in kern and kern["coord"].dtype == torch.int32:
+        same &= kern["coord"] == plain["coord"]
+    bad = int((~same).sum())
+    errs = {}
+    for key in ("E", "lf"):
+        d = (kern[key].double() - plain[key].double()).abs()
+        d = d[same] if d.dim() == 1 else d[same, :]
+        errs[key] = float(d.max()) if d.numel() else 0.0
+    float_keys = [k for k in ("zacc", "coord", "cs") if k in kern
+                  and kern[k].dtype == torch.float32]
+    for key in float_keys:
+        a, b = kern[key].double(), plain[key].double()
+        if key == "cs":
+            a, b = a[:, same], b[:, same]
+        else:
+            a, b = a[same], b[same]
+        rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) \
+            if a.numel() else 0.0
+        errs[key + "_rel"] = rel
+    if integer:
+        if bad:
+            raise AssertionError(f"{name}: {bad} chains differ (integer)")
+        for key in ("E", "lf"):
+            if errs[key] != 0.0:
+                raise AssertionError(f"{name}: {key} differs by {errs[key]}")
+        for key in ("coord", "zacc", "cs", "es"):
+            if key in kern and not torch.equal(kern[key], plain[key]):
+                raise AssertionError(f"{name}: {key} differs")
+    else:
+        if bad > 1:
+            raise AssertionError(f"{name}: {bad} of {B} chains diverge")
+        if errs["lf"] > 1e-3 or errs["E"] > 1e-5 * N:
+            raise AssertionError(f"{name}: errors {errs}")
+        for key in float_keys:
+            if errs[key + "_rel"] > 1e-4:
+                raise AssertionError(f"{name}: {key} rel err "
+                                     f"{errs[key + '_rel']}")
+    return bad, max(errs["E"], errs["lf"]), errs
+
+
+def site_case(model, label, card):
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import site
+    from rrrmc_tpu_torch.samplers.common import init_lfT
+
+    B, n_moves = CHAINS, SITE_MOVES
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    sites = torch.randint(0, model.N, (n_moves,), generator=g, device=DEV,
+                          dtype=torch.int32)
+    base = dict(sigT=st.sigma.t().contiguous(), lfT=init_lfT(model, st.sigma),
+                E=st.E.clone(), acc=torch.zeros(B, dtype=torch.int32,
+                                                device=DEV))
+    kw = dict(seed=SEED, beta_s=BETA * model.scale, move0=0, chain0=0)
+
+    def fresh():
+        return {k: v.clone() for k, v in base.items()}
+
+    def run(fn, a):
+        fn(a["sigT"], a["lfT"], a["E"], a["acc"], sites, model.neigh,
+           model.J, **kw)
+
+    run(site.site_chunk, fresh())                       # warm-up
+    k = fresh()
+    ms = _events_ms(lambda: run(site.site_chunk, k))
+    p = fresh()
+    plain_ms = _events_ms(lambda: run(site.site_chunk_reference, p))
+    kern = {"sigma": k["sigT"].t(), "lf": k["lfT"].t(), "E": k["E"],
+            "acc": k["acc"]}
+    plain = {"sigma": p["sigT"].t(), "lf": p["lfT"].t(), "E": p["E"],
+             "acc": p["acc"]}
+    integer = not model.J.dtype.is_floating_point
+    bad, err, errs = _compare(f"site {label}", integer, kern, plain, B,
+                              model.N)
+    print(f"site_metropolis {label} B={B} moves={n_moves}: kernel {ms:.3f} ms"
+          f", plain {plain_ms:.1f} ms, diverged chains {bad}, max abs err "
+          f"{err:.3g} [{card}]")
+    return {"kernel": "site_metropolis", "case": label, "B": B,
+            "moves": n_moves, "ms": ms, "plain_ms": plain_ms,
+            "diverged": bad, "max_abs_err": err, "errs": errs}
+
+
+def rejfree_case(model, label, mode, card):
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree
+
+    B, n_moves = CHAINS, RACE_MOVES
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    ct = rejfree.coord_dtype(mode)
+    z = dict(device=DEV)
+    base = dict(sigma=st.sigma.clone(), lf=model.local_fields(st.sigma),
+                E=st.E.clone(), coord=torch.zeros(B, dtype=ct, **z),
+                acc=torch.zeros(B, dtype=torch.int32, **z),
+                zacc=torch.zeros(B, dtype=torch.float32, **z))
+    kw = dict(mode=mode, n_moves=n_moves, beta2s=2 * BETA * model.scale,
+              seed=SEED, move0=0, chain0=0)
+
+    def fresh():
+        return {k: v.clone() for k, v in base.items()}
+
+    def run(fn, a, target):
+        a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
+                              a["acc"], a["zacc"], model.neigh, model.J,
+                              target=target, **kw)
+
+    # a warm-up launch, then a timed one, with an unreachable target as on
+    # the main path; then half the chains stop mid-chunk at the median
+    # coordinate (rrr: all at half the chunk), so that the masking is
+    # compared too
+    unreachable = 1e30 if mode == "wtm" else 2 ** 30
+    probe = fresh()
+    run(rejfree.rejfree_sparse_chunk, probe, unreachable)
+    full = fresh()
+    ms_full = _events_ms(
+        lambda: run(rejfree.rejfree_sparse_chunk, full, unreachable))
+    require(all(torch.equal(probe[key], full[key]) for key in probe),
+            f"rejfree {mode} {label}: two launches on one input differ")
+    target = probe["coord"].double().median().item()
+    target = {"wtm": float(target), "bkl": max(int(target), 1),
+              "rrr": n_moves // 2}[mode]
+    k = fresh()
+    ms = _events_ms(lambda: run(rejfree.rejfree_sparse_chunk, k, target))
+    p = fresh()
+    plain_ms = _events_ms(
+        lambda: run(rejfree.rejfree_sparse_chunk_reference, p, target))
+    integer = not model.J.dtype.is_floating_point
+    bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
+                              model.N)
+    print(f"rejfree_sparse {mode} {label} B={B} moves={n_moves}: kernel "
+          f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
+          f"{plain_ms:.1f} ms, diverged chains {bad}, max abs err "
+          f"{err:.3g} [{card}]")
+    return {"kernel": "rejfree_sparse", "case": f"{mode} {label}", "B": B,
+            "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
+            "plain_ms": plain_ms, "diverged": bad, "max_abs_err": err,
+            "errs": errs}
+
+
+def main_path(card):
+    """The samplers through the public API; returns per-run records and
+    the launch counts of the whole phase."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree, site
+
+    m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
+    iters_met, iters_rrr, iters_bkl = ITERS_MET, ITERS_RRR, ITERS_BKL
+    wtm_samples, wtm_step = WTM_SAMPLES, float(N_MAIN)
+    runs = [
+        ("standardMC", m, "kernel-site", site, iters_met, "moves", 10,
+         lambda: rt.standardMC(m, BETA, iters_met, step=iters_met // 10,
+                               chains=CHAINS, seed=1, backend="kernel",
+                               device=DEV)),
+        ("rrrMC", m, "kernel-rejfree-sparse", rejfree, iters_rrr, "moves",
+         10,
+         lambda: rt.rrrMC(m, BETA, iters_rrr, step=iters_rrr // 10,
+                          chains=CHAINS, seed=2, device=DEV)),
+        ("bklMC", m, "kernel-rejfree-sparse", rejfree, iters_bkl,
+         "virtual iterations", 10,
+         lambda: rt.bklMC(m, BETA, iters_bkl, step=iters_bkl // 10,
+                          chains=CHAINS, seed=3, device=DEV)),
+        ("wtmMC", m, "kernel-rejfree-sparse", rejfree,
+         int(wtm_samples * wtm_step), "virtual iterations", wtm_samples,
+         lambda: rt.wtmMC(m, BETA, wtm_samples, step=wtm_step,
+                          chains=CHAINS, seed=4, device=DEV)),
+        ("bklMC GraphRRGNormal", mn, "kernel-rejfree-sparse", rejfree,
+         iters_bkl, "virtual iterations", 10,
+         lambda: rt.bklMC(mn, BETA, iters_bkl, step=iters_bkl // 10,
+                          chains=CHAINS, seed=5, device=DEV)),
+    ]
+    torch.cuda.synchronize()
+    site.LAUNCHES = 0
+    rejfree.LAUNCHES = 0
+    records = []
+    for name, model, route, mod, nominal, unit, n_ckpt, call in runs:
+        before = mod.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Es, st = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = mod.LAUNCHES - before
+        require(launched > 0, f"{name}: no kernel launch")
+        require(rt.LAST_ROUTE["backend"] == route
+                and rt.LAST_ROUTE["impl"] == "cuda",
+                f"{name}: route {rt.LAST_ROUTE}")
+        require(Es.shape == (CHAINS, n_ckpt)
+                and bool(torch.isfinite(Es).all()),
+                f"{name}: series {tuple(Es.shape)}, finite "
+                f"{bool(torch.isfinite(Es).all())}")
+        E_re = model.energy(st.sigma)
+        if model.J.dtype.is_floating_point:
+            # float32 E accumulated over ~1e5 moves at |E| ~ 1e4 (one ulp
+            # is 1e-3): 1e-4 per spin
+            err = float((E_re.double() - st.E.double()).abs().max())
+            require(err <= 1e-4 * model.N, f"{name}: |E - energy| = {err}")
+        else:
+            err = 0.0
+            require(torch.equal(E_re, st.E), f"{name}: E != energy(sigma)")
+        rec = {"run": name, "seconds": dt, "launches": launched,
+               "E_per_spin": float(Es[:, -1].double().mean()) / model.N,
+               "energy_err": err,
+               "rate": nominal * CHAINS / dt, "rate_unit":
+               f"{unit}*chains/s"}
+        if "z_over_n" in rt.LAST_ROUTE:
+            acc = rt.LAST_ROUTE["acc"].double()
+            rec["moves_per_chain"] = float(acc.mean())
+            rec["mean_z_over_n"] = float(
+                (rt.LAST_ROUTE["z_over_n"].double() / acc.clamp(min=1))
+                .mean())
+            rec["moves_rate"] = float(acc.sum()) / dt
+        records.append(rec)
+        print(f"{name}: E/N {rec['E_per_spin']:.5f}  [{card}]")
+        if "mean_z_over_n" in rec:
+            print(f"{name}: mean z/N {rec['mean_z_over_n']:.5f}  [{card}]")
+        print(f"{name}: {rec['rate']:.4g} {unit}*chains/s ({dt:.2f} s, "
+              f"{launched} launches)  [{card}]")
+    return records, {"site_metropolis": site.LAUNCHES,
+                     "rejfree_sparse": rejfree.LAUNCHES}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    import rrrmc_tpu_torch as rt   # fails in a directory without the repo
+    from rrrmc_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+          f"({cuda_build.build_info['path']})")
+    print(cuda_build.build_info["log"].strip())
+
+    m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
+    cases = [site_case(m, "RRG+-J", card), site_case(mn, "RRGNormal", card)]
+    for mode in ("bkl", "wtm", "rrr"):
+        cases.append(rejfree_case(m, "RRG+-J", mode, card))
+        cases.append(rejfree_case(mn, "RRGNormal", mode, card))
+
+    records, launches = main_path(card)
+
+    kernels = []
+    for name in ("site_metropolis", "rejfree_sparse"):
+        mine = [c for c in cases if c["kernel"] == name]
+        head = mine[0]   # times: the +-J case (site; race in bkl mode)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"]})
+        require(launches[name] > 0, f"{name}: not launched on the main path")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

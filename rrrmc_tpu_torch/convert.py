@@ -1,0 +1,60 @@
+"""Carry models and states across from numpy arrays (for example the JAX
+package's `np.asarray(jax_model.J)`, ...), so that both implementations run
+on identical tables and identical starting spins."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .core.dtypes import ftype, itype
+from .models.pairwise import Pairwise
+from .samplers.common import DEFAULT_SEED, MCState, make_generator
+
+
+def pairwise_from_arrays(neigh, J, h, offset, *, N: int, K: int,
+                         scale: float,
+                         classes: Optional[Tuple[float, ...]] = None,
+                         device=None) -> Pairwise:
+    """The port's Pairwise from [N, K] neighbor / coupling tables, [N]
+    fields and a scalar offset. Integer J (and h) are stored as int32 with
+    `scale`; float J as float32."""
+    neigh = np.asarray(neigh)
+    J = np.asarray(J)
+    h = np.asarray(h)
+    if neigh.shape != (N, K) or J.shape != (N, K) or h.shape != (N,):
+        raise ValueError(f"expected neigh/J {(N, K)} and h {(N,)}, got "
+                         f"{neigh.shape}, {J.shape}, {h.shape}")
+    if neigh.min() < 0 or neigh.max() > N:
+        raise ValueError("neighbor ids must lie in [0, N] (N is padding)")
+    integer = np.issubdtype(J.dtype, np.integer)
+    if integer != np.issubdtype(h.dtype, np.integer):
+        raise ValueError("J and h must both be integer or both be float")
+    dt = itype() if integer else ftype()
+
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a), device=device).to(dtype)
+
+    return Pairwise(neigh=put(neigh, torch.int32), J=put(J, dt),
+                    h=put(h, dt), offset=put(np.asarray(offset), dt),
+                    N=int(N), K=int(K), scale=float(scale),
+                    classes=None if classes is None else tuple(classes))
+
+
+def state_from_arrays(model, sigma, E=None, accepted=None, *,
+                      seed: int = DEFAULT_SEED, device=None) -> MCState:
+    """MCState for spins sigma [B, N]; aux is re-derived, E defaults to
+    model.energy(sigma) and accepted to zeros."""
+    sigma = torch.tensor(np.asarray(sigma, dtype=np.int8), device=device)
+    dt = model.J.dtype
+    E = (model.energy(sigma) if E is None else
+         torch.tensor(np.asarray(E), device=device).to(dt))
+    B = sigma.shape[0]
+    acc = (torch.zeros(B, dtype=torch.int32, device=device)
+           if accepted is None else
+           torch.tensor(np.asarray(accepted), device=device
+                        ).to(torch.int32))
+    return MCState(sigma=sigma, aux=model.init_aux(sigma), E=E, accepted=acc,
+                   generator=make_generator(seed, sigma.device))

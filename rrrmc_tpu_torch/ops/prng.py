@@ -1,0 +1,102 @@
+"""Philox4x32-10, the counter-based generator of the port's kernels.
+
+The same function is written twice: here in torch (for the kernels' plain
+versions and the tests) and in `csrc/philox.cuh` (inside the CUDA kernels).
+Both give identical 32-bit words for the same counter and key.
+
+Stream layout, shared by every kernel and its plain version:
+
+* key     = (seed, global chain id): a chain's stream does not depend on the
+  batch it is run in or on its position in that batch;
+* counter = (word index, move, draw id, 0), with draw ids
+  DRAW_RACE = 0 (race: word w covers sites 4w..4w+3), DRAW_ACCEPT = 1 (rrr
+  acceptance), DRAW_SKIP = 2 (bkl geometric skip) and DRAW_SITE = 0 (site
+  Metropolis acceptance). Single draws use word 0 of counter (0, move, id, 0).
+
+Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
+product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
+gives the right high word of the unsigned 64-bit product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DRAW_RACE = 0
+DRAW_ACCEPT = 1
+DRAW_SKIP = 2
+DRAW_SITE = 0
+
+_M0 = 0xD2511F53
+_M1 = 0xCD9E8D57
+_W0 = 0x9E3779B9
+_W1 = 0xBB67AE85
+_MASK = 0xFFFFFFFF
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., Random123). `counter` is 4 and `key` 2
+    broadcastable int64 tensors (or ints) holding uint32 values; returns the
+    4 output words as int64 tensors in [0, 2^32)."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for _ in range(10):
+        p0 = c0 * _M0
+        p1 = c2 * _M1
+        hi0, lo0 = (p0 >> 32) & _MASK, p0 & _MASK
+        hi1, lo1 = (p1 >> 32) & _MASK, p1 & _MASK
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _W0) & _MASK
+        k1 = (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def as_int32(w: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same bits as int32."""
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def chain_keys(seed: int, chain0: int, B: int, device) -> tuple:
+    """Philox keys (seed, chain0 + b) for the chains b < B of a batch."""
+    ids = torch.arange(B, dtype=torch.int64, device=device) + chain0
+    return (torch.tensor(seed & _MASK, dtype=torch.int64, device=device),
+            ids & _MASK)
+
+
+def _moves(move0: int, n: int, device) -> torch.Tensor:
+    return (torch.arange(n, dtype=torch.int64, device=device) + move0) & _MASK
+
+
+def draw_bits(seed: int, chain0: int, B: int, move0: int, n: int, draw: int,
+              device) -> torch.Tensor:
+    """[n, B] int32: word 0 of counter (0, move, draw, 0) for the moves
+    move0 .. move0 + n - 1 of each chain."""
+    k0, k1 = chain_keys(seed, chain0, B, device)
+    mv = _moves(move0, n, device)[:, None]
+    return as_int32(philox4x32_10((0, mv, draw, 0), (k0, k1))[0])
+
+
+def race_bits(seed: int, chain0: int, B: int, N: int, move0: int, n: int,
+              device) -> torch.Tensor:
+    """[n, B, N] int32 race bits of the moves move0 .. move0 + n - 1: site
+    i takes word i % 4 of counter (i // 4, move, DRAW_RACE, 0)."""
+    k0, k1 = chain_keys(seed, chain0, B, device)
+    W = -(-N // 4)
+    widx = torch.arange(W, dtype=torch.int64, device=device)
+    mv = _moves(move0, n, device)[:, None, None]
+    ws = philox4x32_10((widx, mv, DRAW_RACE, 0), (k0, k1[:, None]))
+    return as_int32(torch.stack(ws, dim=-1).reshape(n, B, 4 * W)[..., :N])
+
+
+def per_move(make, n_moves: int, block: int):
+    """Iterate over moves 0 .. n_moves - 1, yielding make(lo, n)[m - lo]:
+    the bits of one move, drawn `block` moves at a time."""
+    for lo in range(0, n_moves, block):
+        n = min(block, n_moves - lo)
+        yield from make(lo, n)
+
+
+def to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> float32 u = bits * 2^-32 + 1/2, in [0, 1] (the JAX
+    kernels' mapping; f32 rounding can give exactly 0 or 1)."""
+    return bits.to(torch.float32) * (2.0 ** -32) + 0.5
