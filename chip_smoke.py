@@ -6,20 +6,32 @@
 Phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), and the build of
-   both CUDA kernels from rrrmc_tpu_torch/csrc/ (nvcc, sm_90a).
+   every CUDA kernel from rrrmc_tpu_torch/csrc/ (nvcc, sm_90a, one process
+   per source, all started together).
 2. Kernel versus plain: each kernel and its plain torch version get the same
-   inputs and the same Philox bits on GraphRRG(10_000, 3) (+-J) and
-   GraphRRGNormal(10_000, 3), at the shapes the main path gives the kernels:
-   1024 chains, the site kernel for 10 000 moves, the race kernel in bkl,
-   wtm and rrr mode for one chunk of 1024 moves. Integer couplings must
-   agree exactly; float couplings within the tolerances stated in
-   `_compare`. Both times are printed.
-3. Main path: standardMC(backend="kernel"), rrrMC, bklMC and wtmMC on
-   GraphRRG(10_000, 3) with 1024 chains at beta=2 through the public API,
-   then bklMC on GraphRRGNormal. After each run: the launch counter rose,
-   LAST_ROUTE names the CUDA kernel route, the checkpoint series is finite
-   and of the expected shape, and the running energy equals energy(sigma)
-   (exactly for integer couplings).
+   inputs and the same Philox bits, at the shapes the main paths give the
+   kernels. The RRG path: GraphRRG(10_000, 3) (+-J) and GraphRRGNormal, 1024
+   chains, the site kernel for 10 000 moves, the race kernel in bkl, wtm
+   and rrr mode for one chunk of 1024 moves. The EA-3D path: the checkerboard
+   sweep kernel on GraphEA(16, 3, +-1, seed=42) with 8192 chains at beta=2,
+   and at 1024 chains on its field column and its exp path; the race kernel
+   on the same lattice (the port of the TPU lattice race kernel), 1024
+   chains, one 1024-move chunk per mode. Integer couplings must agree
+   exactly; float couplings within the tolerances stated in `_compare`.
+   Both times are printed.
+3. Main paths, through the public API, each run with every launch count set
+   to 0 just before it and read just after:
+   - RRG: standardMC(backend="kernel"), rrrMC, bklMC and wtmMC on
+     GraphRRG(10_000, 3) with 1024 chains at beta=2, then bklMC on
+     GraphRRGNormal;
+   - EA-3D: the benchmark line (`rrrmc_tpu_torch.bench`: sweepMC on EA-3D
+     L=16 with 8192 chains) and its metric line, then bklMC, wtmMC and rrrMC
+     on that lattice with 1024 chains, and sweepMC on GraphRRG(10_000, 3)
+     through the site-sweep route.
+   After each run: the launch counter rose, LAST_ROUTE names the CUDA
+   kernel route, the checkpoint series is finite and of the expected shape,
+   and the running energy equals energy(sigma) (exactly for integer
+   couplings).
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
@@ -28,6 +40,7 @@ device is visible.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,19 +52,28 @@ BETA = 2.0
 CHAINS = 1024
 #: main-path run lengths, each sized to take seconds on an H100
 ITERS_MET, ITERS_RRR, ITERS_BKL, WTM_SAMPLES = 3_000_000, 32_768, 2_000_000, 200
+#: EA-3D path: the race samplers' run lengths on the L=16 lattice, and the
+#: site-sweep route's sweeps on GraphRRG
+EA_ITERS_RRR, EA_ITERS_BKL, EA_WTM_SAMPLES = 16_384, 1_000_000, 100
+RRG_SWEEPS = 100
 #: moves per kernel-versus-plain comparison: the race kernel gets the main
 #: path's chunk; the site kernel a slice of its launch (the plain version
-#: takes ~0.3 ms per move)
-SITE_MOVES, RACE_MOVES = 10_000, 1024
+#: takes ~0.3 ms per move); the sweep kernel 100 sweeps (its plain version
+#: takes ~20 ms per sweep at 8192 chains)
+SITE_MOVES, RACE_MOVES, SWEEPS = 10_000, 1024, 100
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 REPLACES = {
     "site_metropolis": "rrrmc_tpu/ops/site_pallas.py:47",
     "rejfree_sparse": "rrrmc_tpu/ops/rejfree_pallas.py:870",
+    "rejfree_lattice": "rrrmc_tpu/ops/rejfree_pallas.py:118",
+    "sweep_checkerboard": "rrrmc_tpu/ops/sweep_pallas.py:64",
 }
 SOURCES = {
     "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
     "rejfree_sparse": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
+    "rejfree_lattice": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
+    "sweep_checkerboard": "rrrmc_tpu_torch/csrc/sweep.cu",
 }
 
 
@@ -180,7 +202,42 @@ def site_case(model, label, card):
             "diverged": bad, "max_abs_err": err, "errs": errs}
 
 
-def rejfree_case(model, label, mode, card):
+def sweep_case(model, label, B, card):
+    """The checkerboard kernel against its plain version: SWEEPS sweeps of B
+    chains from one random start, one Philox seed; spins and energies must
+    be EQUAL (integer arithmetic; the exp path's float32 exp and threshold
+    round alike under -fmad=false)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import sweep
+
+    sw = sweep.Sweeper(model, BETA)
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+
+    def run(fn):
+        sigma, E = st.sigma.clone(), st.E.clone()
+        ms = _events_ms(lambda: fn(
+            sigma, E, sw.Jp, sw.Jm, sw.th, L=sw.L, D=sw.D, n_sweeps=SWEEPS,
+            beta2s=sw.beta2s, seed=SEED))
+        return sigma, E, ms
+
+    run(sweep.sweep_chunk)                                # warm-up
+    ks, kE, ms = run(sweep.sweep_chunk)
+    ps, pE, plain_ms = run(sweep.sweep_chunk_reference)
+    require(torch.equal(ks, ps) and torch.equal(kE, pE),
+            f"sweep {label}: kernel and plain differ "
+            f"({int((ks != ps).any(dim=1).sum())} chains)")
+    require(torch.equal(model.energy(ks), kE),
+            f"sweep {label}: E != energy(sigma)")
+    print(f"sweep_checkerboard {label} B={B} sweeps={SWEEPS} table="
+          f"{sw.table}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal "
+          f"[{card}]")
+    return {"kernel": "sweep_checkerboard", "case": label, "B": B,
+            "sweeps": SWEEPS, "table": sw.table, "ms": ms,
+            "plain_ms": plain_ms, "diverged": 0, "max_abs_err": 0.0}
+
+
+def rejfree_case(model, label, mode, card, kernel="rejfree_sparse"):
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree
@@ -227,20 +284,85 @@ def rejfree_case(model, label, mode, card):
     integer = not model.J.dtype.is_floating_point
     bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
                               model.N)
-    print(f"rejfree_sparse {mode} {label} B={B} moves={n_moves}: kernel "
+    print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
           f"{plain_ms:.1f} ms, diverged chains {bad}, max abs err "
           f"{err:.3g} [{card}]")
-    return {"kernel": "rejfree_sparse", "case": f"{mode} {label}", "B": B,
+    return {"kernel": kernel, "case": f"{mode} {label}", "B": B,
             "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
             "plain_ms": plain_ms, "diverged": bad, "max_abs_err": err,
             "errs": errs}
 
 
-def main_path(card):
-    """The samplers through the public API; returns per-run records and
-    the launch counts of the whole phase."""
+def _drive(runs, card, mods):
+    """Run each (name, model, route, module, nominal, unit, n_ckpt, call)
+    through the public API with every launch count of `mods` set to 0 just
+    before the first run; returns the per-run records and the counts just
+    after the last. A run whose `nominal` is None gets no rate here (one
+    that times itself)."""
     import torch
+    import rrrmc_tpu_torch as rt
+
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    records = []
+    for name, model, route, mod, nominal, unit, n_ckpt, call in runs:
+        before = mod.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Es, st = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = mod.LAUNCHES - before
+        require(launched > 0, f"{name}: no kernel launch")
+        require(rt.LAST_ROUTE["backend"] == route
+                and rt.LAST_ROUTE["impl"] == "cuda",
+                f"{name}: route {rt.LAST_ROUTE}")
+        require(Es.shape == (st.sigma.shape[0], n_ckpt)
+                and bool(torch.isfinite(Es).all()),
+                f"{name}: series {tuple(Es.shape)}, finite "
+                f"{bool(torch.isfinite(Es).all())}")
+        E_re = model.energy(st.sigma)
+        if model.J.dtype.is_floating_point:
+            # float32 E accumulated over ~1e5 moves at |E| ~ 1e4 (one ulp
+            # is 1e-3): 1e-4 per spin
+            err = float((E_re.double() - st.E.double()).abs().max())
+            require(err <= 1e-4 * model.N, f"{name}: |E - energy| = {err}")
+        else:
+            err = 0.0
+            require(torch.equal(E_re, st.E), f"{name}: E != energy(sigma)")
+        chains = st.sigma.shape[0]
+        rec = {"run": name, "seconds": dt, "launches": launched,
+               "chains": chains,
+               "E_per_spin": float(Es[:, -1].double().mean()) / model.N,
+               "energy_err": err}
+        if nominal is not None:
+            rec.update(rate=nominal * chains / dt,
+                       rate_unit=f"{unit}*chains/s")
+        if "z_over_n" in rt.LAST_ROUTE:
+            acc = rt.LAST_ROUTE["acc"].double()
+            rec["moves_per_chain"] = float(acc.mean())
+            rec["mean_z_over_n"] = float(
+                (rt.LAST_ROUTE["z_over_n"].double() / acc.clamp(min=1))
+                .mean())
+            rec["moves_rate"] = float(acc.sum()) / dt
+        records.append(rec)
+        print(f"{name}: E/N {rec['E_per_spin']:.5f}  [{card}]")
+        if "mean_z_over_n" in rec:
+            print(f"{name}: mean z/N {rec['mean_z_over_n']:.5f}  [{card}]")
+        if "rate" in rec:
+            print(f"{name}: {rec['rate']:.4g} {unit}*chains/s ({dt:.2f} s, "
+                  f"{launched} launches)  [{card}]")
+        else:
+            print(f"{name}: {dt:.2f} s, {launched} launches  [{card}]")
+    torch.cuda.synchronize()
+    return records, {name: mod.LAUNCHES for name, mod in mods.items()}
+
+
+def rrg_path(card):
+    """The RRG main path (the factor table's samplers) on GraphRRG(10^4,
+    3)."""
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree, site
 
@@ -270,58 +392,65 @@ def main_path(card):
          lambda: rt.bklMC(mn, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=5, device=DEV)),
     ]
-    torch.cuda.synchronize()
-    site.LAUNCHES = 0
-    rejfree.LAUNCHES = 0
-    records = []
-    for name, model, route, mod, nominal, unit, n_ckpt, call in runs:
-        before = mod.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        Es, st = call()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launched = mod.LAUNCHES - before
-        require(launched > 0, f"{name}: no kernel launch")
-        require(rt.LAST_ROUTE["backend"] == route
-                and rt.LAST_ROUTE["impl"] == "cuda",
-                f"{name}: route {rt.LAST_ROUTE}")
-        require(Es.shape == (CHAINS, n_ckpt)
-                and bool(torch.isfinite(Es).all()),
-                f"{name}: series {tuple(Es.shape)}, finite "
-                f"{bool(torch.isfinite(Es).all())}")
-        E_re = model.energy(st.sigma)
-        if model.J.dtype.is_floating_point:
-            # float32 E accumulated over ~1e5 moves at |E| ~ 1e4 (one ulp
-            # is 1e-3): 1e-4 per spin
-            err = float((E_re.double() - st.E.double()).abs().max())
-            require(err <= 1e-4 * model.N, f"{name}: |E - energy| = {err}")
-        else:
-            err = 0.0
-            require(torch.equal(E_re, st.E), f"{name}: E != energy(sigma)")
-        rec = {"run": name, "seconds": dt, "launches": launched,
-               "E_per_spin": float(Es[:, -1].double().mean()) / model.N,
-               "energy_err": err,
-               "rate": nominal * CHAINS / dt, "rate_unit":
-               f"{unit}*chains/s"}
-        if "z_over_n" in rt.LAST_ROUTE:
-            acc = rt.LAST_ROUTE["acc"].double()
-            rec["moves_per_chain"] = float(acc.mean())
-            rec["mean_z_over_n"] = float(
-                (rt.LAST_ROUTE["z_over_n"].double() / acc.clamp(min=1))
-                .mean())
-            rec["moves_rate"] = float(acc.sum()) / dt
-        records.append(rec)
-        print(f"{name}: E/N {rec['E_per_spin']:.5f}  [{card}]")
-        if "mean_z_over_n" in rec:
-            print(f"{name}: mean z/N {rec['mean_z_over_n']:.5f}  [{card}]")
-        print(f"{name}: {rec['rate']:.4g} {unit}*chains/s ({dt:.2f} s, "
-              f"{launched} launches)  [{card}]")
-    return records, {"site_metropolis": site.LAUNCHES,
-                     "rejfree_sparse": rejfree.LAUNCHES}
+    return _drive(runs, card, {"site_metropolis": site,
+                               "rejfree_sparse": rejfree})
+
+
+def ea_path(card):
+    """The EA-3D benchmark line and the samplers on its lattice, plus the
+    site-sweep route of sweepMC on GraphRRG(10^4, 3)."""
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch import bench
+    from rrrmc_tpu_torch.ops import rejfree, site, sweep
+
+    lat = rt.GraphEA(bench.L, bench.D, (-1, 1), seed=bench.SEED, device=DEV)
+    rrg = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    n = lat.N
+    iters_rrr, iters_bkl, wtm_samples = EA_ITERS_RRR, EA_ITERS_BKL, \
+        EA_WTM_SAMPLES
+    bench_out = {}
+
+    def run_bench():
+        """The benchmark's own runs; its series is the final energy."""
+        record, extra, model, st = bench.measure()
+        bench_out.update(record=record, extra=extra)
+        return model.to_physical(st.E)[:, None], st
+
+    runs = [
+        # the bench times its own runs: its rate is its metric, below
+        ("sweepMC EA-3D L=16 (bench)", lat, "kernel-sweep", sweep, None,
+         None, 1, run_bench),
+        ("rrrMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+         iters_rrr, "moves", 8,
+         lambda: rt.rrrMC(lat, BETA, iters_rrr, step=iters_rrr // 8,
+                          chains=CHAINS, seed=12, device=DEV)),
+        ("bklMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+         iters_bkl, "virtual iterations", 10,
+         lambda: rt.bklMC(lat, BETA, iters_bkl, step=iters_bkl // 10,
+                          chains=CHAINS, seed=13, device=DEV)),
+        ("wtmMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+         wtm_samples * n, "virtual iterations", wtm_samples,
+         lambda: rt.wtmMC(lat, BETA, wtm_samples, step=float(n),
+                          chains=CHAINS, seed=14, device=DEV)),
+        ("sweepMC GraphRRG (site sweeps)", rrg, "kernel-site-sweep", site,
+         RRG_SWEEPS, "sweeps", 10,
+         lambda: rt.sweepMC(rrg, BETA, RRG_SWEEPS, step=RRG_SWEEPS // 10,
+                            chains=CHAINS, seed=15, device=DEV)),
+    ]
+    records, counts = _drive(runs, card, {"sweep_checkerboard": sweep,
+                                          "rejfree_lattice": rejfree,
+                                          "site_metropolis": site})
+    record = bench_out["record"]
+    print(bench.card_line())
+    print(json.dumps(record))
+    records[0].update(bench=bench_out, rate=record["value"],
+                      rate_unit="attempted flips/s (bench: best of "
+                                f"{bench.REPS} runs of {bench.SWEEPS} sweeps)")
+    return records, counts
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -346,13 +475,32 @@ def main() -> int:
     for mode in ("bkl", "wtm", "rrr"):
         cases.append(rejfree_case(m, "RRG+-J", mode, card))
         cases.append(rejfree_case(mn, "RRGNormal", mode, card))
+    lat = rt.GraphEA(16, 3, (-1, 1), seed=42, device=DEV)
+    field = dataclasses.replace(lat, h=torch.as_tensor(
+        np.random.default_rng(SEED).integers(-2, 3, lat.N),
+        dtype=lat.h.dtype, device=DEV))
+    fixed = rt.GraphEA(16, 3, (-1.5, 0.5), seed=42, device=DEV)
+    cases.append(sweep_case(lat, "EA3D-L16+-J", 8192, card))
+    cases.append(sweep_case(field, "EA3D-L16+-J fields", CHAINS, card))
+    cases.append(sweep_case(fixed, "EA3D-L16 (-1.5,0.5) exp", CHAINS, card))
+    for mode in ("bkl", "wtm", "rrr"):
+        cases.append(rejfree_case(lat, "EA3D-L16+-J", mode, card,
+                                  kernel="rejfree_lattice"))
 
-    records, launches = main_path(card)
+    rrg_records, rrg_counts = rrg_path(card)
+    ea_records, ea_counts = ea_path(card)
+    print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts},
+                      "runs": rrg_records + ea_records}))
+    launches = {"site_metropolis": rrg_counts["site_metropolis"],
+                "rejfree_sparse": rrg_counts["rejfree_sparse"],
+                "rejfree_lattice": ea_counts["rejfree_lattice"],
+                "sweep_checkerboard": ea_counts["sweep_checkerboard"]}
 
     kernels = []
-    for name in ("site_metropolis", "rejfree_sparse"):
+    for name in ("site_metropolis", "rejfree_sparse", "rejfree_lattice",
+                 "sweep_checkerboard"):
         mine = [c for c in cases if c["kernel"] == name]
-        head = mine[0]   # times: the +-J case (site; race in bkl mode)
+        head = mine[0]   # times: the first +-J case (race: bkl mode)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

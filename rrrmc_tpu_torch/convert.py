@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .core.dtypes import ftype, itype
+from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
 from .samplers.common import DEFAULT_SEED, MCState, make_generator
 
@@ -41,6 +42,18 @@ def pairwise_from_arrays(neigh, J, h, offset, *, N: int, K: int,
                     h=put(h, dt), offset=put(np.asarray(offset), dt),
                     N=int(N), K=int(K), scale=float(scale),
                     classes=None if classes is None else tuple(classes))
+
+
+def lattice_from_arrays(Jd, h, L: int, D: int, scale: float,
+                        classes: Optional[Tuple[float, ...]] = None,
+                        device=None) -> LatticeEA:
+    """The port's LatticeEA from direction-major couplings Jd [D, L, ..., L]
+    and fields h [N] in internal units (for example a JAX LatticeEA's
+    `np.asarray(m.Jd)`, `np.asarray(m.h)`, `m.L`, `m.D`, `m.scale`,
+    `m.classes`). Integer arrays are stored as int32, float ones as
+    float32; the padded tables are rebuilt in the JAX package's order."""
+    return lattice_tensors(int(L), int(D), np.asarray(Jd), np.asarray(h),
+                           scale=scale, classes=classes, device=device)
 
 
 def state_from_arrays(model, sigma, E=None, accepted=None, *,

@@ -1,7 +1,9 @@
 // Rejection-free race kernel (bkl / wtm / rrr) on a sparse Pairwise model,
 // one thread block per chain. Replaces
-// rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_sparse_kernel; the wrapper and
-// the plain torch version are rrrmc_tpu_torch/ops/rejfree.py.
+// rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_sparse_kernel and, for integer
+// EA lattices (a LatticeEA is a sparse Pairwise with K = 2D), that file's
+// _rejfree_kernel; the wrapper and the plain torch version are
+// rrrmc_tpu_torch/ops/rejfree.py.
 //
 // The chain's spins (int8) and local fields (int32 or f32) stay resident in
 // dynamic shared memory for the whole chunk; sigma / lf are chain-major

@@ -1,5 +1,6 @@
-"""Graph constructors: EA lattices (L=2), random regular graphs, Ising1D,
-non-interacting fields, and trivial debug models.
+"""Graph constructors: EA lattices (the roll-based LatticeEA for L > 2, the
+generic Pairwise with doubled edges for L = 2), random regular graphs,
+Ising1D, non-interacting fields, and trivial debug models.
 
 Disorder is generated on the host in numpy with the JAX package's exact
 generators (rrrmc_tpu/models/graphs.py), so the same seed gives identical
@@ -12,6 +13,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .lattice import lattice_ea_from_levels, lattice_ea_normal
 from .pairwise import (Pairwise, make_pairwise, infer_integer_scale,
                        enumerate_pair_classes)
 
@@ -108,12 +110,12 @@ def _needs(what: str, item: str):
 
 def GraphEA(L: int, D: int, LEV: Tuple[float, ...] = (-1, 1), *, seed=None,
             device=None) -> Pairwise:
-    """Edwards-Anderson lattice (the reference's GraphEA). Only L = 2, the
-    generic Pairwise path with doubled parallel edges, is ported; L > 2 is
-    the roll-based LatticeEA."""
-    if L > 2:
-        _needs("GraphEA with L > 2 (LatticeEA)", "item 7")
+    """Edwards-Anderson lattice (the reference's GraphEA). For L > 2 the
+    roll-based LatticeEA (the checkerboard sweep kernel's model); L = 2 keeps
+    the generic Pairwise path with doubled parallel edges."""
     rng = _rng(seed)
+    if L > 2:
+        return lattice_ea_from_levels(L, D, LEV, rng, device=device)
     adj = gen_ea_adjacency(L, D)
     lev = [float(l) for l in LEV]
     J = assign_edge_couplings(adj, lambda: float(rng.choice(lev)))
@@ -121,11 +123,11 @@ def GraphEA(L: int, D: int, LEV: Tuple[float, ...] = (-1, 1), *, seed=None,
 
 
 def GraphEANormal(L: int, D: int, *, seed=None, device=None) -> Pairwise:
-    """EA with unit-variance Gaussian J (the reference's GraphEANormal);
-    L = 2 only, as GraphEA."""
-    if L > 2:
-        _needs("GraphEANormal with L > 2 (LatticeEA)", "item 7")
+    """EA with unit-variance Gaussian J (the reference's GraphEANormal),
+    float32; a LatticeEA for L > 2, as GraphEA."""
     rng = _rng(seed)
+    if L > 2:
+        return lattice_ea_normal(L, D, rng, device=device)
     adj = gen_ea_adjacency(L, D)
     J = assign_edge_couplings(adj, lambda: float(rng.standard_normal()))
     return make_pairwise(adj, J, L ** D, device=device)

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (rrrmc_tpu_torch/csrc/*.cu).
 
 At first use, `nvcc` compiles every source into one shared library with a
-plain C interface, for the H100 (`sm_90a`), into rrrmc_tpu_torch/_build/; the
-file is named by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the library. It is loaded with ctypes, every pointer and
+plain C interface, for the H100 (`sm_90a`), into rrrmc_tpu_torch/_build/: one
+`nvcc -c` per source, all started together, then one link. The library is
+named by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses it. It is loaded with ctypes, every pointer and
 the stream passed as c_void_p. A missing nvcc or a failed build raises; there
 is no fallback.
 
@@ -26,8 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _P, _I, _U, _F, _Z = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_size_t)
@@ -40,6 +40,10 @@ _SIGNATURES = {
                                   _I, _I, _P]),
     "rrrmc_rejfree_sparse_smem": (_Z, [_I, _I]),
     "rrrmc_rejfree_sparse_max_smem": (_I, [_I]),
+    "rrrmc_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
+                         _U, _F, _P]),
+    "rrrmc_sweep_smem": (_Z, [_I, _I]),
+    "rrrmc_sweep_max_smem": (_I, [_I]),
 }
 
 _lib = None
@@ -83,20 +87,34 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               *map(str, cu)],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cu, objs)]
+        logs = []
+        try:
+            for p, proc in zip(cu, procs):
+                out, _ = proc.communicate(timeout=900)
+                logs.append(f"{p.name}:\n{out}")
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {p.name} "
+                                       f"({proc.returncode}):\n{out}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, so.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info["log"] = proc.stdout + proc.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, so)
+    build_info["log"] = "\n".join(logs)
     return so
 
 

@@ -11,7 +11,13 @@ Stream layout, shared by every kernel and its plain version:
 * counter = (word index, move, draw id, 0), with draw ids
   DRAW_RACE = 0 (race: word w covers sites 4w..4w+3), DRAW_ACCEPT = 1 (rrr
   acceptance), DRAW_SKIP = 2 (bkl geometric skip) and DRAW_SITE = 0 (site
-  Metropolis acceptance). Single draws use word 0 of counter (0, move, id, 0).
+  Metropolis acceptance). Single draws use word 0 of counter (0, move, id, 0);
+* the checkerboard sweep (DRAW_SWEEP = 3) numbers its colour steps
+  t = 2 * sweep + colour in place of the move, sweeps counted across launches
+  (`sweep0`). On an even-L lattice the sites 2k and 2k + 1 differ in colour,
+  so k = i // 2 is distinct within one colour class: site i takes word
+  k % 4 of counter (k // 4, t, DRAW_SWEEP, 0), and no word is spent on the
+  other colour.
 
 Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
 product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
@@ -26,6 +32,7 @@ DRAW_RACE = 0
 DRAW_ACCEPT = 1
 DRAW_SKIP = 2
 DRAW_SITE = 0
+DRAW_SWEEP = 3
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -86,6 +93,20 @@ def race_bits(seed: int, chain0: int, B: int, N: int, move0: int, n: int,
     mv = _moves(move0, n, device)[:, None, None]
     ws = philox4x32_10((widx, mv, DRAW_RACE, 0), (k0, k1[:, None]))
     return as_int32(torch.stack(ws, dim=-1).reshape(n, B, 4 * W)[..., :N])
+
+
+def sweep_bits(seed: int, chain0: int, B: int, N: int, sweep: int,
+               colour: int, device) -> torch.Tensor:
+    """[B, N] int32 bits of one checkerboard colour step: site i takes word
+    (i // 2) % 4 of counter ((i // 2) // 4, 2 * sweep + colour, DRAW_SWEEP,
+    0) (only the sites of that colour use theirs)."""
+    k0, k1 = chain_keys(seed, chain0, B, device)
+    W = -(-N // 8)
+    widx = torch.arange(W, dtype=torch.int64, device=device)
+    t = (2 * sweep + colour) & _MASK
+    ws = philox4x32_10((widx, t, DRAW_SWEEP, 0), (k0, k1[:, None]))
+    words = torch.stack(ws, dim=-1).reshape(B, 4 * W)
+    return as_int32(words.repeat_interleave(2, dim=1)[:, :N])
 
 
 def per_move(make, n_moves: int, block: int):

@@ -16,6 +16,15 @@ per-move stream rows. A flip updates only the winner's K neighbours through
 its own table row, where the TPU kernel compared every site's K inverse
 columns because it had no gather.
 
+The same kernel is the port of
+rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_kernel, the TPU race on integer
+LatticeEA: to the race a lattice is a sparse Pairwise with K = 2D (LatticeEA
+keeps the padded tables), and that kernel's roll identity for the local
+fields existed only because Mosaic has no gather. The JAX package's switch
+of small lattices (N <= _LATTICE_DENSE_MAX) to the dense matmul race kernel
+is a VMEM heuristic and is not carried over: every integer lattice takes
+this kernel (5 bytes per site, 20 KB at L=16, D=3).
+
 The race: score_i = log(-log u_i) + beta2s * max(sigma_i lf_i, 0) over the
 N sites, winner = argmin (lowest index on ties), z from a shifted
 log-sum-exp. bkl advances its coordinate by a geometric skip + 1, wtm by

@@ -137,10 +137,6 @@ def test_ea_instance_file(tmp_path):
 
 
 def test_unported_constructors_raise():
-    with pytest.raises(NotImplementedError, match="LatticeEA"):
-        pt.GraphEA(4, 3)
-    with pytest.raises(NotImplementedError, match="LatticeEA"):
-        pt.GraphEANormal(4, 2)
     for build in (lambda: pt.GraphRRGNormalDiscretized(12, 3, (-1, 1)),
                   lambda: pt.GraphEANormalDiscretized(2, 2, (-1, 1)),
                   lambda: pt.GraphFieldsNormalDiscretized(8, (-1, 1))):

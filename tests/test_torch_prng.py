@@ -58,6 +58,25 @@ def test_stream_layout():
                                        0)
 
 
+def test_sweep_stream_layout():
+    """sweep_bits[b, i] of colour step (sweep, colour) is word (i // 2) % 4
+    of counter ((i // 2) // 4, 2 * sweep + colour, DRAW_SWEEP, 0): the two
+    sites of a pair share a word, so one colour class uses each word
+    once."""
+    seed, chain0, B, N, sw = 77, 3, 2, 36, 1234
+    for colour in (0, 1):
+        bits = prng.sweep_bits(seed, chain0, B, N, sw, colour, "cpu")
+        assert bits.shape == (B, N) and bits.dtype == torch.int32
+        for b, i in [(0, 0), (1, 7), (0, 17), (1, 35)]:
+            k = i // 2
+            want = _word(seed, chain0 + b,
+                         (k // 4, 2 * sw + colour, prng.DRAW_SWEEP, 0), k % 4)
+            assert int(bits[b, i]) == want
+        assert torch.equal(bits[:, 0::2], bits[:, 1::2])
+    assert prng.DRAW_SWEEP not in (prng.DRAW_RACE, prng.DRAW_ACCEPT,
+                                   prng.DRAW_SKIP)
+
+
 def test_streams_independent_of_batch_layout():
     whole = prng.race_bits(9, 0, 8, 13, 5, 3, "cpu")
     part = prng.race_bits(9, 4, 4, 13, 5, 3, "cpu")

@@ -1,7 +1,9 @@
 """The port's sparse race moves (rrrmc_tpu_torch/ops/rejfree.py) against the
-JAX Pallas sparse race kernel run in interpret mode, on identical tables,
-spins and random bits, for bkl, wtm and rrr; plus the port's Philox streams
-and eligibility rule."""
+JAX Pallas race kernels run in interpret mode, on identical tables, spins and
+random bits, for bkl, wtm and rrr: the sparse kernel on random regular
+graphs, and the lattice kernel (`_rejfree_kernel`, which the port folds into
+the sparse one) on EA lattices; plus the port's Philox streams and
+eligibility rule."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,8 @@ import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import rejfree
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype, rejfree_sparse_chunk
 
-from torch_port_helpers import (pallas_interpret, port_model, race_bits,
+from torch_port_helpers import (lattice_race_bits, pallas_interpret,
+                                port_lattice, port_model, race_bits,
                                 random_sigma)
 
 torch.set_num_threads(1)
@@ -105,6 +108,68 @@ def test_chunk_matches_jax_interpret(rejfree_pallas, mode, coupling):
     np.testing.assert_allclose(p["zacc"][same], j["zacc"][same], rtol=1e-5)
     lf_re = pm.local_fields(torch.from_numpy(p["sigma"])).numpy()
     np.testing.assert_allclose(p["lf"], lf_re, atol=1e-4)
+
+
+#: targets that stop about half the lattice chains mid-chunk (rrr: all at
+#: move 40)
+LATTICE_TARGETS = {"bkl": 200, "wtm": 3.1, "rrr": 40}
+
+
+@pytest.mark.parametrize("beta", [1.0, 2.0])
+@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
+def test_lattice_chunk_matches_jax_interpret(rejfree_pallas, mode, beta):
+    """A LatticeEA is a sparse Pairwise with K = 2D to the race: the port's
+    race chunk on EA-3D L=4 +-J equals the JAX lattice kernel
+    (`_pallas_rejfree_chunk`, lattice local fields by rolls) with its bits
+    mapped (the bkl skip at salt 3m + 1). Spins, E, acc, the E stream and
+    the bkl / rrr coordinates are EQUAL; the wtm clock and z/N within
+    rtol 1e-6, float32 sums taken in another order (the JAX kernel sums
+    exp(-bE), the port a shifted log-sum-exp)."""
+    jm = rt.GraphEA(4, 3, (-1, 1), seed=4)
+    N = jm.N
+    rng = np.random.default_rng(8)
+    sigma = random_sigma(rng, B, N)
+    sig_j = jnp.asarray(sigma)
+    E0 = np.asarray(jax.vmap(jm.energy)(sig_j)).astype(np.int32)
+    Jp, Jm = rejfree_pallas._build_dir_tables(jm)
+    ct = jnp.float32 if mode == "wtm" else jnp.int32
+    target = LATTICE_TARGETS[mode]
+    out = rejfree_pallas._pallas_rejfree_chunk(
+        sig_j, jnp.asarray(E0), jnp.zeros(B, ct), jnp.zeros(B, jnp.int32),
+        jnp.zeros(B, jnp.float32), jnp.asarray(Jp), jnp.asarray(Jm),
+        jnp.asarray(np.asarray(jm.h, np.int32).reshape(N, 1)),
+        jnp.asarray([SEED], jnp.int32), jnp.asarray([2 * beta], jnp.float32),
+        jnp.asarray([target], ct), L=jm.L, D=jm.D, block_chains=B,
+        n_moves=N_MOVES, mode=mode)
+    j = {k: np.asarray(v) for k, v in zip(
+        ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
+
+    pm = port_lattice(jm)
+    assert rejfree.sparse_rejfree_ok(pm)
+    sig = torch.from_numpy(sigma.copy())
+    lf = pm.local_fields(sig)
+    E = torch.from_numpy(E0.copy())
+    coord = torch.zeros(B, dtype=coord_dtype(mode))
+    acc = torch.zeros(B, dtype=torch.int32)
+    zacc = torch.zeros(B, dtype=torch.float32)
+    cs, es = rejfree_sparse_chunk(
+        sig, lf, E, coord, acc, zacc, pm.neigh, pm.J, mode=mode,
+        n_moves=N_MOVES, beta2s=2 * beta * pm.scale, target=target,
+        seed=SEED, bits=lattice_race_bits(SEED, B, N))
+    p = dict(sigma=sig, E=E, coord=coord, acc=acc, zacc=zacc, cs=cs, es=es)
+    p = {k: v.numpy() for k, v in p.items()}
+    done = (j["coord"] >= target).sum()
+    assert 0 < done < B or mode == "rrr", done   # chains stop mid-chunk
+    for key in ("sigma", "E", "acc", "es"):
+        np.testing.assert_array_equal(p[key], j[key], err_msg=key)
+    if mode == "wtm":
+        np.testing.assert_allclose(p["coord"], j["coord"], rtol=1e-6)
+        np.testing.assert_allclose(p["cs"], j["cs"], rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(p["coord"], j["coord"])
+        np.testing.assert_array_equal(p["cs"], j["cs"])
+    np.testing.assert_allclose(p["zacc"], j["zacc"], rtol=1e-6)
+    assert torch.equal(lf, pm.local_fields(sig))
 
 
 @pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])

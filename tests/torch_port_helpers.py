@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 import rrrmc_tpu_torch as pt
+from rrrmc_tpu_torch.ops import prng
 
 #: rrrmc_tpu/ops/prng.py's GOLD and per-kernel salt multiplier
 _GOLD = -1640531527
@@ -24,6 +25,12 @@ def port_model(jm):
         np.asarray(jm.neigh), np.asarray(jm.J), np.asarray(jm.h),
         np.asarray(jm.offset), N=jm.N, K=jm.K, scale=jm.scale,
         classes=jm.classes)
+
+
+def port_lattice(jm):
+    """The port's LatticeEA with the JAX LatticeEA's couplings and fields."""
+    return pt.lattice_from_arrays(np.asarray(jm.Jd), np.asarray(jm.h), jm.L,
+                                  jm.D, jm.scale, jm.classes)
 
 
 def random_sigma(rng: np.random.Generator, B: int, N: int) -> np.ndarray:
@@ -64,20 +71,37 @@ def site_bits(seed: int, B: int):
         interpret_bits((1, B), s0 + m)[0].copy())
 
 
-def race_bits(seed: int, B: int, N: int, NP: int):
+def race_bits(seed: int, B: int, N: int, NP: int, skip_salt: int = 2):
     """bits(m, draw) of the JAX sparse race kernel (one block of B chains):
     salts 3m (race, [NP, B] sliced to the N physical rows and transposed to
-    the port's [B, N]), 3m + 1 (rrr accept) and 3m + 2 (bkl skip)."""
+    the port's [B, N]), 3m + 1 (rrr accept) and 3m + skip_salt (bkl skip)."""
     s0 = _salt0(seed)
 
     def bits(m, d):
         if d == 0:
             b = interpret_bits((NP, B), s0 + 3 * m)[:N].T
         else:
-            b = interpret_bits((1, B), s0 + 3 * m + d)[0]
+            off = skip_salt if d == prng.DRAW_SKIP else d
+            b = interpret_bits((1, B), s0 + 3 * m + off)[0]
         return torch.from_numpy(np.ascontiguousarray(b))
 
     return bits
+
+
+def lattice_race_bits(seed: int, B: int, N: int):
+    """bits(m, draw) of the JAX lattice race kernel (`_rejfree_kernel`): as
+    the sparse kernel's with NP = N, but its bkl skip is drawn at salt
+    3m + 1, the rrr acceptance's salt (the two modes never share a move)."""
+    return race_bits(seed, B, N, N, skip_salt=1)
+
+
+def sweep_bits(seed: int, B: int, N: int):
+    """bits(sweep, colour) of the JAX checkerboard sweep kernel (one block
+    of B chains): salt salt0 + 2 * sweep + colour, one [N, B] draw per
+    colour step, transposed to the port's [B, N]."""
+    s0 = _salt0(seed)
+    return lambda sw, c: torch.from_numpy(np.ascontiguousarray(
+        interpret_bits((N, B), s0 + 2 * sw + c).T))
 
 
 @contextmanager
