@@ -28,10 +28,42 @@ Phases, any failure exits non-zero:
      L=16 with 8192 chains) and its metric line, then bklMC, wtmMC and rrrMC
      on that lattice with 1024 chains, and sweepMC on GraphRRG(10_000, 3)
      through the site-sweep route.
+   - dense SK: sweepMC on GraphSK(1024, seed=4) with 8192 chains and on
+     GraphSK(8192, seed=4) with 2048 chains at beta=2 (the dense sweep
+     kernel), bklMC and wtmMC at beta=4 and rrrMC at beta=2 on
+     GraphSK(1024) with 1024 chains, bklMC on GraphSKNormal(4096) with 128
+     chains, and bklMC on densify(GraphRRG(10_000, 3)) beside bklMC on the
+     sparse GraphRRG(10_000, 3), 1024 chains, beta=4, one seed (the dense
+     and the sparse race kernel make the same moves from the same streams).
+     GraphSK(1024) is built, and sampled by sweepMC and bklMC, with no
+     device given: the card is the default.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
    couplings).
+
+The dense-model phases of 2 are the dense sweep kernel on GraphSK(1024)
+with 8192 chains (3 sweeps) and GraphSK(8192) with 2048 chains (1 sweep),
+then on its other code paths with 1024 chains (1 sweep each): GraphSK(1100)
+(N % 4 != 0, the scalar commit) and GraphSK(1024) with integer fields; and
+the dense race kernel on GraphSK(1024) with 1024 chains at beta=4 (one
+1024-move chunk per mode), densify(GraphRRG(10_000, 3)) with 1024 chains
+and GraphSKNormal(4096) with 128 chains (bkl), the main paths' shapes.
+Each pair of TPU kernels that the
+VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`, `_rejfree_dense_kernel` /
+`_rejfree_stream_kernel`) is one CUDA kernel here; the record lists each TPU
+kernel with the cases and main-path runs of the regime the TPU would have
+sent to it (J within VMEM: the N=1024 models; else streamed).
+
+Every kernel entry of the record carries `bound_ms`, the least time the
+card could take for the timed call: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s, and its
+operations over 67 TFLOP/s (the float32 and integer work runs outside the
+tensor cores), counted from this run's data as `_ops_*` say, plus the dense
+sweep's rank-W commit (the TPU kernel's int8 MXU product) over the int8
+tensor-core rate, 1,979 TOP/s; and
+`library_ms`, null: no single PyTorch call computes a Metropolis sweep or a
+race move.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
@@ -51,7 +83,8 @@ N_MAIN = 10_000
 BETA = 2.0
 CHAINS = 1024
 #: main-path run lengths, each sized to take seconds on an H100
-ITERS_MET, ITERS_RRR, ITERS_BKL, WTM_SAMPLES = 3_000_000, 32_768, 2_000_000, 200
+ITERS_MET, ITERS_RRR = 3_000_000, 32_768
+ITERS_BKL, WTM_SAMPLES = 2_000_000, 200
 #: EA-3D path: the race samplers' run lengths on the L=16 lattice, and the
 #: site-sweep route's sweeps on GraphRRG
 EA_ITERS_RRR, EA_ITERS_BKL, EA_WTM_SAMPLES = 16_384, 1_000_000, 100
@@ -61,6 +94,14 @@ RRG_SWEEPS = 100
 #: takes ~0.3 ms per move); the sweep kernel 100 sweeps (its plain version
 #: takes ~20 ms per sweep at 8192 chains)
 SITE_MOVES, RACE_MOVES, SWEEPS = 10_000, 1024, 100
+#: dense SK path: sweeps of the two sweepMC runs, and the race samplers'
+#: run lengths on GraphSK(1024) and the other dense models
+SK_SWEEPS, SK8_SWEEPS = 500, 20
+SK_ITERS_BKL, SK_ITERS_RRR, SK_WTM_SAMPLES = 1_000_000, 16_384, 500
+SKN_ITERS_BKL, DRRG_ITERS_BKL = 2_000_000, 10_000_000
+#: sweeps per dense-sweep comparison (the plain version takes ~1 ms per
+#: site at these shapes)
+SK_CMP_SWEEPS, SK8_CMP_SWEEPS = 3, 1
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 REPLACES = {
@@ -68,19 +109,55 @@ REPLACES = {
     "rejfree_sparse": "rrrmc_tpu/ops/rejfree_pallas.py:870",
     "rejfree_lattice": "rrrmc_tpu/ops/rejfree_pallas.py:118",
     "sweep_checkerboard": "rrrmc_tpu/ops/sweep_pallas.py:64",
+    "sk_sweep": "rrrmc_tpu/ops/sk_pallas.py:77",
+    "sk_sweep_hbm": "rrrmc_tpu/ops/sk_pallas.py:115",
+    "rejfree_dense": "rrrmc_tpu/ops/rejfree_pallas.py:349",
+    "rejfree_stream": "rrrmc_tpu/ops/rejfree_pallas.py:559",
 }
 SOURCES = {
     "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
     "rejfree_sparse": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
     "rejfree_lattice": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
     "sweep_checkerboard": "rrrmc_tpu_torch/csrc/sweep.cu",
+    "sk_sweep": "rrrmc_tpu_torch/csrc/sk_sweep.cu",
+    "sk_sweep_hbm": "rrrmc_tpu_torch/csrc/sk_sweep.cu",
+    "rejfree_dense": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
+    "rejfree_stream": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
 }
+#: the H100 SXM's published device-memory rate, float32 rate outside the
+#: tensor cores, and int8 tensor-core rate (dense)
+HBM_BYTES_PER_S, F32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 67e12, 1.979e15
+#: operations of one Philox4x32-10 call: 10 rounds of two 32-bit products
+#: with their high halves, two xors and two key additions
+PHILOX_OPS = 80
 
 
 def require(ok: bool, what: str):
     """A check that stays under python -O."""
     if not ok:
         raise AssertionError(what)
+
+
+def bound(nbytes: float, ops: float, int8_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    the operations' time: `ops` over the float32 rate plus `int8_ops` (the
+    products a TPU kernel ran on its MXU) over the int8 tensor-core rate."""
+    tb = nbytes / HBM_BYTES_PER_S
+    to = ops / F32_OPS_PER_S + int8_ops / INT8_OPS_PER_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def _ops_race(N, moves, applied, mode, flip_sites):
+    """A race move over N sites: a quarter Philox call, the score (two logs,
+    an add, a compare) and the Boltzmann term (3) per site, the min and the
+    log-sum-exp pass (4 per site), rrr's z' pass again (5 per site); an
+    applied flip updates `flip_sites` fields (a product and an add each)."""
+    per_site = PHILOX_OPS / 4 + 8 + 4 + (5 if mode == "rrr" else 0)
+    return moves * N * per_site + applied * 2 * flip_sites
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -194,11 +271,18 @@ def site_case(model, label, card):
     integer = not model.J.dtype.is_floating_point
     bad, err, errs = _compare(f"site {label}", integer, kern, plain, B,
                               model.N)
+    # a move: one Philox call, dE, exp and the compare; an applied flip
+    # updates K neighbours' fields
+    applied = float(k["acc"].double().sum())
+    bound_ms, bound_by = bound(
+        2 * _nbytes(*base.values()) + _nbytes(sites, model.neigh, model.J),
+        B * n_moves * (PHILOX_OPS + 4) + applied * 2 * model.K)
     print(f"site_metropolis {label} B={B} moves={n_moves}: kernel {ms:.3f} ms"
-          f", plain {plain_ms:.1f} ms, diverged chains {bad}, max abs err "
-          f"{err:.3g} [{card}]")
+          f", plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
+          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
     return {"kernel": "site_metropolis", "case": label, "B": B,
             "moves": n_moves, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "diverged": bad, "max_abs_err": err, "errs": errs}
 
 
@@ -229,20 +313,40 @@ def sweep_case(model, label, B, card):
             f"({int((ks != ps).any(dim=1).sum())} chains)")
     require(torch.equal(model.energy(ks), kE),
             f"sweep {label}: E != energy(sigma)")
+    # an attempted flip: a quarter Philox call, the 2D neighbour products
+    # and sums, the threshold and the compare
+    bound_ms, bound_by = bound(
+        2 * _nbytes(st.sigma, st.E) + _nbytes(sw.Jp, sw.Jm, sw.th),
+        B * model.N * SWEEPS * (PHILOX_OPS / 4 + 4 * model.D + 3))
     print(f"sweep_checkerboard {label} B={B} sweeps={SWEEPS} table="
-          f"{sw.table}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal "
-          f"[{card}]")
+          f"{sw.table}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.3g} ms ({bound_by}), equal [{card}]")
     return {"kernel": "sweep_checkerboard", "case": label, "B": B,
             "sweeps": SWEEPS, "table": sw.table, "ms": ms,
-            "plain_ms": plain_ms, "diverged": 0, "max_abs_err": 0.0}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "diverged": 0, "max_abs_err": 0.0}
 
 
-def rejfree_case(model, label, mode, card, kernel="rejfree_sparse"):
+def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
+                 B=CHAINS, beta=BETA):
+    """A race kernel against its plain version for one 1024-move chunk of B
+    chains: the sparse kernel on a Pairwise model, the dense one on a
+    FullyConnected model."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree
+    from rrrmc_tpu_torch.ops import rejfree, rejfree_dense
 
-    B, n_moves = CHAINS, RACE_MOVES
+    n_moves = RACE_MOVES
+    if isinstance(model, rt.FullyConnected):
+        chunk = rejfree_dense.rejfree_dense_chunk
+        ref = rejfree_dense.rejfree_dense_chunk_reference
+        tables = (rejfree_dense.kernel_couplings(model),)
+        flip_sites = model.N
+    else:
+        chunk = rejfree.rejfree_sparse_chunk
+        ref = rejfree.rejfree_sparse_chunk_reference
+        tables = (model.neigh, model.J)
+        flip_sites = model.K
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     ct = rejfree.coord_dtype(mode)
     z = dict(device=DEV)
@@ -250,7 +354,7 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse"):
                 E=st.E.clone(), coord=torch.zeros(B, dtype=ct, **z),
                 acc=torch.zeros(B, dtype=torch.int32, **z),
                 zacc=torch.zeros(B, dtype=torch.float32, **z))
-    kw = dict(mode=mode, n_moves=n_moves, beta2s=2 * BETA * model.scale,
+    kw = dict(mode=mode, n_moves=n_moves, beta2s=2 * beta * model.scale,
               seed=SEED, move0=0, chain0=0)
 
     def fresh():
@@ -258,8 +362,8 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse"):
 
     def run(fn, a, target):
         a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
-                              a["acc"], a["zacc"], model.neigh, model.J,
-                              target=target, **kw)
+                              a["acc"], a["zacc"], *tables, target=target,
+                              **kw)
 
     # a warm-up launch, then a timed one, with an unreachable target as on
     # the main path; then half the chains stop mid-chunk at the median
@@ -267,31 +371,89 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse"):
     # compared too
     unreachable = 1e30 if mode == "wtm" else 2 ** 30
     probe = fresh()
-    run(rejfree.rejfree_sparse_chunk, probe, unreachable)
+    run(chunk, probe, unreachable)
     full = fresh()
-    ms_full = _events_ms(
-        lambda: run(rejfree.rejfree_sparse_chunk, full, unreachable))
+    ms_full = _events_ms(lambda: run(chunk, full, unreachable))
     require(all(torch.equal(probe[key], full[key]) for key in probe),
             f"rejfree {mode} {label}: two launches on one input differ")
     target = probe["coord"].double().median().item()
     target = {"wtm": float(target), "bkl": max(int(target), 1),
               "rrr": n_moves // 2}[mode]
     k = fresh()
-    ms = _events_ms(lambda: run(rejfree.rejfree_sparse_chunk, k, target))
+    ms = _events_ms(lambda: run(chunk, k, target))
     p = fresh()
-    plain_ms = _events_ms(
-        lambda: run(rejfree.rejfree_sparse_chunk_reference, p, target))
+    plain_ms = _events_ms(lambda: run(ref, p, target))
     integer = not model.J.dtype.is_floating_point
     bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
                               model.N)
+    applied = float(k["acc"].double().sum())
+    moves = float(k["coord"].double().sum()) if mode == "rrr" else applied
+    bound_ms, bound_by = bound(
+        2 * _nbytes(*base.values()) + _nbytes(*tables, k["cs"], k["es"]),
+        _ops_race(model.N, moves, applied, mode, flip_sites))
     print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
-          f"{plain_ms:.1f} ms, diverged chains {bad}, max abs err "
-          f"{err:.3g} [{card}]")
+          f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
+          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
     return {"kernel": kernel, "case": f"{mode} {label}", "B": B,
             "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
-            "plain_ms": plain_ms, "diverged": bad, "max_abs_err": err,
-            "errs": errs}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "diverged": bad, "max_abs_err": err, "errs": errs}
+
+
+def sk_case(model, label, B, n_sweeps, card, kernel):
+    """The dense sweep kernel against its plain version: n_sweeps sweeps of
+    B chains from one random start, one Philox seed; spins, local fields
+    and energies must be EQUAL (integer arithmetic, one threshold table)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import sk
+
+    sw = sk.SKSweeper(model, BETA)
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    lf0 = model.local_fields(st.sigma)
+
+    def run(fn, sweeps=n_sweeps, sigma=st.sigma, lf=lf0, E=st.E, sweep0=0):
+        sigma, lf, E = sigma.clone(), lf.clone(), E.clone()
+        ms = _events_ms(lambda: fn(sigma, lf, E, sw.J8, sw.th,
+                                   n_sweeps=sweeps, seed=SEED,
+                                   sweep0=sweep0))
+        return sigma, lf, E, ms
+
+    run(sk.sk_sweep_chunk)                                # warm-up
+    ks, klf, kE, ms = run(sk.sk_sweep_chunk)
+    ps, plf, pE, plain_ms = run(sk.sk_sweep_chunk_reference)
+    same = torch.equal(ks, ps) and torch.equal(klf, plf) \
+        and torch.equal(kE, pE)
+    require(same, f"sk_sweep {label}: kernel and plain differ "
+                  f"({int((ks != ps).any(dim=1).sum())} chains)")
+    require(torch.equal(model.energy(ks), kE)
+            and torch.equal(model.local_fields(ks), klf),
+            f"sk_sweep {label}: E or lf != recomputed")
+    # accepted flips, one sweep at a time (a site flips at most once per
+    # sweep): the commits' work depends on them
+    flips, sig, lf, E = 0, st.sigma, lf0, st.E
+    for s_ in range(n_sweeps):
+        s2, lf, E, _ = run(sk.sk_sweep_chunk, 1, sig, lf, E, s_)
+        flips += int((s2 != sig).sum())
+        sig = s2
+    require(torch.equal(sig, ks), f"sk_sweep {label}: split launches differ")
+    # an attempted flip: a quarter Philox call, the threshold and compare;
+    # an accepted one adds its row of J to the chain's N local fields, a
+    # product and an add each: the rank-W commit, the TPU kernel's int8 MXU
+    # product, at the int8 tensor-core rate
+    bound_ms, bound_by = bound(
+        2 * _nbytes(st.sigma, lf0, st.E) + _nbytes(sw.J8, sw.th),
+        B * model.N * n_sweeps * (PHILOX_OPS / 4 + 4),
+        int8_ops=flips * 2 * model.N)
+    print(f"{kernel} {label} B={B} sweeps={n_sweeps}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
+          f"accepted {flips / (B * model.N * n_sweeps):.4f} of the attempts,"
+          f" equal [{card}]")
+    return {"kernel": kernel, "case": label, "B": B, "sweeps": n_sweeps,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "accepted": flips, "diverged": 0,
+            "max_abs_err": 0.0}
 
 
 def _drive(runs, card, mods):
@@ -449,6 +611,70 @@ def ea_path(card):
     return records, counts
 
 
+def dense_path(card, sk1, sk8, skn, drrg, rrg):
+    """The dense SK path: sweepMC on both SK sizes, the race samplers on
+    GraphSK(1024) and GraphSKNormal(4096), and bklMC on a densified RRG
+    beside the sparse race on the same graph, same seed. Returns the run
+    records, the path's launch counts and the launches of each run."""
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree, rejfree_dense, sk
+
+    b4 = 4.0
+    n1 = sk1.N
+    runs = [
+        ("sweepMC GraphSK(1024)", sk1, "kernel-sk-sweep", sk,
+         SK_SWEEPS * n1, "attempted flips", 10,
+         lambda: rt.sweepMC(sk1, BETA, SK_SWEEPS, step=SK_SWEEPS // 10,
+                            chains=8192, seed=21)),
+        ("sweepMC GraphSK(8192)", sk8, "kernel-sk-sweep", sk,
+         SK8_SWEEPS * sk8.N, "attempted flips", 10,
+         lambda: rt.sweepMC(sk8, BETA, SK8_SWEEPS, step=SK8_SWEEPS // 10,
+                            chains=2048, seed=22, device=DEV)),
+        ("bklMC GraphSK(1024) beta=4", sk1, "kernel-rejfree-dense",
+         rejfree_dense, SK_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(sk1, b4, SK_ITERS_BKL, step=SK_ITERS_BKL // 10,
+                          chains=CHAINS, seed=23)),
+        ("wtmMC GraphSK(1024) beta=4", sk1, "kernel-rejfree-dense",
+         rejfree_dense, SK_WTM_SAMPLES * n1, "virtual iterations",
+         SK_WTM_SAMPLES,
+         lambda: rt.wtmMC(sk1, b4, SK_WTM_SAMPLES, step=float(n1),
+                          chains=CHAINS, seed=24, device=DEV)),
+        ("rrrMC GraphSK(1024)", sk1, "kernel-rejfree-dense", rejfree_dense,
+         SK_ITERS_RRR, "moves", 8,
+         lambda: rt.rrrMC(sk1, BETA, SK_ITERS_RRR, step=SK_ITERS_RRR // 8,
+                          chains=CHAINS, seed=25, device=DEV)),
+        ("bklMC GraphSKNormal(4096) beta=4", skn, "kernel-rejfree-dense",
+         rejfree_dense, SKN_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(skn, b4, SKN_ITERS_BKL, step=SKN_ITERS_BKL // 10,
+                          chains=128, seed=26, device=DEV)),
+        ("bklMC densify(GraphRRG(10^4)) beta=4", drrg, "kernel-rejfree-dense",
+         rejfree_dense, DRRG_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(drrg, b4, DRRG_ITERS_BKL,
+                          step=DRRG_ITERS_BKL // 10, chains=CHAINS, seed=27,
+                          device=DEV)),
+        ("bklMC GraphRRG(10^4) beta=4 (sparse)", rrg,
+         "kernel-rejfree-sparse", rejfree, DRRG_ITERS_BKL,
+         "virtual iterations", 10,
+         lambda: rt.bklMC(rrg, b4, DRRG_ITERS_BKL, step=DRRG_ITERS_BKL // 10,
+                          chains=CHAINS, seed=27, device=DEV)),
+    ]
+    records, counts = _drive(runs, card, {"sk_sweep": sk,
+                                          "rejfree_dense": rejfree_dense,
+                                          "rejfree_sparse": rejfree})
+    d, s = records[-2], records[-1]
+    same = (d["E_per_spin"] == s["E_per_spin"]
+            and d["mean_z_over_n"] == s["mean_z_over_n"])
+    print(f"one factor table, bklMC beta=4 on GraphRRG(10^4): dense race E/N "
+          f"{d['E_per_spin']!r} mean z/N {d['mean_z_over_n']!r}; sparse race "
+          f"E/N {s['E_per_spin']!r} mean z/N {s['mean_z_over_n']!r}; "
+          f"identical {same}  [{card}]")
+    per_run = [r["launches"] for r in records]
+    return records, counts, {
+        "sk_sweep": per_run[0], "sk_sweep_hbm": per_run[1],
+        "rejfree_dense": sum(per_run[2:5]),
+        "rejfree_stream": per_run[5] + per_run[6]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -487,25 +713,60 @@ def main() -> int:
         cases.append(rejfree_case(lat, "EA3D-L16+-J", mode, card,
                                   kernel="rejfree_lattice"))
 
+    # built and, below, sampled with no device given: the card is the
+    # default
+    sk1 = rt.GraphSK(1024, seed=4)
+    require(sk1.J.device.type == "cuda", "GraphSK without a device is not "
+                                         "on the card")
+    sk8 = rt.GraphSK(8192, seed=4, device=DEV)
+    skn = rt.GraphSKNormal(4096, seed=4, device=DEV)
+    rrg7 = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=7, device=DEV)
+    drrg = rt.densify(rrg7)
+    cases.append(sk_case(sk1, "GraphSK(1024)", 8192, SK_CMP_SWEEPS, card,
+                         "sk_sweep"))
+    cases.append(sk_case(sk8, "GraphSK(8192)", 2048, SK8_CMP_SWEEPS, card,
+                         "sk_sweep_hbm"))
+    # the sweep kernel's other code paths: the scalar commit (N % 4 != 0)
+    # and fields seeding lf
+    sk11 = rt.GraphSK(1100, seed=4, device=DEV)
+    cases.append(sk_case(sk11, "GraphSK(1100)", CHAINS, 1, card, "sk_sweep"))
+    skf = dataclasses.replace(sk1, h=torch.as_tensor(
+        np.random.default_rng(SEED).integers(-2, 3, sk1.N),
+        dtype=sk1.h.dtype, device=DEV))
+    cases.append(sk_case(skf, "GraphSK(1024) fields", CHAINS, 1, card,
+                         "sk_sweep"))
+    for mode in ("bkl", "wtm", "rrr"):
+        cases.append(rejfree_case(sk1, "GraphSK(1024)", mode, card,
+                                  kernel="rejfree_dense", beta=4.0))
+    cases.append(rejfree_case(drrg, "densify(GraphRRG(10^4))", "bkl", card,
+                              kernel="rejfree_stream", beta=4.0))
+    cases.append(rejfree_case(skn, "GraphSKNormal(4096)", "bkl", card,
+                              kernel="rejfree_stream", B=128, beta=4.0))
+
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
-    print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts},
-                      "runs": rrg_records + ea_records}))
+    sk_records, sk_counts, sk_launches = dense_path(card, sk1, sk8, skn,
+                                                    drrg, rrg7)
+    print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
+                                "dense SK": sk_counts},
+                      "runs": rrg_records + ea_records + sk_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
-                "sweep_checkerboard": ea_counts["sweep_checkerboard"]}
+                "sweep_checkerboard": ea_counts["sweep_checkerboard"],
+                **sk_launches}
 
     kernels = []
-    for name in ("site_metropolis", "rejfree_sparse", "rejfree_lattice",
-                 "sweep_checkerboard"):
+    for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
-        head = mine[0]   # times: the first +-J case (race: bkl mode)
+        head = mine[0]   # times: the first case (race: bkl mode)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": head["ms"], "plain_ms": head["plain_ms"]})
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None})
         require(launches[name] > 0, f"{name}: not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

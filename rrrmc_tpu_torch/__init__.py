@@ -2,11 +2,12 @@
 
 Many-chain Monte Carlo for Ising spin models, batch-explicit: every model
 method and sampler takes a [B, N] batch of chains, devices are explicit
-(`device=`), and random draws come from explicit generators (a
-`torch.Generator` on the host side, counter-based Philox inside the
-kernels). The single-site Metropolis, the checkerboard sweep of EA lattices
-and the sparse rejection-free race moves run on hand-written CUDA kernels
-(csrc/) for a CUDA state and on their plain torch versions on the CPU. Names
+(`device=`, CUDA when none is given: pass device="cpu" for the host), and
+random draws come from explicit generators (a `torch.Generator` on the host
+side, counter-based Philox inside the kernels). The single-site Metropolis,
+the checkerboard sweep of EA lattices, the dense (SK) sweep and the sparse
+and dense rejection-free race moves run on hand-written CUDA kernels (csrc/)
+for a CUDA state and on their plain torch versions on the CPU. Names
 mirror the JAX package (rrrmc_tpu), which stays the reference. This package
 never imports JAX.
 """
@@ -15,6 +16,8 @@ from .core.model import Model, random_spins
 from .models.pairwise import (Pairwise, make_pairwise, infer_integer_scale,
                               enumerate_pair_classes)
 from .models.lattice import LatticeEA, make_lattice_ea
+from .models.dense import (FullyConnected, GraphSK, GraphSKNormal, densify,
+                           make_fully_connected)
 from .models.graphs import (
     GraphEA, GraphEANormal, GraphEANormalDiscretized,
     GraphRRG, GraphRRGNormal, GraphRRGNormalDiscretized,
@@ -24,13 +27,14 @@ from .models.graphs import (
 )
 from .samplers.metropolis import standardMC
 from .samplers.sweep import sweepMC
+from .samplers.dense_sweep import sweepMC_dense
 from .samplers.rrr import rrrMC
 from .samplers.bkl import bklMC
 from .samplers.wtm import wtmMC
 from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
                               LAST_ROUTE)
 from .convert import (pairwise_from_arrays, lattice_from_arrays,
-                      state_from_arrays)
+                      fully_connected_from_arrays, state_from_arrays)
 from . import observables
 from . import analysis
 from . import experiments

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from .core.dtypes import ftype, itype
+from .core.model import default_device
+from .models.dense import FullyConnected, dense_tensors
 from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
 from .samplers.common import DEFAULT_SEED, MCState, make_generator
@@ -34,6 +36,7 @@ def pairwise_from_arrays(neigh, J, h, offset, *, N: int, K: int,
     if integer != np.issubdtype(h.dtype, np.integer):
         raise ValueError("J and h must both be integer or both be float")
     dt = itype() if integer else ftype()
+    device = default_device(device)
 
     def put(a, dtype):
         return torch.tensor(np.asarray(a), device=device).to(dtype)
@@ -56,10 +59,22 @@ def lattice_from_arrays(Jd, h, L: int, D: int, scale: float,
                            scale=scale, classes=classes, device=device)
 
 
+def fully_connected_from_arrays(J, h, *, scale: float,
+                                device=None) -> FullyConnected:
+    """The port's FullyConnected from couplings J [N, N] and fields h [N] in
+    internal units (for example a JAX FullyConnected's `np.asarray(m.J)`,
+    `np.asarray(m.h)`, `m.scale`): int8 J stays int8, other integer J is
+    stored as int32, float J and h as float32."""
+    return dense_tensors(np.asarray(J), np.asarray(h), scale=scale,
+                         device=device)
+
+
 def state_from_arrays(model, sigma, E=None, accepted=None, *,
                       seed: int = DEFAULT_SEED, device=None) -> MCState:
-    """MCState for spins sigma [B, N]; aux is re-derived, E defaults to
-    model.energy(sigma) and accepted to zeros."""
+    """MCState for spins sigma [B, N] on `device` (CUDA when none is
+    given); aux is re-derived, E defaults to model.energy(sigma) and
+    accepted to zeros."""
+    device = default_device(device)
     sigma = torch.tensor(np.asarray(sigma, dtype=np.int8), device=device)
     dt = model.J.dtype
     E = (model.energy(sigma) if E is None else

@@ -36,6 +36,14 @@ import torch
 Tensor = torch.Tensor
 
 
+def default_device(device=None) -> torch.device:
+    """`device`, or the card when none is given: builders and `init_state`
+    place their tensors on CUDA unless the caller asks for the CPU, and on a
+    machine without a card torch's own error is raised, never a quiet
+    fallback to the host."""
+    return torch.device("cuda" if device is None else device)
+
+
 def flip_spin(sigma: Tensor, i: Tensor, do: Tensor) -> Tensor:
     """Flip sigma[b, i[b]] for every chain b with do[b], in place."""
     rows = torch.arange(sigma.shape[0], device=sigma.device)

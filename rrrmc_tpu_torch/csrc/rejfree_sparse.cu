@@ -1,5 +1,6 @@
 // Rejection-free race kernel (bkl / wtm / rrr) on a sparse Pairwise model,
-// one thread block per chain. Replaces
+// one thread block per chain (the race, the reductions and log z are shared
+// with the dense race kernel through race.cuh). Replaces
 // rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_sparse_kernel and, for integer
 // EA lattices (a LatticeEA is a sparse Pairwise with K = 2D), that file's
 // _rejfree_kernel; the wrapper and the plain torch version are
@@ -26,89 +27,14 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "philox.cuh"
+#include "race.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBkl = 0, kWtm = 1, kRrr = 2;
-
-struct Reduce {
-  float f[kWarps];
-  int i[kWarps];
-};
-
-__device__ __forceinline__ float block_min(float v, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) r.f[w] = v;
-  __syncthreads();
-  v = r.f[0];
-  for (int k = 1; k < kWarps; ++k) v = fminf(v, r.f[k]);
-  return v;
-}
-
-// the plain version (ops/rejfree.py::block_sum) adds in this same order
-__device__ __forceinline__ float block_sum(float v, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) r.f[w] = v;
-  __syncthreads();
-  v = r.f[0];
-  for (int k = 1; k < kWarps; ++k) v += r.f[k];
-  return v;
-}
-
-// (score, index) minimum, lowest index among equal scores
-__device__ __forceinline__ void block_argmin(float& v, int& idx, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, idx, o);
-    if (v2 < v || (v2 == v && i2 < idx)) { v = v2; idx = i2; }
-  }
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) { r.f[w] = v; r.i[w] = idx; }
-  __syncthreads();
-  v = r.f[0];
-  idx = r.i[0];
-  for (int k = 1; k < kWarps; ++k) {
-    if (r.f[k] < v || (r.f[k] == v && r.i[k] < idx)) { v = r.f[k]; idx = r.i[k]; }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ float boltz(int8_t s, T lf, float beta2s) {
-  const T half = T(s) * lf;
-  return beta2s * (float)(half > T(0) ? half : T(0));
-}
-
-// min bE and log z over the resident state
-template <typename T>
-__device__ float log_z(const int8_t* sig, const T* lf, int N, float beta2s,
-                       Reduce& r) {
-  float mbe = INFINITY;
-  for (int i = threadIdx.x; i < N; i += kThreads)
-    mbe = fminf(mbe, boltz(sig[i], lf[i], beta2s));
-  mbe = block_min(mbe, r);
-  float zs = 0.0f;
-  for (int i = threadIdx.x; i < N; i += kThreads)
-    zs += expf(mbe - boltz(sig[i], lf[i], beta2s));
-  zs = block_sum(zs, r);
-  return logf(zs) - mbe;
-}
-
-__device__ __forceinline__ int32_t geom_skip(float u2, float p) {
-  // the TPU kernel's _geom_skip: floor(log(1-u)/log1p(-p)), capped at 1e9
-  const float denom = log1pf(-fminf(p, 0.999999f));
-  const float sk = floorf(logf(fmaxf(1.0f - u2, 1e-38f)) / denom);
-  const int32_t skip = (int32_t)fminf(sk, 1.0e9f);
-  return p >= 1.0f ? 0 : skip;
-}
+using rrrmc::Reduce;
+using rrrmc::boltz;
+constexpr int kThreads = rrrmc::kRaceThreads;
+constexpr int kBkl = rrrmc::kBkl, kWtm = rrrmc::kWtm, kRrr = rrrmc::kRrr;
 
 template <typename T, typename CT, int MODE>
 __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
@@ -138,31 +64,18 @@ __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
   int32_t acc = acc_g[b];
   float zacc = zacc_g[b];
   const float log_n = logf((float)N);
+  // the Boltzmann exponent of site i in the resident state
+  auto bz = [&](int i) { return boltz(sig[i], lf[i], beta2s); };
   __syncthreads();
 
   for (int m = 0; m < n_moves; ++m) {
     const uint32_t mv = move0 + (uint32_t)m;
     if (coord < target) {
       // pass A: race over the sites, four per Philox call
-      float best = INFINITY;
-      int win = 0x7fffffff;
-      for (int g = tid; 4 * g < N; g += kThreads) {
-        const uint4 r = rrrmc::philox4x32_10(
-            make_uint4((uint32_t)g, mv, rrrmc::DRAW_RACE, 0u),
-            make_uint2(seed, chain));
-        const uint32_t words[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = 4 * g + j;
-          if (i < N) {
-            const float u = rrrmc::to_uniform((int32_t)words[j]);
-            const float sc = logf(-logf(u)) + boltz(sig[i], lf[i], beta2s);
-            if (sc < best) { best = sc; win = i; }
-          }
-        }
-      }
-      block_argmin(best, win, red);
-      const float logz = log_z(sig, lf, N, beta2s, red);
+      float best;
+      int win;
+      rrrmc::race(N, seed, chain, mv, bz, best, win, red);
+      const float logz = rrrmc::log_z(N, bz, red);
       const int8_t sw = sig[win];
       const T dE = T(2) * (T(sw) * lf[win]);
       const float zn = expf(logz - log_n);
@@ -181,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
       }
       __syncthreads();
       if (MODE == kRrr) {
-        const float logz2 = log_z(sig, lf, N, beta2s, red);
+        const float logz2 = rrrmc::log_z(N, bz, red);
         const float ua = rrrmc::to_uniform(
             rrrmc::draw_bits(seed, chain, mv, rrrmc::DRAW_ACCEPT));
         if (logf(ua) < logz - logz2) {
@@ -204,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
         } else {
           const float u2 = rrrmc::to_uniform(
               rrrmc::draw_bits(seed, chain, mv, rrrmc::DRAW_SKIP));
-          coord += CT(geom_skip(u2, zn) + 1);
+          coord += CT(rrrmc::geom_skip(u2, zn) + 1);
         }
       }
     }
@@ -253,11 +166,7 @@ extern "C" size_t rrrmc_rejfree_sparse_smem(int N, int K) {
 
 // the most dynamic shared memory a block of this kernel may opt in to
 extern "C" int rrrmc_rejfree_sparse_max_smem(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return optin - (int)sizeof(Reduce);
+  return rrrmc::race_max_smem(device);
 }
 
 extern "C" int rrrmc_rejfree_sparse(

@@ -4,7 +4,8 @@ Ising1D, non-interacting fields, and trivial debug models.
 
 Disorder is generated on the host in numpy with the JAX package's exact
 generators (rrrmc_tpu/models/graphs.py), so the same seed gives identical
-neighbor and coupling tables; the resulting tables are placed on `device`.
+neighbor and coupling tables; the resulting tables are placed on `device`,
+CUDA when none is given (pass device="cpu" for the host).
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import ftype, itype
+from ..core.model import default_device
 from .pairwise import Pairwise, infer_integer_scale, enumerate_pair_classes
 
 
@@ -93,7 +94,7 @@ def lattice_tensors(L: int, D: int, Jd: np.ndarray, h: np.ndarray, *,
                     device=None) -> LatticeEA:
     """LatticeEA from couplings and fields already in internal units:
     integer arrays are stored as int32 with `scale`, float ones as
-    float32."""
+    float32, on `device` (CUDA when none is given)."""
     if L <= 2:
         raise ValueError("LatticeEA needs L > 2 (L = 2 has doubled edges)")
     n = L ** D
@@ -105,6 +106,7 @@ def lattice_tensors(L: int, D: int, Jd: np.ndarray, h: np.ndarray, *,
     integer = np.issubdtype(Jd.dtype, np.integer)
     if integer != np.issubdtype(h.dtype, np.integer):
         raise ValueError("Jd and h must both be integer or both be float")
+    device = default_device(device)
     neigh, jmat = _lattice_tables(L, D, Jd)
     dt = itype() if integer else ftype()
 

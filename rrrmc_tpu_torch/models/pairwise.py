@@ -26,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.model import Model, flip_spin
+from ..core.model import Model, default_device, flip_spin
 from ..core.dtypes import ftype, itype, is_integer, FIXED_POINT_SCALE
 
 
@@ -118,7 +118,9 @@ def make_pairwise(adj, couplings, n, *, h=None, offset=0.0, kmax=None,
 
     integer_scale: if given, couplings/fields are exact multiples of it; the
     model stores int32 internally with `scale=integer_scale` (exact discrete
-    energies). If None, float32 storage with scale=1."""
+    energies). If None, float32 storage with scale=1. The tables go to
+    `device`, CUDA when none is given."""
+    device = default_device(device)
     neigh, jmat = _pad_adjacency(adj, couplings, n, kmax)
     hvec = np.zeros(n) if h is None else np.asarray(h, dtype=np.float64)
     nt = torch.as_tensor(neigh, device=device)

@@ -44,6 +44,14 @@ _SIGNATURES = {
                          _U, _F, _P]),
     "rrrmc_sweep_smem": (_Z, [_I, _I]),
     "rrrmc_sweep_max_smem": (_I, [_I]),
+    "rrrmc_sk_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _U,
+                            _P]),
+    "rrrmc_sk_smem": (_Z, [_I]),
+    "rrrmc_sk_max_smem": (_I, [_I]),
+    "rrrmc_rejfree_dense": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _U, _U, _U, _F, _I, _F, _I, _I, _P]),
+    "rrrmc_rejfree_dense_smem": (_Z, [_I]),
+    "rrrmc_rejfree_dense_max_smem": (_I, [_I]),
 }
 
 _lib = None

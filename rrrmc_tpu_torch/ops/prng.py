@@ -17,7 +17,11 @@ Stream layout, shared by every kernel and its plain version:
   (`sweep0`). On an even-L lattice the sites 2k and 2k + 1 differ in colour,
   so k = i // 2 is distinct within one colour class: site i takes word
   k % 4 of counter (k // 4, t, DRAW_SWEEP, 0), and no word is spent on the
-  other colour.
+  other colour;
+* the dense sweep (DRAW_SK = 4) numbers its window steps
+  t = sweep * n_win + w, windows of WINDOW = 128 consecutive sites and
+  n_win = ceil(N / 128), sweeps counted across launches: row r of a window
+  (site w * 128 + r) takes word r % 4 of counter (r // 4, t, DRAW_SK, 0).
 
 Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
 product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
@@ -33,6 +37,7 @@ DRAW_ACCEPT = 1
 DRAW_SKIP = 2
 DRAW_SITE = 0
 DRAW_SWEEP = 3
+DRAW_SK = 4
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -107,6 +112,17 @@ def sweep_bits(seed: int, chain0: int, B: int, N: int, sweep: int,
     ws = philox4x32_10((widx, t, DRAW_SWEEP, 0), (k0, k1[:, None]))
     words = torch.stack(ws, dim=-1).reshape(B, 4 * W)
     return as_int32(words.repeat_interleave(2, dim=1)[:, :N])
+
+
+def sk_bits(seed: int, chain0: int, B: int, W: int, t: int,
+            device) -> torch.Tensor:
+    """[B, W] int32 bits of one dense-sweep window step t: row r takes word
+    r % 4 of counter (r // 4, t, DRAW_SK, 0)."""
+    k0, k1 = chain_keys(seed, chain0, B, device)
+    G = -(-W // 4)
+    widx = torch.arange(G, dtype=torch.int64, device=device)
+    ws = philox4x32_10((widx, t & _MASK, DRAW_SK, 0), (k0, k1[:, None]))
+    return as_int32(torch.stack(ws, dim=-1).reshape(B, 4 * G)[:, :W])
 
 
 def per_move(make, n_moves: int, block: int):

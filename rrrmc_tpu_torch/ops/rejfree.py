@@ -203,6 +203,32 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
     `rejfree_sparse_chunk`)."""
     B, N = sigma.shape
     K = neigh.shape[1]
+    rows = torch.arange(B, device=sigma.device)
+
+    def lf_flipped(lf, win, d, do):
+        """A copy of lf with the winner's K neighbours updated where do."""
+        lf = lf.clone()
+        nb = neigh[win].long()
+        jr = J[win]
+        for k in range(K):
+            sel = do & (nb[:, k] < N)
+            lf[rows[sel], nb[sel, k]] += jr[sel, k] * d[sel]
+        return lf
+
+    return race_chunk_reference(
+        sigma, lf, E, coord, acc, zacc, lf_flipped, mode=mode,
+        n_moves=n_moves, beta2s=beta2s, target=target, seed=seed,
+        move0=move0, chain0=chain0, bits=bits)
+
+
+def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
+                         mode: str, n_moves: int, beta2s: float, target,
+                         seed: int, move0: int = 0, chain0: int = 0,
+                         bits: Optional[BitsFn] = None):
+    """The race moves of the sparse and dense kernels' plain versions, over
+    [B, N] tensors; `lf_flipped(lf, win, d, do)` returns a copy of lf with
+    the winner win [B] flipped (d = -2 sigma_win) in the chains where do."""
+    B, N = sigma.shape
     dev = sigma.device
     lt = lf.dtype
     rows = torch.arange(B, device=dev)
@@ -229,14 +255,9 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
 
     def flipped(sig, lf, win, s_w, d, do):
         """Copies of (sig, lf) with the winner flipped where `do`."""
-        sig, lf = sig.clone(), lf.clone()
+        sig = sig.clone()
         sig[rows[do], win[do]] = -s_w[do]
-        nb = neigh[win].long()
-        jr = J[win]
-        for k in range(K):
-            sel = do & (nb[:, k] < N)
-            lf[rows[sel], nb[sel, k]] += jr[sel, k] * d[sel]
-        return sig, lf
+        return sig, lf_flipped(lf, win, d, do)
 
     for m in range(n_moves):
         active = coord < target

@@ -1,0 +1,187 @@
+"""Dense (SK) Metropolis sweeps on an integer FullyConnected model: the CUDA
+kernel (csrc/sk_sweep.cu), its plain torch version, and the `SKSweeper`
+runner.
+
+Source note. The kernel replaces rrrmc_tpu/ops/sk_pallas.py::_sk_kernel and
+::_sk_kernel_hbm (both launched by `_pallas_sk`). The TPU kept J in VMEM or
+streamed it from HBM by size; on the H100 J is read from device memory or L2
+in both cases, so one kernel serves both. It runs one warp per chain: 32
+consecutive sites are decided at once, the first accepting lane's flip
+corrects the later sites' fields and evaluation resumes after it (exact
+sequential Metropolis, since every site's bits are fixed by its counter);
+every 512 sites the accepted flips are committed to the chain's local-field
+row by a hand-written sparse rank-W update. It is bound by the decisions and
+the commits' reads of J and lf (csrc/sk_sweep.cu says where).
+
+Contract (the JAX kernels'): sigma [B, N] int8, lf [B, N] int32 and
+E [B] int32 advance in place by n_sweeps sweeps. A sweep visits sites
+0..N-1 in windows of WINDOW = 128; site k of window w is decided against its
+field plus the corrections of the window's earlier accepted flips, accepted
+iff half = sigma_k lf_k <= 0 or bits < th[half - 1] (`accept_thresholds`:
+the TPU kernel's float32 threshold, tabulated); after each window
+lf += J[window, :]^T delta. E gains 2*half per accepted flip. The random
+bits are ops/prng.py::sk_bits at window step t = sweep * n_win + w, sweeps
+numbered from `sweep0`. `accepted` is not counted, as on the TPU route.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import check_args, prng
+from ..core.dtypes import is_integer
+
+#: kernel launches since the last reset (the wrapper adds one per launch)
+LAUNCHES = 0
+#: sites of one window (the TPU kernel's W): one Philox window step each
+WINDOW = 128
+_INT32_MIN = -2 ** 31
+
+BitsFn = Callable[[int, int], torch.Tensor]
+
+
+def accept_thresholds(beta_s: float, half_max: int) -> np.ndarray:
+    """int32 thresholds th[v - 1] for half = v = 1, 2, ...: the TPU kernel's
+    float32 arithmetic p = exp(-beta_s * 2v), clip(p * 2^32 - 2^31), in
+    numpy float32. The table ends before its first INT32_MIN entry (no bits
+    lie below it: a larger half is always rejected) or at half_max."""
+    v2 = (2 * np.arange(1, int(half_max) + 1)).astype(np.float32)
+    with np.errstate(under="ignore"):
+        p = np.exp(-np.float32(beta_s) * v2)
+    t = p * np.float32(4294967296.0) - np.float32(2147483648.0)
+    th = np.clip(t, np.float32(-2147483648.0),
+                 np.float32(2147483520.0)).astype(np.int32)
+    ends = np.flatnonzero(th == _INT32_MIN)
+    return th[:ends[0]] if ends.size else th
+
+
+def sk_sweep_eligible(model) -> bool:
+    """An integer FullyConnected model with |J| <= 127 (the kernel reads J
+    as int8) and integer fields."""
+    from ..models.dense import FullyConnected
+
+    return (isinstance(model, FullyConnected) and model.N > 0
+            and is_integer(model.J) and is_integer(model.h)
+            and model.j_max <= 127)
+
+
+def _check_args(sigma, lf, E, J8, th):
+    B, N = sigma.shape
+    want = {"sigma": (sigma, (B, N), torch.int8),
+            "lf": (lf, (B, N), torch.int32), "E": (E, (B,), torch.int32),
+            "J8": (J8, (N, N), torch.int8),
+            "th": (th, (th.shape[0],), torch.int32)}
+    check_args(want, sigma.device)
+
+
+def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
+                   sweep0: int = 0, chain0: int = 0,
+                   bits: Optional[BitsFn] = None) -> None:
+    """Advance every chain by `n_sweeps` dense sweeps, in place on sigma
+    [B, N] int8, lf [B, N] int32 and E [B] int32. J8 [N, N] int8 holds the
+    couplings, th the `accept_thresholds`.
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
+    plain version. `bits` (sweep, window) -> [B, W] int32 replaces the
+    generator and is taken by the plain version only."""
+    global LAUNCHES
+    _check_args(sigma, lf, E, J8, th)
+    if sigma.device.type == "cpu":
+        sk_sweep_chunk_reference(sigma, lf, E, J8, th, n_sweeps=n_sweeps,
+                                 seed=seed, sweep0=sweep0, chain0=chain0,
+                                 bits=bits)
+        return
+    if sigma.device.type != "cuda":
+        raise ValueError(f"no dense sweep kernel for device {sigma.device}")
+    if bits is not None:
+        raise ValueError("injected bits are taken by the plain version only")
+    from .cuda_build import check, library
+
+    lib = library()
+    B, N = sigma.shape
+    smem = lib.rrrmc_sk_smem(N)
+    cap = lib.rrrmc_sk_max_smem(sigma.device.index or 0)
+    if smem > cap:
+        raise NotImplementedError(
+            f"the dense sweep kernel needs {smem} bytes of shared memory per "
+            f"block, a block may have {cap}")
+    with torch.cuda.device(sigma.device):
+        err = lib.rrrmc_sk_sweep(
+            sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), J8.data_ptr(),
+            th.data_ptr(), th.shape[0], N, B, n_sweeps, seed & 0xFFFFFFFF,
+            sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
+    check(err, "sk_sweep launch")
+    LAUNCHES += 1
+
+
+def sk_sweep_chunk_reference(sigma, lf, E, J8, th, *, n_sweeps: int,
+                             seed: int, sweep0: int = 0, chain0: int = 0,
+                             bits: Optional[BitsFn] = None) -> None:
+    """Plain torch version of the dense sweep kernel, window by window as
+    the TPU kernel (same arguments and in-place contract as
+    `sk_sweep_chunk`). The rank-W commit is a float64 product cast back,
+    exact for int8 couplings."""
+    B, N = sigma.shape
+    dev = sigma.device
+    n_win = -(-N // WINDOW)
+    n_th = th.shape[0]
+    th_ext = torch.cat([th, torch.tensor([_INT32_MIN], dtype=torch.int32,
+                                         device=dev)])
+    Jd = J8.to(torch.float64)
+    s_all = sigma.to(torch.int32)
+    dE = torch.zeros(B, dtype=torch.int32, device=dev)
+    for sw in range(sweep0, sweep0 + n_sweeps):
+        for w in range(n_win):
+            lo, hi = w * WINDOW, min(N, (w + 1) * WINDOW)
+            rb = (bits(sw, w) if bits is not None else prng.sk_bits(
+                seed, chain0, B, WINDOW, sw * n_win + w, dev))
+            Jw = J8[lo:hi, lo:hi].to(torch.int32)
+            s = s_all[:, lo:hi].clone()
+            lfw = lf[:, lo:hi].clone()
+            delta = torch.zeros_like(s)
+            for k in range(hi - lo):
+                half = s[:, k] * lfw[:, k]
+                # th[half - 1] for 1 <= half <= n_th, INT32_MIN beyond
+                idx = torch.where(half > n_th, n_th, half.clamp(min=1) - 1)
+                acc = (half <= 0) | (rb[:, k] < th_ext[idx.long()])
+                d = torch.where(acc, -2 * s[:, k], 0)
+                delta[:, k] = d
+                s[:, k] += d
+                lfw += d[:, None] * Jw[k][None, :]
+                dE += torch.where(acc, 2 * half, 0)
+            s_all[:, lo:hi] = s
+            lf += (delta.to(torch.float64) @ Jd[lo:hi]).to(torch.int32)
+    sigma.copy_(s_all.to(torch.int8))
+    E += dE
+
+
+class SKSweeper:
+    """Reusable dense-sweep runner for an eligible FullyConnected model
+    (fields allowed: they ride the lf seed): the int8 couplings and the
+    threshold table, built once on the model's device (the JAX package's
+    PallasSKSweeper)."""
+
+    def __init__(self, model, beta: float):
+        if not sk_sweep_eligible(model):
+            raise ValueError(
+                f"the dense sweep kernel needs a FullyConnected model with "
+                f"integer couplings |J| <= 127 and integer fields, got "
+                f"{type(model).__name__}")
+        self.beta_s = float(beta) * model.scale
+        self.J8 = model.J.to(torch.int8).contiguous()
+        self.th = torch.as_tensor(
+            accept_thresholds(self.beta_s, int(model.half_max)),
+            device=model.device)
+
+    def __call__(self, sigma, lf, E, *, seed: int, n_sweeps: int,
+                 sweep0: int = 0, chain0: int = 0,
+                 bits: Optional[BitsFn] = None) -> None:
+        """Advance sigma [B, N] int8, lf [B, N] int32 and E [B] int32 by
+        n_sweeps sweeps in place (sweeps numbered from sweep0 in the Philox
+        stream)."""
+        sk_sweep_chunk(sigma, lf, E, self.J8, self.th, n_sweeps=n_sweeps,
+                       seed=seed, sweep0=sweep0, chain0=chain0, bits=bits)

@@ -13,9 +13,10 @@ per-chain (coordinate, energy) stream, and checkpoint energies are filled by
 a batched searchsorted over the stream: the batch generalization of the
 reference's checkpoint drain loop.
 
-This port runs bkl, wtm and rrr on the sparse race kernel only
-(ops/rejfree.py); their generic torch paths, with hooks and observers, are
-ROADMAP.md queue 1, item 3.
+This port runs bkl, wtm and rrr on the race kernels only: the sparse one
+(ops/rejfree.py) for Pairwise models, the dense one (ops/rejfree_dense.py)
+for FullyConnected models; their generic torch paths, with hooks and
+observers, are ROADMAP.md queue 1, item 3.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ from typing import Optional
 import torch
 
 from ..core.model import Model
+from ..models.dense import FullyConnected
 from ..ops.rejfree import coord_dtype, rejfree_sparse_chunk, sparse_rejfree_ok
+from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
+                                 rejfree_dense_chunk)
 from .common import DEFAULT_SEED, MCState, init_state, kernel_seed, set_route
 
 #: iteration targets above this would overflow the kernels' int32
@@ -35,7 +39,7 @@ MAX_ITERS = 10 ** 9
 
 def require_kernel_route(sampler: str, model, *, backend: str, hook,
                          observer):
-    """Raise unless the call can run on the sparse race kernel."""
+    """Raise unless the call can run on a race kernel."""
     later = "ROADMAP.md queue 1, item 3 (the generic torch samplers)"
     if backend not in ("auto", "kernel"):
         raise NotImplementedError(
@@ -45,11 +49,12 @@ def require_kernel_route(sampler: str, model, *, backend: str, hook,
         raise NotImplementedError(
             f"{sampler} with a hook or an observer needs the generic torch "
             f"path: {later}")
-    if not sparse_rejfree_ok(model):
+    if not (sparse_rejfree_ok(model) or dense_rejfree_ok(model)):
         raise NotImplementedError(
             f"{sampler}: {type(model).__name__} is not eligible for the "
-            f"sparse race kernel (a Pairwise model with N >= 8), and the "
-            f"generic torch path is {later}")
+            f"race kernels (a Pairwise model with N >= 8, or a "
+            f"FullyConnected one with N >= 8 and integer |J| <= 127 or float "
+            f"J), and the generic torch path is {later}")
 
 
 def fill_checkpoints(S, step, x_start, o_start, xs, os_):
@@ -74,7 +79,9 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     """Run the race kernel in chunks of `chunk_moves` moves until every
     chain's coordinate reaches `target`; one host sync per chunk.
     Returns (Es [B, n_ckpt] physical energies, final MCState); `accepted`
-    gains the applied flips, and LAST_ROUTE holds acc and the summed z/N."""
+    gains the applied flips, and LAST_ROUTE holds acc and the summed z/N.
+    A FullyConnected model takes the dense race kernel, any other the sparse
+    one."""
     B = state.sigma.shape[0]
     dev = state.sigma.device
     seed = kernel_seed(state.generator)
@@ -87,18 +94,24 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     zacc = torch.zeros(B, dtype=torch.float32, device=dev)
     Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
     beta2s = 2.0 * beta * model.scale
+    if isinstance(model, FullyConnected):
+        route, tables = "kernel-rejfree-dense", (kernel_couplings(model),)
+        chunk = rejfree_dense_chunk
+    else:
+        route, tables = "kernel-rejfree-sparse", (model.neigh, model.J)
+        chunk = rejfree_sparse_chunk
     k = 0
     while bool(coord.min() < target):
         x_start = coord.clone()
         e_start = model.to_physical(E)
-        cs, es = rejfree_sparse_chunk(
-            sigma, lf, E, coord, acc, zacc, model.neigh, model.J, mode=mode,
+        cs, es = chunk(
+            sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
             n_moves=chunk_moves, beta2s=beta2s, target=target, seed=seed,
             move0=k * chunk_moves)
         Es = fill_checkpoints(Es, step, x_start, e_start, cs,
                               model.to_physical(es))
         k += 1
-    set_route("kernel-rejfree-sparse",
+    set_route(route,
               impl="cuda" if dev.type == "cuda" else "plain", mode=mode,
               acc=acc, z_over_n=zacc, chunks=k)
     return Es, MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
@@ -114,7 +127,8 @@ def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
     """Rejection-free BKL; `iters` counts virtual (rejected-inclusive)
     iterations. Returns (Es [chains, iters // step], final MCState).
 
-    Runs on the sparse race kernel (ops/rejfree.py: the CUDA kernel for a
+    Runs on a race kernel (ops/rejfree.py for a Pairwise model,
+    ops/rejfree_dense.py for a FullyConnected one: the CUDA kernel for a
     CUDA state, its plain version on the CPU), `chunk_moves` moves per
     launch. backend "auto" and "kernel" both take it; hooks, observers and
     ineligible models raise NotImplementedError."""

@@ -15,7 +15,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..core.model import Model, random_spins
+from ..core.model import Model, default_device, random_spins
 
 #: arbitrary default seed, mirroring the reference's
 DEFAULT_SEED = 167432777111 % (2 ** 31)
@@ -50,8 +50,9 @@ def make_generator(seed: int, device) -> torch.Generator:
 def init_state(model: Model, chains: int, seed: int = DEFAULT_SEED, C0=None,
                *, device=None) -> MCState:
     """Fresh state: random (or C0) spins, their aux and exact energies, on
-    `device` (default: the model's)."""
-    device = torch.device(device) if device is not None else model.device
+    `device`: CUDA when none is given, as the builders, so a model built on
+    the host needs device="cpu" here too."""
+    device = default_device(device)
     gen = make_generator(seed, device)
     if C0 is None:
         sigma = random_spins(chains, model.N, generator=gen, device=device)
@@ -96,6 +97,32 @@ def kernel_seed(generator: torch.Generator) -> int:
     sampler call (and every continuation) gets fresh kernel streams."""
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=generator.device))
+
+
+#: entries of one `cached` store; the oldest is dropped beyond it
+_CACHE_MAX = 8
+
+
+def cached(store: dict, tensors: tuple, extra: tuple, build: Callable):
+    """build(), cached in `store` under the identity of `tensors` (held in
+    the entry, so their ids cannot be reused) and the hashable `extra`; the
+    oldest entry is dropped beyond _CACHE_MAX. Lets repeated and
+    checkpointed sampler calls reuse a runner's device tables."""
+    key = tuple(id(t) for t in tensors) + tuple(extra)
+    ent = store.get(key)
+    if ent is None or any(a is not b for a, b in zip(ent[0], tensors)):
+        if key not in store and len(store) >= _CACHE_MAX:
+            store.pop(next(iter(store)))
+        ent = (tensors, build())
+        store[key] = ent
+    return ent[1]
+
+
+def physical_series(Es: list, B: int, device) -> torch.Tensor:
+    """[B, K] from K checkpoints' [B] physical energies ([B, 0] for none)."""
+    if not Es:
+        return torch.zeros((B, 0), dtype=torch.float32, device=device)
+    return torch.stack(Es, dim=1)
 
 
 def default_observer(model: Model, sigma, aux, E):

@@ -1,7 +1,7 @@
 """sweepMC: Metropolis over whole sweeps (N attempted flips per chain each).
 
-Three routes, chosen as the JAX package's `rrrmc_tpu/samplers/sweep.py`
-chooses them:
+Pairwise models take three routes, chosen as the JAX package's
+`rrrmc_tpu/samplers/sweep.py` chooses them:
 
 (a) the checkerboard kernel (ops/sweep.py) for a LatticeEA with integer
     couplings and fields and an even L: one launch per checkpoint, exact
@@ -18,6 +18,11 @@ chooses them:
 Routes (a) and (b) run their CUDA kernel for a CUDA state and its plain
 version on the CPU. `accepted` follows the JAX routes: (b) adds the applied
 flips, (a) and (c) leave it as it was.
+
+A FullyConnected model is routed by structure, as in the JAX package: the
+dense sweep kernel when it is eligible (samplers/dense_sweep.py, backend
+"kernel"); else the delayed-update torch route when some spin has more than
+32 couplings; else route (c) on the colouring of J's sparsity pattern.
 """
 
 from __future__ import annotations
@@ -27,11 +32,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.dense import FullyConnected
 from ..models.pairwise import Pairwise
 from ..ops.site import SiteSampler
+from ..ops.sk import sk_sweep_eligible
 from ..ops.sweep import Sweeper, sweep_eligible
-from .common import (DEFAULT_SEED, MCState, init_lfT, init_state, kernel_seed,
-                     set_route, working_copy)
+from .common import (DEFAULT_SEED, MCState, cached, init_lfT, init_state,
+                     kernel_seed, physical_series, set_route, working_copy)
+from .dense_sweep import sweepMC_dense
+
+#: a FullyConnected model with a spin of more couplings than this takes the
+#: delayed-update route instead of a colouring (the JAX package's threshold)
+DENSE_DEGREE = 32
 
 
 def greedy_coloring(neigh: np.ndarray, n: int) -> np.ndarray:
@@ -50,16 +62,26 @@ def greedy_coloring(neigh: np.ndarray, n: int) -> np.ndarray:
 def color_masks(model: Pairwise) -> torch.Tensor:
     """[C, N] boolean independent-set masks of a Pairwise model, on its
     device."""
-    colors = greedy_coloring(model.neigh.cpu().numpy(), model.N)
+    return _masks(greedy_coloring(model.neigh.cpu().numpy(), model.N),
+                  model.device)
+
+
+def color_masks_dense(model: FullyConnected) -> torch.Tensor:
+    """[C, N] masks from the sparsity pattern of a dense coupling matrix."""
+    J = model.J.cpu().numpy()
+    n = model.N
+    rows = [np.nonzero(J[i])[0] for i in range(n)]
+    neigh = np.full((n, max((len(r) for r in rows), default=0) or 1), n,
+                    dtype=np.int32)
+    for i, r in enumerate(rows):
+        neigh[i, : len(r)] = r
+    return _masks(greedy_coloring(neigh, n), model.device)
+
+
+def _masks(colors: np.ndarray, device) -> torch.Tensor:
     ncol = int(colors.max()) + 1
     return torch.as_tensor(np.stack([colors == c for c in range(ncol)]),
-                           device=model.device)
-
-
-def _physical(Es: list, B: int, device) -> torch.Tensor:
-    if not Es:
-        return torch.zeros((B, 0), dtype=torch.float32, device=device)
-    return torch.stack(Es, dim=1)
+                           device=device)
 
 
 def _impl(t: torch.Tensor) -> str:
@@ -68,22 +90,17 @@ def _impl(t: torch.Tensor) -> str:
 
 #: Sweepers of route (a), keyed on the identity of the coupling AND field
 #: tensors (a field variant made by dataclasses.replace shares Jd with its
-#: base), the scale and beta; the oldest is dropped beyond _SWEEPERS_MAX
+#: base), the scale and beta
 _SWEEPERS: dict = {}
-_SWEEPERS_MAX = 8
+#: colourings of sparse FullyConnected models, keyed on the identity of J
+_MASKS: dict = {}
 
 
 def _sweeper(model, beta: float) -> Sweeper:
     """The cached Sweeper of (model.Jd, model.h, model.scale, beta), so that
     repeated and checkpointed calls reuse its device tables."""
-    key = (id(model.Jd), id(model.h), model.scale, beta)
-    ent = _SWEEPERS.get(key)
-    if ent is None or ent[0] is not model.Jd or ent[1] is not model.h:
-        if key not in _SWEEPERS and len(_SWEEPERS) >= _SWEEPERS_MAX:
-            _SWEEPERS.pop(next(iter(_SWEEPERS)))
-        ent = (model.Jd, model.h, Sweeper(model, beta))
-        _SWEEPERS[key] = ent
-    return ent[2]
+    return cached(_SWEEPERS, (model.Jd, model.h), (model.scale, beta),
+                  lambda: Sweeper(model, beta))
 
 
 def _run_checkerboard(model, beta, n_ckpt, step, state):
@@ -100,7 +117,7 @@ def _run_checkerboard(model, beta, n_ckpt, step, state):
     state = MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
                     accepted=state.accepted.clone(),
                     generator=state.generator)
-    return _physical(Es, sigma.shape[0], sigma.device), state
+    return physical_series(Es, sigma.shape[0], sigma.device), state
 
 
 def _run_site_sweep(model, beta, n_ckpt, step, state):
@@ -122,14 +139,15 @@ def _run_site_sweep(model, beta, n_ckpt, step, state):
     set_route("kernel-site-sweep", impl=_impl(sigT), acc=acc)
     state = MCState(sigma=sigT.t().contiguous(), aux=lfT.t().contiguous(),
                     E=E, accepted=state.accepted + acc, generator=gen)
-    return _physical(Es, sigT.shape[1], sigT.device), state
+    return physical_series(Es, sigT.shape[1], sigT.device), state
 
 
-def _run_color_masks(model, beta, n_ckpt, step, state):
+def _run_color_masks(model, beta, n_ckpt, step, state, masks=None):
     """Route (c): the colour-mask sweep in plain torch, uniforms from the
     state's generator."""
-    masks = (model.sweep_masks() if hasattr(model, "sweep_masks")
-             else color_masks(model))
+    if masks is None:
+        masks = (model.sweep_masks() if hasattr(model, "sweep_masks")
+                 else color_masks(model))
     st = working_copy(state)
     sigma, E, gen = st.sigma, st.E, st.generator
     lf = model.local_fields(sigma)
@@ -150,7 +168,7 @@ def _run_color_masks(model, beta, n_ckpt, step, state):
     set_route("torch", impl="torch", n_masks=int(masks.shape[0]))
     state = MCState(sigma=sigma, aux=lf, E=E, accepted=st.accepted,
                     generator=gen)
-    return _physical(Es, sigma.shape[0], sigma.device), state
+    return physical_series(Es, sigma.shape[0], sigma.device), state
 
 
 def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
@@ -169,14 +187,19 @@ def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
     backend "auto": route (a) for an even-L integer LatticeEA, else route
     (b) for a sparse Pairwise model with N >= 8, else route (c) (see the
     module docstring). "kernel": route (a) or (b), raising when neither
-    takes the model. "torch": route (c)."""
-    if not isinstance(model, Pairwise):
-        raise NotImplementedError(
-            f"sweepMC on {type(model).__name__}: only Pairwise models are "
-            f"ported; FullyConnected is ROADMAP.md queue 1, item 9, the "
-            f"replica composites item 10")
+    takes the model. "torch": route (c). A FullyConnected model takes the
+    dense routes of the module docstring ("kernel": the dense sweep kernel
+    or raise; "torch": never the kernel)."""
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
+    if isinstance(model, FullyConnected):
+        return _sweep_dense(model, beta, sweeps, step, chains, seed, C0,
+                            state, backend, device)
+    if not isinstance(model, Pairwise):
+        raise NotImplementedError(
+            f"sweepMC on {type(model).__name__}: only Pairwise and "
+            f"FullyConnected models are ported; the replica composites are "
+            f"ROADMAP.md queue 1, item 10")
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
     beta = float(beta)
@@ -192,3 +215,23 @@ def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
     else:
         Es, state = _run_color_masks(model, beta, n_ckpt, step, state)
     return Es, state
+
+
+def _sweep_dense(model, beta, sweeps, step, chains, seed, C0, state, backend,
+                 device):
+    """The routes of a FullyConnected model (module docstring)."""
+    kw = dict(step=step, chains=chains, seed=seed, C0=C0, state=state,
+              device=device)
+    if backend != "torch" and sk_sweep_eligible(model):
+        return sweepMC_dense(model, beta, sweeps, backend="kernel", **kw)
+    if backend == "kernel":
+        raise NotImplementedError(
+            "sweepMC(backend='kernel'): the dense sweep kernel takes integer "
+            "couplings |J| <= 127 and integer fields only")
+    if model.max_degree > DENSE_DEGREE:
+        return sweepMC_dense(model, beta, sweeps, backend="torch", **kw)
+    if state is None:
+        state = init_state(model, chains, seed, C0, device=device)
+    return _run_color_masks(model, float(beta), sweeps // step, step, state,
+                            masks=cached(_MASKS, (model.J,), (),
+                                         lambda: color_masks_dense(model)))

@@ -12,16 +12,17 @@ import rrrmc_tpu_torch as pt
 from rrrmc_tpu import analysis as ja, observables as jo
 from rrrmc_tpu_torch import analysis as pa, observables as po
 
-from torch_port_helpers import random_sigma
+from torch_port_helpers import CPU, host, random_sigma
 
 torch.set_num_threads(1)
 
 #: small models, built on both sides from the same arguments and seed
 MODELS = {
-    "RRG": lambda m: m.GraphRRG(8, 3, (-1, 1), seed=2),
-    "RRG_frac": lambda m: m.GraphRRG(8, 3, (-1.0, -0.5, 0.5, 1.0), seed=4),
-    "EA2D_L3": lambda m: m.GraphEA(3, 2, (-1, 1), seed=5),
-    "Ising1D": lambda m: m.GraphIsing1D(9),
+    "RRG": lambda m: m.GraphRRG(8, 3, (-1, 1), seed=2, **host(m)),
+    "RRG_frac": lambda m: m.GraphRRG(8, 3, (-1.0, -0.5, 0.5, 1.0), seed=4,
+                                     **host(m)),
+    "EA2D_L3": lambda m: m.GraphEA(3, 2, (-1, 1), seed=5, **host(m)),
+    "Ising1D": lambda m: m.GraphIsing1D(9, **host(m)),
 }
 
 
@@ -75,7 +76,8 @@ def test_exact_enumeration_matches_jax(name):
 
 def test_spectral_stats_and_running_means():
     def build(mod):
-        return lambda seed: mod.GraphRRG(6, 3, (-1, 1), seed=seed)
+        return lambda seed: mod.GraphRRG(6, 3, (-1, 1), seed=seed,
+                                            **host(mod))
 
     taus, rrs = pa.spectral_stats(build(pt), [0.5, 1.5], n_seeds=2)
     taus_j, rrs_j = ja.spectral_stats(build(rt), [0.5, 1.5], n_seeds=2)
@@ -86,4 +88,4 @@ def test_spectral_stats_and_running_means():
     np.testing.assert_array_equal(pa.ravg(Es, step=50, skip0=0.1),
                                   ja.ravg(Es, step=50, skip0=0.1))
     with pytest.raises(ValueError, match="too large"):
-        pa.energy_table(pt.GraphRRG(30, 3, seed=1))
+        pa.energy_table(pt.GraphRRG(30, 3, seed=1, **CPU))

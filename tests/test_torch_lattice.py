@@ -15,7 +15,7 @@ import torch
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 
-from torch_port_helpers import port_lattice, random_sigma
+from torch_port_helpers import CPU, host, port_lattice, random_sigma
 
 torch.set_num_threads(1)
 
@@ -26,10 +26,11 @@ F32 = dict(rtol=0, atol=1e-5)
 
 def _build(kind, L, D, mod):
     if kind == "pm_j":
-        return mod.GraphEA(L, D, (-1, 1), seed=10 * L + D)
+        return mod.GraphEA(L, D, (-1, 1), seed=10 * L + D, **host(mod))
     if kind == "normal":
-        return mod.GraphEANormal(L, D, seed=10 * L + D + 2)
-    m = mod.GraphEA(L, D, (-1, 1), seed=10 * L + D + 3)   # integer fields
+        return mod.GraphEANormal(L, D, seed=10 * L + D + 2, **host(mod))
+    # integer fields
+    m = mod.GraphEA(L, D, (-1, 1), seed=10 * L + D + 3, **host(mod))
     h = np.random.default_rng(L * D).integers(-2, 3, m.N)
     if mod is rt:
         return dataclasses.replace(m, h=jnp.asarray(h, m.h.dtype))
@@ -97,7 +98,7 @@ def test_sweep_masks(L, D):
     """Even L: the checkerboard; odd L: the greedy colouring. Either way
     every class is an independent set, the classes cover every site once,
     and they equal the JAX masks."""
-    jm, pm = rt.GraphEA(L, D, seed=1), pt.GraphEA(L, D, seed=1)
+    jm, pm = rt.GraphEA(L, D, seed=1), pt.GraphEA(L, D, seed=1, **CPU)
     masks = pm.sweep_masks()
     np.testing.assert_array_equal(masks.numpy(), np.asarray(jm.sweep_masks()))
     assert masks.dtype == torch.bool
@@ -110,10 +111,12 @@ def test_sweep_masks(L, D):
 
 def test_lattice_builders_check_arguments():
     with pytest.raises(ValueError, match="L > 2"):
-        pt.make_lattice_ea(2, 2, np.ones((2, 2, 2)), integer_scale=1.0)
+        pt.make_lattice_ea(2, 2, np.ones((2, 2, 2)), integer_scale=1.0, **CPU)
     with pytest.raises(ValueError, match="grid"):
-        pt.make_lattice_ea(3, 2, np.full((2, 3, 3), 0.5), integer_scale=1.0)
+        pt.make_lattice_ea(3, 2, np.full((2, 3, 3), 0.5), integer_scale=1.0,
+                           **CPU)
     with pytest.raises(ValueError, match="Jd"):
         pt.lattice_from_arrays(np.ones((2, 3, 3), np.int32),
-                               np.zeros(8, np.int32), 3, 2, 1.0)
-    assert type(pt.GraphEA(2, 3)) is pt.Pairwise     # L = 2 stays generic
+                               np.zeros(8, np.int32), 3, 2, 1.0, **CPU)
+    # L = 2 stays generic
+    assert type(pt.GraphEA(2, 3, **CPU)) is pt.Pairwise

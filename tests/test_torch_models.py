@@ -13,24 +13,25 @@ import torch
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 
-from torch_port_helpers import port_model, random_sigma
+from torch_port_helpers import CPU, host, port_model, random_sigma
 
 torch.set_num_threads(1)
 
 #: (JAX model, port model) built from the same arguments and seed
 PAIRS = {
-    "EA2D_L2": lambda m: m.GraphEA(2, 2, (-1, 1), seed=3),
-    "EA3D_L2": lambda m: m.GraphEA(2, 3, (-1, 1), seed=13),
-    "EANormal_L2": lambda m: m.GraphEANormal(2, 3, seed=5),
-    "RRG": lambda m: m.GraphRRG(12, 3, (-1, 1), seed=7),
-    "RRG_frac": lambda m: m.GraphRRG(12, 3, (-1.0, -0.5, 0.5, 1.0), seed=8),
-    "RRG_big": lambda m: m.GraphRRG(96, 4, (-2, -1, 1, 2), seed=1),
-    "RRGNormal": lambda m: m.GraphRRGNormal(12, 3, seed=9),
-    "Ising1D": lambda m: m.GraphIsing1D(8),
-    "Fields": lambda m: m.GraphFields(10, (0.5, 1.5), seed=11),
-    "Empty": lambda m: m.GraphEmpty(6),
-    "TwoSpin": lambda m: m.GraphTwoSpin(),
-    "ThreeSpin": lambda m: m.GraphThreeSpin(),
+    "EA2D_L2": lambda m: m.GraphEA(2, 2, (-1, 1), seed=3, **host(m)),
+    "EA3D_L2": lambda m: m.GraphEA(2, 3, (-1, 1), seed=13, **host(m)),
+    "EANormal_L2": lambda m: m.GraphEANormal(2, 3, seed=5, **host(m)),
+    "RRG": lambda m: m.GraphRRG(12, 3, (-1, 1), seed=7, **host(m)),
+    "RRG_frac": lambda m: m.GraphRRG(12, 3, (-1.0, -0.5, 0.5, 1.0), seed=8,
+                                     **host(m)),
+    "RRG_big": lambda m: m.GraphRRG(96, 4, (-2, -1, 1, 2), seed=1, **host(m)),
+    "RRGNormal": lambda m: m.GraphRRGNormal(12, 3, seed=9, **host(m)),
+    "Ising1D": lambda m: m.GraphIsing1D(8, **host(m)),
+    "Fields": lambda m: m.GraphFields(10, (0.5, 1.5), seed=11, **host(m)),
+    "Empty": lambda m: m.GraphEmpty(6, **host(m)),
+    "TwoSpin": lambda m: m.GraphTwoSpin(**host(m)),
+    "ThreeSpin": lambda m: m.GraphThreeSpin(**host(m)),
 }
 
 B = 16
@@ -129,7 +130,7 @@ def test_ea_instance_file(tmp_path):
             lines.append(f"{x + 1} {y + 1} {rng.normal():.6f}")
     f = tmp_path / "ea.txt"
     f.write_text("\n".join(lines) + "\n")
-    jm, pm = rt.GraphEAFromFile(str(f)), pt.GraphEAFromFile(str(f))
+    jm, pm = rt.GraphEAFromFile(str(f)), pt.GraphEAFromFile(str(f), **CPU)
     assert pt.load_ea_instance(str(f))[0] == L
     np.testing.assert_array_equal(pm.neigh.numpy(), np.asarray(jm.neigh))
     np.testing.assert_array_equal(pm.J.numpy(),
@@ -137,9 +138,9 @@ def test_ea_instance_file(tmp_path):
 
 
 def test_unported_constructors_raise():
-    for build in (lambda: pt.GraphRRGNormalDiscretized(12, 3, (-1, 1)),
-                  lambda: pt.GraphEANormalDiscretized(2, 2, (-1, 1)),
-                  lambda: pt.GraphFieldsNormalDiscretized(8, (-1, 1))):
+    for build in (lambda: pt.GraphRRGNormalDiscretized(12, 3, (-1, 1), **CPU),
+                  lambda: pt.GraphEANormalDiscretized(2, 2, (-1, 1), **CPU),
+                  lambda: pt.GraphFieldsNormalDiscretized(8, (-1, 1), **CPU)):
         with pytest.raises(NotImplementedError, match="Double"):
             build()
 
@@ -153,21 +154,21 @@ def test_convert_round_trip(name):
     assert (cm.N, cm.K, cm.scale, cm.classes) == (pm.N, pm.K, pm.scale,
                                                   pm.classes)
     sigma = random_sigma(np.random.default_rng(5), 4, pm.N)
-    st = pt.state_from_arrays(cm, sigma)
+    st = pt.state_from_arrays(cm, sigma, **CPU)
     assert torch.equal(st.E, pm.energy(torch.from_numpy(sigma)))
     assert torch.equal(st.aux, pm.local_fields(torch.from_numpy(sigma)))
     with pytest.raises(ValueError):
         pt.pairwise_from_arrays(np.asarray(jm.neigh), np.asarray(jm.J),
                                 np.asarray(jm.h)[:-1], 0, N=jm.N, K=jm.K,
-                                scale=jm.scale)
+                                scale=jm.scale, **CPU)
 
 
 def test_random_spins_and_init_state():
-    m = pt.GraphRRG(12, 3, seed=1)
-    a = pt.init_state(m, 8, seed=3)
-    b = pt.init_state(m, 8, seed=3)
+    m = pt.GraphRRG(12, 3, seed=1, **CPU)
+    a = pt.init_state(m, 8, seed=3, **CPU)
+    b = pt.init_state(m, 8, seed=3, **CPU)
     assert torch.equal(a.sigma, b.sigma) and a.sigma.dtype == torch.int8
     assert set(a.sigma.unique().tolist()) <= {-1, 1}
     assert torch.equal(a.E, m.energy(a.sigma))
-    c = pt.init_state(m, 8, C0=np.ones(12, np.int8))
+    c = pt.init_state(m, 8, C0=np.ones(12, np.int8), **CPU)
     assert torch.equal(c.sigma, torch.ones(8, 12, dtype=torch.int8))

@@ -16,7 +16,7 @@ import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import rejfree
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype, rejfree_sparse_chunk
 
-from torch_port_helpers import (lattice_race_bits, pallas_interpret,
+from torch_port_helpers import (CPU, lattice_race_bits, pallas_interpret,
                                 port_lattice, port_model, race_bits,
                                 random_sigma)
 
@@ -220,20 +220,20 @@ def test_block_sum_follows_kernel_order(n):
 
 
 def test_sparse_rejfree_ok():
-    assert rejfree.sparse_rejfree_ok(pt.GraphRRG(64, 3))
-    assert rejfree.sparse_rejfree_ok(pt.GraphRRGNormal(64, 3, seed=1))
-    assert rejfree.sparse_rejfree_ok(pt.GraphEA(2, 3))        # N = 8
-    assert not rejfree.sparse_rejfree_ok(pt.GraphThreeSpin())  # N < 8
-    m = pt.GraphRRGNormal(16, 3, seed=1)
+    assert rejfree.sparse_rejfree_ok(pt.GraphRRG(64, 3, **CPU))
+    assert rejfree.sparse_rejfree_ok(pt.GraphRRGNormal(64, 3, seed=1, **CPU))
+    assert rejfree.sparse_rejfree_ok(pt.GraphEA(2, 3, **CPU))        # N = 8
+    assert not rejfree.sparse_rejfree_ok(pt.GraphThreeSpin(**CPU))  # N < 8
+    m = pt.GraphRRGNormal(16, 3, seed=1, **CPU)
     bad = pt.pairwise_from_arrays(
         m.neigh.numpy(), np.where(m.J.numpy() > 0, np.inf, m.J.numpy()),
-        m.h.numpy(), 0.0, N=16, K=3, scale=1.0)
+        m.h.numpy(), 0.0, N=16, K=3, scale=1.0, **CPU)
     assert not rejfree.sparse_rejfree_ok(bad)
 
 
 def test_wrapper_checks_arguments():
-    m = pt.GraphRRG(16, 3, seed=1)
-    st = pt.init_state(m, 4, seed=2)
+    m = pt.GraphRRG(16, 3, seed=1, **CPU)
+    st = pt.init_state(m, 4, seed=2, **CPU)
     lf = m.local_fields(st.sigma)
     z = dict(acc=torch.zeros(4, dtype=torch.int32),
              zacc=torch.zeros(4, dtype=torch.float32))

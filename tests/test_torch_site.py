@@ -13,8 +13,8 @@ import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops.site import SiteSampler, site_chunk
 
-from torch_port_helpers import (pallas_interpret, port_model, random_sigma,
-                                site_bits)
+from torch_port_helpers import (CPU, pallas_interpret, port_model,
+                                random_sigma, site_bits)
 
 torch.set_num_threads(1)
 
@@ -85,9 +85,9 @@ def test_site_chunk_matches_jax_interpret(site_pallas, coupling):
 def test_standardmc_kernel_route_cpu():
     """standardMC(backend="kernel") on CPU runs the plain site kernel:
     exact running energy, shapes, accepted counts in range."""
-    m = pt.GraphRRG(64, 3, (-1, 1), seed=2)
+    m = pt.GraphRRG(64, 3, (-1, 1), seed=2, **CPU)
     Es, st = pt.standardMC(m, 1.5, 3000, step=1000, chains=B, seed=9,
-                           backend="kernel")
+                           backend="kernel", **CPU)
     assert pt.LAST_ROUTE["backend"] == "kernel-site"
     assert pt.LAST_ROUTE["impl"] == "plain"
     assert Es.shape == (B, 3) and Es.dtype == torch.float32
@@ -101,9 +101,9 @@ def test_standardmc_kernel_route_cpu():
 
 
 def test_standardmc_kernel_float_couplings():
-    m = pt.GraphRRGNormal(64, 3, seed=1)
+    m = pt.GraphRRGNormal(64, 3, seed=1, **CPU)
     Es, st = pt.standardMC(m, 1.5, 3000, step=1000, chains=B, seed=9,
-                           backend="kernel")
+                           backend="kernel", **CPU)
     err = (m.energy(st.sigma).double() - st.E.double()).abs().max()
     assert float(err) < 2e-3
     assert int(st.accepted.min()) > 0
@@ -112,8 +112,8 @@ def test_standardmc_kernel_float_couplings():
 def test_sweep_schedule_covers_every_site():
     """beta = 0: every proposal accepts (up to a ~2^-25 bit edge), so ONE
     sweep of the permutation schedule flips EVERY spin exactly once."""
-    m = pt.GraphRRG(64, 3, (-1, 1), seed=2)
-    st = pt.init_state(m, B, seed=1)
+    m = pt.GraphRRG(64, 3, (-1, 1), seed=2, **CPU)
+    st = pt.init_state(m, B, seed=1, **CPU)
     sigT = st.sigma.t().contiguous()
     lfT = m.local_fields(st.sigma).t().contiguous()
     E, acc = st.E.clone(), torch.zeros(B, dtype=torch.int32)

@@ -13,7 +13,7 @@ import torch
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 
-from torch_port_helpers import port_model, random_sigma
+from torch_port_helpers import CPU, port_model, random_sigma
 
 torch.set_num_threads(1)
 
@@ -27,28 +27,28 @@ RUNS = {
                                      chains=JAX_CHAINS, seed=4, C0=C0),
         lambda pm, C0: pt.standardMC(pm, BETA, 20_000, step=1000,
                                      chains=CHAINS, seed=4, C0=C0,
-                                     backend="torch")),
+                                     backend="torch", **CPU)),
     "standard-kernel": (
         lambda jm, C0: rt.standardMC(jm, BETA, 20_000, step=1000,
                                      chains=JAX_CHAINS, seed=4, C0=C0),
         lambda pm, C0: pt.standardMC(pm, BETA, 20_000, step=1000,
                                      chains=CHAINS, seed=4, C0=C0,
-                                     backend="kernel")),
+                                     backend="kernel", **CPU)),
     "rrr": (
         lambda jm, C0: rt.rrrMC(jm, BETA, 4096, step=256, chains=JAX_CHAINS,
                                 seed=4, C0=C0),
         lambda pm, C0: pt.rrrMC(pm, BETA, 4096, step=256, chains=CHAINS,
-                                seed=4, C0=C0)),
+                                seed=4, C0=C0, **CPU)),
     "bkl": (
         lambda jm, C0: rt.bklMC(jm, BETA, 20_000, step=1000,
                                 chains=JAX_CHAINS, seed=4, C0=C0),
         lambda pm, C0: pt.bklMC(pm, BETA, 20_000, step=1000, chains=CHAINS,
-                                seed=4, C0=C0)),
+                                seed=4, C0=C0, **CPU)),
     "wtm": (
         lambda jm, C0: rt.wtmMC(jm, BETA, 20, step=1000.0, chains=JAX_CHAINS,
                                 seed=4, C0=C0),
         lambda pm, C0: pt.wtmMC(pm, BETA, 20, step=1000.0, chains=CHAINS,
-                                seed=4, C0=C0)),
+                                seed=4, C0=C0, **CPU)),
 }
 ROUTES = {"standard-torch": "torch", "standard-kernel": "kernel-site",
           "rrr": "kernel-rejfree-sparse", "bkl": "kernel-rejfree-sparse",
@@ -103,9 +103,11 @@ def test_sampler_matches_jax(instance, name):
 def test_float_couplings_bkl_and_rrr():
     """GraphRRGNormal on the race route: float32 energy within 1e-5 per
     spin of energy(sigma)."""
-    m = pt.GraphRRGNormal(32, 3, seed=2)
-    for run in (lambda: pt.bklMC(m, 1.5, 3000, step=300, chains=32, seed=1),
-                lambda: pt.rrrMC(m, 1.5, 1024, step=128, chains=32, seed=1)):
+    m = pt.GraphRRGNormal(32, 3, seed=2, **CPU)
+    for run in (lambda: pt.bklMC(m, 1.5, 3000, step=300, chains=32, seed=1,
+                                 **CPU),
+                lambda: pt.rrrMC(m, 1.5, 1024, step=128, chains=32, seed=1,
+                                 **CPU)):
         Es, st = run()
         assert Es.shape[0] == 32
         err = (m.energy(st.sigma).double() - st.E.double()).abs().max()
@@ -115,36 +117,37 @@ def test_float_couplings_bkl_and_rrr():
 def test_state_continuation():
     """state= continues the chains: accepted counts add up, the energy stays
     exact, and the kernel streams are fresh (the generator advances)."""
-    m = pt.GraphRRG(16, 3, seed=5)
-    Es1, st1 = pt.bklMC(m, 1.0, 2000, step=500, chains=8, seed=3)
-    Es2, st2 = pt.bklMC(m, 1.0, 2000, step=500, state=st1)
+    m = pt.GraphRRG(16, 3, seed=5, **CPU)
+    Es1, st1 = pt.bklMC(m, 1.0, 2000, step=500, chains=8, seed=3, **CPU)
+    Es2, st2 = pt.bklMC(m, 1.0, 2000, step=500, state=st1, **CPU)
     assert torch.equal(m.energy(st2.sigma), st2.E)
     assert bool((st2.accepted > st1.accepted).all())
     Es3, st3 = pt.standardMC(m, 1.0, 1000, step=500, state=st2,
-                             backend="kernel")
+                             backend="kernel", **CPU)
     assert torch.equal(m.energy(st3.sigma), st3.E)
     assert not torch.equal(st3.sigma, st2.sigma)
 
 
 def test_kernel_only_samplers_raise():
-    m = pt.GraphRRG(16, 3, seed=5)
+    m = pt.GraphRRG(16, 3, seed=5, **CPU)
     for f in (pt.rrrMC, pt.bklMC):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             f(m, 1.0, 100, backend="torch")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             f(m, 1.0, 100, hook=lambda *a: True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.wtmMC(m, 1.0, 10, observer=lambda *a: a[-1])
+        pt.wtmMC(m, 1.0, 10, observer=lambda *a: a[-1], **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.bklMC(pt.GraphThreeSpin(), 1.0, 100)
+        pt.bklMC(pt.GraphThreeSpin(**CPU), 1.0, 100, **CPU)
     with pytest.raises(NotImplementedError):
-        pt.standardMC(m, 1.0, 100, backend="kernel", hook=lambda *a: True)
+        pt.standardMC(m, 1.0, 100, backend="kernel", hook=lambda *a: True,
+                      **CPU)
 
 
 def test_standardmc_hook_and_observer():
     """The generic torch route keeps the reference's hook protocol and the
     observer series."""
-    m = pt.GraphRRG(16, 3, seed=5)
+    m = pt.GraphRRG(16, 3, seed=5, **CPU)
     calls = []
 
     def hook(it, model, state):
@@ -152,22 +155,23 @@ def test_standardmc_hook_and_observer():
         return it < 200
 
     Es, st = pt.standardMC(m, 1.0, 1000, step=50, chains=4, seed=1,
-                           hook=hook, hook_every=2)
+                           hook=hook, hook_every=2, **CPU)
     assert calls == [100, 200] and Es.shape == (4, 4)
     Os, _ = pt.standardMC(m, 1.0, 100, step=50, chains=4, seed=1,
-                          observer=lambda mdl, s, a, E: s.sum(-1))
+                          observer=lambda mdl, s, a, E: s.sum(-1), **CPU)
     assert Os.shape == (4, 2)
     Es, _ = pt.standardMC(m, 1.0, 100, step=50, chains=4, seed=1,
-                          backend="auto")
+                          backend="auto", **CPU)
     assert pt.LAST_ROUTE["backend"] == "kernel-site"
 
 
 def test_experiments_factors():
-    m = pt.GraphRRG(16, 3, seed=5)
-    r = pt.experiments.runtest(pt.bklMC, m, 1.0, 2000, chains=8)
+    m = pt.GraphRRG(16, 3, seed=5, **CPU)
+    r = pt.experiments.runtest(pt.bklMC, m, 1.0, 2000, chains=8, **CPU)
     assert r["backend"] == "kernel-rejfree-sparse" and r["iters_per_s"] > 0
     assert 0 < r["mean_z_over_n"] <= 1
-    f = pt.experiments.equal_wallclock_factors(m, 1.0, iters=600, chains=8)
+    f = pt.experiments.equal_wallclock_factors(m, 1.0, iters=600, chains=8,
+                                               **CPU)
     assert set(f) == {"standard", "rrr", "bkl", "wtm"} and f["rrr"] == 1.0
 
 
@@ -195,15 +199,18 @@ def test_kernel_route_samples_boltzmann(name):
     sampler matches the exact Boltzmann mean within max(5 sigma, 0.05):
     bkl/wtm weight states by their holding times, so this also checks the
     skip and clock bookkeeping."""
-    m = pt.GraphRRG(10, 3, (-1, 1), seed=6)
+    m = pt.GraphRRG(10, 3, (-1, 1), seed=6, **CPU)
     beta = 1.0
     calls = {
         "standard-kernel": lambda: pt.standardMC(
-            m, beta, 8000, step=20, chains=128, seed=2, backend="kernel"),
-        "rrr": lambda: pt.rrrMC(m, beta, 2048, step=8, chains=128, seed=2),
-        "bkl": lambda: pt.bklMC(m, beta, 8000, step=20, chains=128, seed=2),
+            m, beta, 8000, step=20, chains=128, seed=2, backend="kernel",
+            **CPU),
+        "rrr": lambda: pt.rrrMC(m, beta, 2048, step=8, chains=128, seed=2,
+                                **CPU),
+        "bkl": lambda: pt.bklMC(m, beta, 8000, step=20, chains=128, seed=2,
+                                **CPU),
         "wtm": lambda: pt.wtmMC(m, beta, 400, step=20.0, chains=128,
-                                seed=2),
+                                seed=2, **CPU),
     }
     Es, _ = calls[name]()
     Es = Es.double().numpy()[:, Es.shape[1] // 4:]

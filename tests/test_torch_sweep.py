@@ -17,8 +17,8 @@ import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import sweep
 from rrrmc_tpu_torch.ops.sweep import Sweeper, sweep_chunk
 
-from torch_port_helpers import (pallas_interpret, port_lattice, random_sigma,
-                                sweep_bits)
+from torch_port_helpers import (CPU, host, pallas_interpret, port_lattice,
+                                random_sigma, sweep_bits)
 
 torch.set_num_threads(1)
 
@@ -35,7 +35,7 @@ def sweep_pallas():
 
 def _field_lattice(mod):
     """EA-2D L=4 (N=16) with integer fields in -2..2."""
-    m = mod.GraphEA(4, 2, (-1, 1), seed=11)
+    m = mod.GraphEA(4, 2, (-1, 1), seed=11, **host(mod))
     h = np.random.RandomState(3).randint(-2, 3, size=m.N)
     if mod is rt:
         return dataclasses.replace(m, h=jnp.asarray(h, m.h.dtype))
@@ -88,9 +88,9 @@ def test_split_runs_equal_one_launch():
     """Sweeps numbered from sweep0 continue one Philox stream: four
     launches of 5 sweeps equal one of 20. Keys follow the global chain id:
     the two halves of a batch, run with chain0, equal the whole batch."""
-    pm = pt.GraphEA(4, 3, (-1, 1), seed=5)
+    pm = pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU)
     psw = Sweeper(pm, 2.0)
-    st = pt.init_state(pm, 16, seed=4)
+    st = pt.init_state(pm, 16, seed=4, **CPU)
 
     def run(sigma, E, parts, chain0=0):
         sigma, E = sigma.clone(), E.clone()
@@ -111,9 +111,9 @@ def test_split_runs_equal_one_launch():
 
 
 def test_wrapper_checks_arguments():
-    pm = pt.GraphEA(4, 2, seed=1)
+    pm = pt.GraphEA(4, 2, seed=1, **CPU)
     psw = Sweeper(pm, 1.0)
-    st = pt.init_state(pm, 4, seed=2)
+    st = pt.init_state(pm, 4, seed=2, **CPU)
     kw = dict(L=4, D=2, n_sweeps=1, beta2s=2.0, seed=1)
     with pytest.raises(ValueError, match="E"):
         sweep_chunk(st.sigma, st.E.float(), psw.Jp, psw.Jm, psw.th, **kw)
@@ -123,8 +123,9 @@ def test_wrapper_checks_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         sweep_chunk(st.sigma.t().contiguous().t(), st.E, psw.Jp, psw.Jm,
                     psw.th, **kw)
-    for bad in (pt.GraphEA(3, 2, seed=1), pt.GraphEANormal(4, 2, seed=1),
-                pt.GraphRRG(16, 3, seed=1)):
+    for bad in (pt.GraphEA(3, 2, seed=1, **CPU),
+                pt.GraphEANormal(4, 2, seed=1, **CPU),
+                pt.GraphRRG(16, 3, seed=1, **CPU)):
         assert not sweep.sweep_eligible(bad)
         with pytest.raises(ValueError, match="LatticeEA"):
             Sweeper(bad, 1.0)
@@ -132,18 +133,21 @@ def test_wrapper_checks_arguments():
 
 #: (model builder, backend, expected route) of sweepMC
 ROUTES = {
-    "lattice-auto": (lambda: pt.GraphEA(4, 3, seed=2), "auto",
+    "lattice-auto": (lambda: pt.GraphEA(4, 3, seed=2, **CPU), "auto",
                      "kernel-sweep"),
     "lattice-kernel": (lambda: _field_lattice(pt), "kernel", "kernel-sweep"),
-    "rrg": (lambda: pt.GraphRRG(32, 3, seed=2), "auto", "kernel-site-sweep"),
-    "odd-L": (lambda: pt.GraphEA(3, 2, seed=2), "kernel",
+    "rrg": (lambda: pt.GraphRRG(32, 3, seed=2, **CPU), "auto",
+            "kernel-site-sweep"),
+    "odd-L": (lambda: pt.GraphEA(3, 2, seed=2, **CPU), "kernel",
               "kernel-site-sweep"),
-    "float-lattice": (lambda: pt.GraphEANormal(4, 2, seed=2), "auto",
+    "float-lattice": (lambda: pt.GraphEANormal(4, 2, seed=2, **CPU), "auto",
                       "kernel-site-sweep"),
-    "EA-L2": (lambda: pt.GraphEA(2, 3, seed=2), "auto", "kernel-site-sweep"),
-    "lattice-torch": (lambda: pt.GraphEA(4, 2, seed=2), "torch", "torch"),
-    "odd-L-torch": (lambda: pt.GraphEA(3, 2, seed=2), "torch", "torch"),
-    "small-N": (lambda: pt.GraphThreeSpin(), "auto", "torch"),
+    "EA-L2": (lambda: pt.GraphEA(2, 3, seed=2, **CPU), "auto",
+              "kernel-site-sweep"),
+    "lattice-torch": (lambda: pt.GraphEA(4, 2, seed=2, **CPU), "torch",
+                      "torch"),
+    "odd-L-torch": (lambda: pt.GraphEA(3, 2, seed=2, **CPU), "torch", "torch"),
+    "small-N": (lambda: pt.GraphThreeSpin(**CPU), "auto", "torch"),
 }
 
 
@@ -156,7 +160,7 @@ def test_sweepmc_routes(name):
     build, backend, route = ROUTES[name]
     m = build()
     Es, st = pt.sweepMC(m, 1.0, 7, step=3, chains=16, seed=3,
-                        backend=backend)
+                        backend=backend, **CPU)
     assert pt.LAST_ROUTE["backend"] == route
     assert pt.LAST_ROUTE["impl"] == ("torch" if route == "torch"
                                      else "plain")
@@ -181,30 +185,30 @@ def test_sweepmc_reuses_sweeper():
     """Route (a) builds one Sweeper per (couplings, fields, scale, beta):
     a second call and a continuation reuse it; a field variant sharing Jd,
     or another beta, gets its own."""
-    from rrrmc_tpu_torch.samplers import sweep as sweep_sampler
+    from rrrmc_tpu_torch.samplers import common, sweep as sweep_sampler
 
-    m = pt.GraphEA(4, 2, seed=4)
-    _, st = pt.sweepMC(m, 1.0, 2, chains=4, seed=1)
+    m = pt.GraphEA(4, 2, seed=4, **CPU)
+    _, st = pt.sweepMC(m, 1.0, 2, chains=4, seed=1, **CPU)
     first = sweep_sampler._sweeper(m, 1.0)
-    _, st = pt.sweepMC(m, 1.0, 2, state=st)
+    _, st = pt.sweepMC(m, 1.0, 2, state=st, **CPU)
     assert sweep_sampler._sweeper(m, 1.0) is first
     assert torch.equal(m.energy(st.sigma), st.E)
     field = _field_lattice(pt)
-    base = pt.GraphEA(4, 2, seed=11)
+    base = pt.GraphEA(4, 2, seed=11, **CPU)
     assert sweep_sampler._sweeper(base, 1.0).Jp.shape[1] == 2
     assert sweep_sampler._sweeper(
         dataclasses.replace(base, h=field.h), 1.0).Jp.shape[1] == 3
     assert sweep_sampler._sweeper(m, 2.0) is not first
-    assert len(sweep_sampler._SWEEPERS) <= sweep_sampler._SWEEPERS_MAX
+    assert len(sweep_sampler._SWEEPERS) <= common._CACHE_MAX
 
 
 def test_sweepmc_rejects():
     with pytest.raises(NotImplementedError, match="N >= 8"):
-        pt.sweepMC(pt.GraphThreeSpin(), 1.0, 2, backend="kernel")
+        pt.sweepMC(pt.GraphThreeSpin(**CPU), 1.0, 2, backend="kernel", **CPU)
     with pytest.raises(ValueError, match="backend"):
-        pt.sweepMC(pt.GraphEA(4, 2), 1.0, 2, backend="pallas")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt.sweepMC(object(), 1.0, 2)
+        pt.sweepMC(pt.GraphEA(4, 2, **CPU), 1.0, 2, backend="pallas", **CPU)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        pt.sweepMC(object(), 1.0, 2, **CPU)
 
 
 @pytest.mark.parametrize("backend", ["kernel", "torch"])
@@ -216,7 +220,7 @@ def test_sweepmc_samples_boltzmann(backend):
     m = _field_lattice(pt)
     beta = 1.0
     Es, _ = pt.sweepMC(m, beta, 240, step=2, chains=256, seed=7,
-                       backend=backend)
+                       backend=backend, **CPU)
     assert pt.LAST_ROUTE["backend"] == ("kernel-sweep" if backend == "kernel"
                                         else "torch")
     Es = Es.double().numpy()[:, Es.shape[1] // 4:]
@@ -236,7 +240,7 @@ def test_sweepmc_matches_jax_xla():
     C0 = random_sigma(np.random.default_rng(6), 128, jm.N)
     Ej, _ = rt.sweepMC(jm, 2.0, sweeps=60, step=6, chains=64, seed=2,
                        C0=C0[:64], backend="xla")
-    Ep, st = pt.sweepMC(pm, 2.0, 60, step=6, chains=128, seed=2, C0=C0)
+    Ep, st = pt.sweepMC(pm, 2.0, 60, step=6, chains=128, seed=2, C0=C0, **CPU)
     assert pt.LAST_ROUTE["backend"] == "kernel-sweep"
 
     def tail(Es):

@@ -17,6 +17,15 @@ from rrrmc_tpu_torch.ops import prng
 #: rrrmc_tpu/ops/prng.py's GOLD and per-kernel salt multiplier
 _GOLD = -1640531527
 _SALT_MUL = 1000003
+#: the port's builders and samplers run on the card unless asked: the CPU
+#: tests ask for the host
+CPU = {"device": "cpu"}
+
+
+def host(mod) -> dict:
+    """Keywords that put a builder of `mod` on the CPU: device="cpu" for
+    the port, none for the JAX package."""
+    return CPU if mod is pt else {}
 
 
 def port_model(jm):
@@ -24,13 +33,13 @@ def port_model(jm):
     return pt.pairwise_from_arrays(
         np.asarray(jm.neigh), np.asarray(jm.J), np.asarray(jm.h),
         np.asarray(jm.offset), N=jm.N, K=jm.K, scale=jm.scale,
-        classes=jm.classes)
+        classes=jm.classes, device="cpu")
 
 
 def port_lattice(jm):
     """The port's LatticeEA with the JAX LatticeEA's couplings and fields."""
     return pt.lattice_from_arrays(np.asarray(jm.Jd), np.asarray(jm.h), jm.L,
-                                  jm.D, jm.scale, jm.classes)
+                                  jm.D, jm.scale, jm.classes, device="cpu")
 
 
 def random_sigma(rng: np.random.Generator, B: int, N: int) -> np.ndarray:
@@ -102,6 +111,63 @@ def sweep_bits(seed: int, B: int, N: int):
     s0 = _salt0(seed)
     return lambda sw, c: torch.from_numpy(np.ascontiguousarray(
         interpret_bits((N, B), s0 + 2 * sw + c).T))
+
+
+def sk_bits(seed: int, B: int, N: int, W: int = 128):
+    """bits(sweep, window) of the JAX dense sweep kernel (one block of B
+    chains, both its variants): salt salt0 + sweep * n_win + w, one [W, B]
+    draw per window (rows past N belong to padding spins), transposed to the
+    port's [B, W]."""
+    s0 = _salt0(seed)
+    n_win = -(-N // W)
+    return lambda sw, w: torch.from_numpy(np.ascontiguousarray(
+        interpret_bits((W, B), s0 + sw * n_win + w).T))
+
+
+def dense_race_bits(seed: int, B: int, N: int, NP: int):
+    """bits(m, draw) of the JAX dense race kernel (`_rejfree_dense_kernel`):
+    the race at salt 3m, a [NP, B] draw sliced to the N physical rows; the
+    rrr acceptance and the bkl skip both at salt 3m + 1."""
+    return race_bits(seed, B, N, NP, skip_salt=1)
+
+
+def stream_race_bits(seed: int, B: int, N: int, NP: int, W: int):
+    """bits(m, draw) of the JAX streamed race kernel
+    (`_rejfree_stream_kernel`): move m draws from msalt = salt0 +
+    m * (n_blk + 2), n_blk = NP // W; race block w at msalt + w, one [W, B]
+    draw each, stacked and sliced to the N physical rows; the rrr acceptance
+    and the bkl skip both at msalt + n_blk."""
+    s0 = _salt0(seed)
+    n_blk = NP // W
+
+    def bits(m, d):
+        msalt = s0 + m * (n_blk + 2)
+        if d == prng.DRAW_RACE:
+            b = np.concatenate([interpret_bits((W, B), msalt + w)
+                                for w in range(n_blk)])[:N].T
+        else:
+            b = interpret_bits((1, B), msalt + n_blk)[0]
+        return torch.from_numpy(np.ascontiguousarray(b))
+
+    return bits
+
+
+def jax_random_bits(jprng, shape, salt: int) -> np.ndarray:
+    """rrrmc_tpu/ops/prng.py::random_bits(shape, salt) drawn inside a
+    one-step Pallas kernel, `jprng` that module reloaded in interpret mode
+    (`pallas_interpret`): what a JAX kernel draws at that salt."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    s32 = int(np.array(salt & 0xFFFFFFFF, np.uint32).view(np.int32))
+
+    def kernel(o_ref):
+        o_ref[...] = jprng.random_bits(shape, jnp.int32(s32))
+
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+        interpret=jprng.interpret_params())())
 
 
 @contextmanager
