@@ -37,10 +37,20 @@ Phases, any failure exits non-zero:
      and the sparse race kernel make the same moves from the same streams).
      GraphSK(1024) is built, and sampled by sweepMC and bklMC, with no
      device given: the card is the default.
+   - tau-EO (`eo_path`): extremal_opt(tau=1.4) with no device argument on
+     the physics rows of bench_all_results.json at their chains and moves
+     (GraphRRG(10_000, 3, seed=7) with 128 chains and 200 000 moves,
+     GraphEA(8, 3, seed=42) with 1024 and 400 000, GraphSK(1024, seed=4)
+     with 1024 and 100 000; best E/N within 2% of the JAX package's), then
+     20 000 moves on GraphRRG(10_000, 3, seed=7) and its densified copy
+     (1024 chains, one seed: identical results), GraphRRGNormal(10_000, 3,
+     seed=7) with 1024 chains and GraphSKNormal(4096) with 512.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
-   couplings).
+   couplings); for EO, E and Emin equal the energies of sigma and
+   sigma_min (exactly for integer couplings, within 1e-4 * N for float
+   ones) and itmin lies in [0, moves].
 
 The dense-model phases of 2 are the dense sweep kernel on GraphSK(1024)
 with 8192 chains (3 sweeps) and GraphSK(8192) with 2048 chains (1 sweep),
@@ -49,11 +59,17 @@ then on its other code paths with 1024 chains (1 sweep each): GraphSK(1100)
 the dense race kernel on GraphSK(1024) with 1024 chains at beta=4 (one
 1024-move chunk per mode), densify(GraphRRG(10_000, 3)) with 1024 chains
 and GraphSKNormal(4096) with 128 chains (bkl), the main paths' shapes.
-Each pair of TPU kernels that the
-VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`, `_rejfree_dense_kernel` /
-`_rejfree_stream_kernel`) is one CUDA kernel here; the record lists each TPU
-kernel with the cases and main-path runs of the regime the TPU would have
-sent to it (J within VMEM: the N=1024 models; else streamed).
+The EO phases of 2 are the sparse EO kernel on GraphRRG(10_000, 3,
+seed=7) and GraphRRGNormal(10_000, 3, seed=7) and on GraphEA(8, 3, seed=42)
+(the port of the lattice branch of `_eo_kernel`), and the dense EO kernel
+on GraphSK(1024) (its dense branch) and on densify(GraphRRG(10_000, 3,
+seed=7)) and GraphSKNormal(4096) (the streamed kernel's regime), 1024
+chains (512 for GraphSKNormal(4096)), EO_CMP_MOVES moves each. Each pair of
+TPU kernels that the VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`,
+`_rejfree_dense_kernel` / `_rejfree_stream_kernel`, `_eo_kernel`'s dense
+branch / `_eo_stream_kernel`) is one CUDA kernel here; the record lists
+each TPU kernel with the cases and main-path runs of the regime the TPU
+would have sent to it (J within VMEM: the N=1024 models; else streamed).
 
 Every kernel entry of the record carries `bound_ms`, the least time the
 card could take for the timed call: the larger of the bytes it must move
@@ -62,8 +78,8 @@ operations over 67 TFLOP/s (the float32 and integer work runs outside the
 tensor cores), counted from this run's data as `_ops_*` say, plus the dense
 sweep's rank-W commit (the TPU kernel's int8 MXU product) over the int8
 tensor-core rate, 1,979 TOP/s; and
-`library_ms`, null: no single PyTorch call computes a Metropolis sweep or a
-race move.
+`library_ms`, null: no single PyTorch call computes a Metropolis sweep, a
+race move or an EO move.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
@@ -102,6 +118,15 @@ SKN_ITERS_BKL, DRRG_ITERS_BKL = 2_000_000, 10_000_000
 #: sweeps per dense-sweep comparison (the plain version takes ~1 ms per
 #: site at these shapes)
 SK_CMP_SWEEPS, SK8_CMP_SWEEPS = 3, 1
+#: tau-EO: tau, the moves of each kernel-versus-plain comparison, the main
+#: path's moves where no physics row sets them, and the moves of the physics
+#: rows of bench_all_results.json (scripts/bench_all.py: bench_eo_sparse,
+#: bench_eo), whose chains and best E/N the file holds
+EO_TAU, EO_CMP_MOVES, EO_MOVES = 1.4, 300, 20_000
+EO_ROW_MOVES = {"eo_rrg1e4_sparse": 200_000, "eo_ea3d": 400_000,
+                "eo_dense_sk": 100_000}
+#: the spread of a best E/N over 128-1024 chains: the physics rows' tolerance
+EO_ROW_RTOL = 0.02
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 REPLACES = {
@@ -113,6 +138,10 @@ REPLACES = {
     "sk_sweep_hbm": "rrrmc_tpu/ops/sk_pallas.py:115",
     "rejfree_dense": "rrrmc_tpu/ops/rejfree_pallas.py:349",
     "rejfree_stream": "rrrmc_tpu/ops/rejfree_pallas.py:559",
+    "eo_sparse": "rrrmc_tpu/ops/eo_pallas.py:449",
+    "eo_lattice": "rrrmc_tpu/ops/eo_pallas.py:66",
+    "eo_dense": "rrrmc_tpu/ops/eo_pallas.py:66",
+    "eo_stream": "rrrmc_tpu/ops/eo_pallas.py:255",
 }
 SOURCES = {
     "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
@@ -123,6 +152,10 @@ SOURCES = {
     "sk_sweep_hbm": "rrrmc_tpu_torch/csrc/sk_sweep.cu",
     "rejfree_dense": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
     "rejfree_stream": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
+    "eo_sparse": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
+    "eo_lattice": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
+    "eo_dense": "rrrmc_tpu_torch/csrc/eo_dense.cu",
+    "eo_stream": "rrrmc_tpu_torch/csrc/eo_dense.cu",
 }
 #: the H100 SXM's published device-memory rate, float32 rate outside the
 #: tensor cores, and int8 tensor-core rate (dense)
@@ -154,6 +187,18 @@ def _ops_race(N, moves, applied, mode, flip_sites):
     applied flip updates `flip_sites` fields (a product and an add each)."""
     per_site = PHILOX_OPS / 4 + 8 + 4 + (5 if mode == "rrr" else 0)
     return moves * N * per_site + applied * 2 * flip_sites
+
+
+def _ops_eo(N, moves, flip_sites, bins):
+    """A tau-EO move over N sites: two Philox calls (the rank draw and at
+    least the winner's tie group), the key and the class compare per site
+    in the tie race (3), the select (a scan over the histogram's `bins`,
+    or for bins == 0 four radix passes of 4 per site) and the flip, which
+    updates `flip_sites` fields (a product and an add each, and two bin
+    moves each with a histogram)."""
+    select = bins if bins else 4 * 4 * N
+    flip = flip_sites * (4 if bins else 2)
+    return moves * (2 * PHILOX_OPS + 3 * N + select + flip)
 
 
 def _nbytes(*tensors) -> int:
@@ -456,6 +501,80 @@ def sk_case(model, label, B, n_sweeps, card, kernel):
             "max_abs_err": 0.0}
 
 
+def eo_case(model, label, B, card, kernel):
+    """An EO kernel against its plain version: EO_CMP_MOVES tau-EO moves of
+    B chains from one random start, one Philox seed, the sampler's select
+    (the histogram for integer keys, the radix select for float ones).
+    Spins and best spins, itmin, E and Emin and the local fields are held
+    to `_compare`'s rule; the same moves split over two launches (move0)
+    must equal the one launch."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo, eo_dense
+    from rrrmc_tpu_torch.ops.rejfree_dense import kernel_couplings
+    from rrrmc_tpu_torch.samplers.eo import half_bound, rank_table
+
+    if isinstance(model, rt.FullyConnected):
+        chunk = eo_dense.eo_dense_chunk
+        ref = eo_dense.eo_dense_chunk_reference
+        tables, flip_sites = (kernel_couplings(model),), model.N
+    else:
+        chunk, ref = eo.eo_sparse_chunk, eo.eo_sparse_chunk_reference
+        tables, flip_sites = (model.neigh, model.J), model.K
+    integer = not model.J.dtype.is_floating_point
+    half_max = half_bound(model) if integer else None
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    lf0 = model.local_fields(st.sigma).contiguous()
+    E0 = st.E.to(lf0.dtype)
+    cdf = rank_table(model.N, EO_TAU, DEV)
+
+    def fresh():
+        return [st.sigma.clone(), lf0.clone(), E0.clone(), E0.clone(),
+                st.sigma.clone(), torch.zeros(B, dtype=torch.int32,
+                                              device=DEV)]
+
+    def run(fn, a):
+        fn(*a, *tables, cdf, n_moves=EO_CMP_MOVES, seed=SEED,
+           half_max=half_max)
+
+    def outs(a):
+        return {"sigma": torch.cat([a[0], a[4]], dim=1), "acc": a[5],
+                "E": torch.stack([a[2], a[3]], dim=1), "lf": a[1]}
+
+    run(chunk, fresh())                                   # warm-up
+    k = fresh()
+    ms = _events_ms(lambda: run(chunk, k))
+    p = fresh()
+    plain_ms = _events_ms(lambda: run(ref, p))
+    bad, err, errs = _compare(f"{kernel} {label}", integer, outs(k),
+                              outs(p), B, model.N)
+    # the same moves in two launches, the second from move0
+    s = fresh()
+    third = EO_CMP_MOVES // 3
+    chunk(*s, *tables, cdf, n_moves=third, seed=SEED, half_max=half_max)
+    chunk(*s, *tables, cdf, n_moves=EO_CMP_MOVES - third, seed=SEED,
+          half_max=half_max, move0=third)
+    require(all(torch.equal(a, b) for a, b in zip(s, k)),
+            f"{kernel} {label}: two launches differ from one")
+    e_err = max(float((model.energy(k[i]).double() - k[j].double()).abs()
+                      .max()) for i, j in ((0, 2), (4, 3)))
+    require(e_err <= (1e-4 * model.N if not integer else 0.0),
+            f"{kernel} {label}: E or Emin != energy, by {e_err}")
+    bins = eo.hist_bins(integer, half_max)
+    bound_ms, bound_by = bound(
+        2 * _nbytes(*fresh()) + _nbytes(*tables, cdf),
+        _ops_eo(model.N, B * EO_CMP_MOVES, flip_sites, bins))
+    print(f"{kernel} {label} B={B} moves={EO_CMP_MOVES} select="
+          f"{f'histogram of {bins} bins' if bins else 'radix'}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
+          f"({bound_by}), diverged chains {bad}, max abs err {err:.3g} "
+          f"[{card}]")
+    return {"kernel": kernel, "case": label, "B": B, "moves": EO_CMP_MOVES,
+            "bins": bins, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "diverged": bad,
+            "max_abs_err": err, "errs": errs}
+
+
 def _drive(runs, card, mods):
     """Run each (name, model, route, module, nominal, unit, n_ckpt, call)
     through the public API with every launch count of `mods` set to 0 just
@@ -675,6 +794,107 @@ def dense_path(card, sk1, sk8, skn, drrg, rrg):
         "rejfree_stream": per_run[5] + per_run[6]}
 
 
+def _physics_rows() -> dict:
+    """The EO rows of bench_all_results.json's `kernels` (the JAX package's
+    best E/N at each row's chains), by kernel name."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "bench_all_results.json"
+    rows = json.loads(path.read_text())["kernels"]
+    return {r["kernel"]: r for r in rows if r["kernel"] in EO_ROW_MOVES}
+
+
+def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
+    """The EO main path: extremal_opt(tau=1.4) through the public API with
+    no device argument, with every EO launch count set to 0 just before the
+    first run: the three physics rows of bench_all_results.json at their
+    chains and moves (their best E/N must agree within EO_ROW_RTOL), and
+    the RRG, its densified copy, RRGNormal and SKNormal(4096) with
+    EO_MOVES moves; the densified and the sparse RRG under one seed must
+    give identical results. Returns the run records, the path's launch
+    counts and the launches of each kernel entry."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo, eo_dense
+
+    rows = _physics_rows()
+    # (name, model, route, kernel entry, chains, moves, seed, physics row)
+    runs = [
+        ("GraphRRG(10^4)", rrg, "kernel-eo-sparse", "eo_sparse", 0, 0, 41,
+         "eo_rrg1e4_sparse"),
+        ("GraphEA(8, 3)", ea, "kernel-eo-sparse", "eo_lattice", 0, 0, 42,
+         "eo_ea3d"),
+        ("GraphSK(1024)", sk, "kernel-eo-dense", "eo_dense", 0, 0, 43,
+         "eo_dense_sk"),
+        ("GraphRRG(10^4) 1024 chains", rrg, "kernel-eo-sparse", "eo_sparse",
+         CHAINS, EO_MOVES, 44, None),
+        ("densify(GraphRRG(10^4))", drrg, "kernel-eo-dense", "eo_stream",
+         CHAINS, EO_MOVES, 44, None),
+        ("GraphRRGNormal(10^4)", rrgn, "kernel-eo-sparse", "eo_sparse",
+         CHAINS, EO_MOVES, 45, None),
+        ("GraphSKNormal(4096)", skn, "kernel-eo-dense", "eo_stream", 512,
+         EO_MOVES, 46, None),
+    ]
+    torch.cuda.synchronize()
+    eo.LAUNCHES = eo_dense.LAUNCHES = 0
+    records, results, per_entry = [], {}, {}
+    for name, model, route, entry, chains, moves, seed, row in runs:
+        if row is not None:
+            chains, moves = rows[row]["chains"], EO_ROW_MOVES[row]
+        before = eo.LAUNCHES + eo_dense.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rt.extremal_opt(model, EO_TAU, moves, chains=chains, seed=seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = eo.LAUNCHES + eo_dense.LAUNCHES - before
+        require(launched > 0, f"EO {name}: no kernel launch")
+        require(rt.LAST_ROUTE == {"backend": route, "impl": "cuda"},
+                f"EO {name}: route {rt.LAST_ROUTE}")
+        per_entry[entry] = per_entry.get(entry, 0) + launched
+        errs = [float((model.to_physical(model.energy(s)).double()
+                       - e.double()).abs().max())
+                for s, e in ((r.sigma, r.E), (r.sigma_min, r.Emin))]
+        if model.J.dtype.is_floating_point:
+            require(max(errs) <= 1e-4 * model.N,
+                    f"EO {name}: |E - energy| {errs}")
+        else:
+            require(max(errs) == 0.0, f"EO {name}: E != energy, {errs}")
+        require(bool(((r.itmin >= 0) & (r.itmin <= moves)).all())
+                and bool(torch.isfinite(r.Emin).all()),
+                f"EO {name}: itmin or Emin out of range")
+        best = float(r.Emin.min()) / model.N
+        rec = {"run": f"extremal_opt {name}", "seconds": dt,
+               "launches": launched, "chains": chains, "moves": moves,
+               "rate": moves * chains / dt, "rate_unit": "moves*chains/s",
+               "best_E_per_spin": best,
+               "mean_Emin_per_spin": float(r.Emin.double().mean())
+               / model.N, "energy_err": max(errs)}
+        print(f"extremal_opt {name}: {rec['rate']:.4g} moves*chains/s "
+              f"({chains} chains, {moves} moves, {dt:.2f} s, {launched} "
+              f"launches), best E/N {best:.5f}, mean Emin/N "
+              f"{rec['mean_Emin_per_spin']:.5f}  [{card}]")
+        if row is not None:
+            ref = rows[row]["best_E_per_spin"]
+            rec["row"], rec["row_best_E_per_spin"] = row, ref
+            print(f"  physics row {row}: port best E/N {best:.5f}, JAX "
+                  f"package {ref:.5f} ({chains} chains, {moves} moves)")
+            require(abs(best - ref) <= EO_ROW_RTOL * abs(ref),
+                    f"EO {name}: best E/N {best} against {row}'s {ref}")
+        records.append(rec)
+        results[name] = r
+    a, b = results["GraphRRG(10^4) 1024 chains"], results[
+        "densify(GraphRRG(10^4))"]
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("sigma", "E", "Emin", "sigma_min", "itmin"))
+    print(f"one law, extremal_opt on densify(GraphRRG(10^4)) and on the "
+          f"sparse GraphRRG(10^4), one seed: identical {same}  [{card}]")
+    require(same, "EO: the dense and the sparse kernel differ on one graph")
+    torch.cuda.synchronize()
+    return records, {"eo_sparse+eo_lattice": eo.LAUNCHES,
+                     "eo_dense+eo_stream": eo_dense.LAUNCHES}, per_entry
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -691,9 +911,10 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     cuda_build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"({cuda_build.build_info['path']})")
+    build_s = time.perf_counter() - t0
+    # the ptxas report first: the build time stays in the output's tail
     print(cuda_build.build_info["log"].strip())
+    print(f"kernel build: {build_s:.1f} s ({cuda_build.build_info['path']})")
 
     m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
@@ -743,18 +964,33 @@ def main() -> int:
     cases.append(rejfree_case(skn, "GraphSKNormal(4096)", "bkl", card,
                               kernel="rejfree_stream", B=128, beta=4.0))
 
+    rrgn7 = rt.GraphRRGNormal(N_MAIN, 3, seed=7, device=DEV)
+    ea8 = rt.GraphEA(8, 3, (-1, 1), seed=42, device=DEV)
+    cases.append(eo_case(rrg7, "GraphRRG(10^4)", CHAINS, card, "eo_sparse"))
+    cases.append(eo_case(rrgn7, "GraphRRGNormal(10^4)", CHAINS, card,
+                         "eo_sparse"))
+    cases.append(eo_case(ea8, "GraphEA(8, 3)", CHAINS, card, "eo_lattice"))
+    cases.append(eo_case(sk1, "GraphSK(1024)", CHAINS, card, "eo_dense"))
+    cases.append(eo_case(drrg, "densify(GraphRRG(10^4))", CHAINS, card,
+                         "eo_stream"))
+    cases.append(eo_case(skn, "GraphSKNormal(4096)", 512, card,
+                         "eo_stream"))
+
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
     sk_records, sk_counts, sk_launches = dense_path(card, sk1, sk8, skn,
                                                     drrg, rrg7)
+    eo_records, eo_counts, eo_launches = eo_path(card, rrg7, rrgn7, ea8,
+                                                 sk1, drrg, skn)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
-                                "dense SK": sk_counts},
-                      "runs": rrg_records + ea_records + sk_records}))
+                                "dense SK": sk_counts, "EO": eo_counts},
+                      "runs": rrg_records + ea_records + sk_records
+                      + eo_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
                 "sweep_checkerboard": ea_counts["sweep_checkerboard"],
-                **sk_launches}
+                **sk_launches, **eo_launches}
 
     kernels = []
     for name in REPLACES:

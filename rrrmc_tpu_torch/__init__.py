@@ -5,11 +5,11 @@ method and sampler takes a [B, N] batch of chains, devices are explicit
 (`device=`, CUDA when none is given: pass device="cpu" for the host), and
 random draws come from explicit generators (a `torch.Generator` on the host
 side, counter-based Philox inside the kernels). The single-site Metropolis,
-the checkerboard sweep of EA lattices, the dense (SK) sweep and the sparse
-and dense rejection-free race moves run on hand-written CUDA kernels (csrc/)
-for a CUDA state and on their plain torch versions on the CPU. Names
-mirror the JAX package (rrrmc_tpu), which stays the reference. This package
-never imports JAX.
+the checkerboard sweep of EA lattices, the dense (SK) sweep, the sparse and
+dense rejection-free race moves and the sparse and dense tau-EO moves run on
+hand-written CUDA kernels (csrc/) for a CUDA state and on their plain torch
+versions on the CPU. Names mirror the JAX package (rrrmc_tpu), which stays
+the reference. This package never imports JAX.
 """
 
 from .core.model import Model, random_spins
@@ -31,6 +31,7 @@ from .samplers.dense_sweep import sweepMC_dense
 from .samplers.rrr import rrrMC
 from .samplers.bkl import bklMC
 from .samplers.wtm import wtmMC
+from .samplers.eo import EOResult, extremal_opt
 from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
                               LAST_ROUTE)
 from .convert import (pairwise_from_arrays, lattice_from_arrays,

@@ -52,6 +52,13 @@ _SIGNATURES = {
                                  _I, _U, _U, _U, _F, _I, _F, _I, _I, _P]),
     "rrrmc_rejfree_dense_smem": (_Z, [_I]),
     "rrrmc_rejfree_dense_max_smem": (_I, [_I]),
+    "rrrmc_eo_sparse": (_I, [_P] * 9 + [_I, _I, _I, _I, _U, _U, _U, _I, _I,
+                                         _P]),
+    "rrrmc_eo_sparse_smem": (_Z, [_I, _I]),
+    "rrrmc_eo_sparse_max_smem": (_I, [_I]),
+    "rrrmc_eo_dense": (_I, [_P] * 8 + [_I, _I, _I, _U, _U, _U, _I, _I, _P]),
+    "rrrmc_eo_dense_smem": (_Z, [_I, _I]),
+    "rrrmc_eo_dense_max_smem": (_I, [_I]),
 }
 
 _lib = None

@@ -21,7 +21,11 @@ Stream layout, shared by every kernel and its plain version:
 * the dense sweep (DRAW_SK = 4) numbers its window steps
   t = sweep * n_win + w, windows of WINDOW = 128 consecutive sites and
   n_win = ceil(N / 128), sweeps counted across launches: row r of a window
-  (site w * 128 + r) takes word r % 4 of counter (r // 4, t, DRAW_SK, 0).
+  (site w * 128 + r) takes word r % 4 of counter (r // 4, t, DRAW_SK, 0);
+* tau-EO moves are counted across launches (`move0`): the rank draw
+  (DRAW_EO_RANK = 5) is word 0 of counter (0, move, DRAW_EO_RANK, 0), and
+  the tie race (DRAW_EO_TIE = 6) gives site i word i % 4 of counter
+  (i // 4, move, DRAW_EO_TIE, 0), the layout of the race.
 
 Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
 product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
@@ -38,6 +42,8 @@ DRAW_SKIP = 2
 DRAW_SITE = 0
 DRAW_SWEEP = 3
 DRAW_SK = 4
+DRAW_EO_RANK = 5
+DRAW_EO_TIE = 6
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -89,15 +95,29 @@ def draw_bits(seed: int, chain0: int, B: int, move0: int, n: int, draw: int,
 
 
 def race_bits(seed: int, chain0: int, B: int, N: int, move0: int, n: int,
-              device) -> torch.Tensor:
+              device, draw: int = DRAW_RACE) -> torch.Tensor:
     """[n, B, N] int32 race bits of the moves move0 .. move0 + n - 1: site
-    i takes word i % 4 of counter (i // 4, move, DRAW_RACE, 0)."""
+    i takes word i % 4 of counter (i // 4, move, draw, 0)."""
     k0, k1 = chain_keys(seed, chain0, B, device)
     W = -(-N // 4)
     widx = torch.arange(W, dtype=torch.int64, device=device)
     mv = _moves(move0, n, device)[:, None, None]
-    ws = philox4x32_10((widx, mv, DRAW_RACE, 0), (k0, k1[:, None]))
+    ws = philox4x32_10((widx, mv, draw, 0), (k0, k1[:, None]))
     return as_int32(torch.stack(ws, dim=-1).reshape(n, B, 4 * W)[..., :N])
+
+
+def eo_rank_bits(seed: int, chain0: int, B: int, move0: int, n: int,
+                 device) -> torch.Tensor:
+    """[n, B] int32 rank draws of the EO moves move0 .. move0 + n - 1."""
+    return draw_bits(seed, chain0, B, move0, n, DRAW_EO_RANK, device)
+
+
+def eo_tie_bits(seed: int, chain0: int, B: int, N: int, move0: int, n: int,
+                device) -> torch.Tensor:
+    """[n, B, N] int32 tie-race bits of the EO moves move0 ..
+    move0 + n - 1: site i takes word i % 4 of counter (i // 4, move,
+    DRAW_EO_TIE, 0)."""
+    return race_bits(seed, chain0, B, N, move0, n, device, draw=DRAW_EO_TIE)
 
 
 def sweep_bits(seed: int, chain0: int, B: int, N: int, sweep: int,

@@ -152,6 +152,24 @@ def stream_race_bits(seed: int, B: int, N: int, NP: int, W: int):
     return bits
 
 
+def eo_bits(seed: int, B: int, N: int):
+    """bits(m, draw) of the JAX EO kernels (one block of B chains; the
+    lattice, dense, streamed and sparse variants draw alike): the rank at
+    salt salt0 + 2m, a [1, B] draw, and the tie race at salt0 + 2m + 1, an
+    [NP, B] draw whose N physical rows are transposed to the port's
+    [B, N] (a row's bits do not depend on NP)."""
+    s0 = _salt0(seed)
+
+    def bits(m, d):
+        if d == prng.DRAW_EO_RANK:
+            b = interpret_bits((1, B), s0 + 2 * m)[0]
+        else:
+            b = interpret_bits((N, B), s0 + 2 * m + 1).T
+        return torch.from_numpy(np.ascontiguousarray(b))
+
+    return bits
+
+
 def jax_random_bits(jprng, shape, salt: int) -> np.ndarray:
     """rrrmc_tpu/ops/prng.py::random_bits(shape, salt) drawn inside a
     one-step Pallas kernel, `jprng` that module reloaded in interpret mode
