@@ -45,6 +45,17 @@ Phases, any failure exits non-zero:
      20 000 moves on GraphRRG(10_000, 3, seed=7) and its densified copy
      (1024 chains, one seed: identical results), GraphRRGNormal(10_000, 3,
      seed=7) with 1024 chains and GraphSKNormal(4096) with 512.
+   - PSpin3 (`pspin_path`): GraphPSpin3(7500, 3, seed=7), built with no
+     device argument, through bklMC at beta=1.5 and rrrMC at beta=1.0 with
+     128 chains (scripts/bench_all.py's bkl_pspin7500 and rrr_pspin7500
+     rows), wtmMC at beta=1.5 with 128 chains, bklMC with 1024 chains, and
+     extremal_opt(tau=1.4) with 128 chains and 100 000 moves, whose best
+     E/N must lie within EO_ROW_RTOL of the eo_pspin7500 row;
+   - K-SAT (`sat_path`): GraphSAT(10_000, 3, 4.2, seed=167) through bklMC,
+     wtmMC and rrrMC at beta=4 with 128 chains (bench_all.py's sat
+     section) and extremal_opt(tau=1.4) with 128 chains and 30 000 moves,
+     whose mean Emin must lie within SAT_EO_RTOL of the sat_eo row's (its
+     standard error over the chains, and the best, are printed beside).
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
@@ -70,6 +81,15 @@ TPU kernels that the VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`,
 branch / `_eo_stream_kernel`) is one CUDA kernel here; the record lists
 each TPU kernel with the cases and main-path runs of the regime the TPU
 would have sent to it (J within VMEM: the N=1024 models; else streamed).
+
+The hypergraph phases of 2 are the PSpin3 race kernel (the sparse race
+kernel with the hypergraph flip) in bkl, wtm and rrr mode for one 1024-move
+chunk and the PSpin3 EO kernel for EO_CMP_MOVES moves on
+GraphPSpin3(7500, 3, seed=7), and the SAT race and EO kernels alike on
+GraphSAT(10_000, 3, 4.2, seed=167), all with 128 chains: every output
+EQUAL (integer energies, cavity sums and clause counts). Their flips update
+2K cavity sums (PSpin3) and the dE of the Cmax * K variables of the
+winner's clauses (SAT): `_ops_race` and `_ops_eo` count those.
 
 Every kernel entry of the record carries `bound_ms`, the least time the
 card could take for the timed call: the larger of the bytes it must move
@@ -124,9 +144,21 @@ SK_CMP_SWEEPS, SK8_CMP_SWEEPS = 3, 1
 #: bench_eo), whose chains and best E/N the file holds
 EO_TAU, EO_CMP_MOVES, EO_MOVES = 1.4, 300, 20_000
 EO_ROW_MOVES = {"eo_rrg1e4_sparse": 200_000, "eo_ea3d": 400_000,
-                "eo_dense_sk": 100_000}
+                "eo_dense_sk": 100_000, "eo_pspin7500": 100_000}
 #: the spread of a best E/N over 128-1024 chains: the physics rows' tolerance
 EO_ROW_RTOL = 0.02
+#: hypergraph paths: the instances of scripts/bench_all.py (bench_pspin,
+#: sat_section), their chains, betas and run lengths, and the tolerance of
+#: the SAT EO row's mean best energy: 5% of the row, a guard against a gross
+#: fault of the physics, not a tight test (it spans many standard errors of
+#: the mean over 128 chains, which the run prints beside it); the kernel is
+#: held bit for bit against its plain version above
+PSPIN_N, PSPIN_K, PSPIN_SEED, SAT_N, SAT_K, SAT_ALPHA = 7500, 3, 7, 10_000, \
+    3, 4.2
+HYPER_CHAINS, PS_BETA_BKL, PS_BETA_RRR, SAT_BETA = 128, 1.5, 1.0, 4.0
+PS_ITERS_BKL, PS_ITERS_RRR, PS_WTM_SAMPLES = 2_000_000, 100_000, 200
+SAT_ITERS_BKL, SAT_ITERS_RRR, SAT_WTM_SAMPLES = 4_000_000, 50_000, 200
+SAT_EO_MOVES, SAT_EO_RTOL = 30_000, 0.05
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 REPLACES = {
@@ -142,6 +174,10 @@ REPLACES = {
     "eo_lattice": "rrrmc_tpu/ops/eo_pallas.py:66",
     "eo_dense": "rrrmc_tpu/ops/eo_pallas.py:66",
     "eo_stream": "rrrmc_tpu/ops/eo_pallas.py:255",
+    "rejfree_pspin": "rrrmc_tpu/ops/rejfree_pallas.py:1122",
+    "eo_pspin": "rrrmc_tpu/ops/eo_pallas.py:600",
+    "rejfree_sat": "rrrmc_tpu/ops/sat_pallas.py:306",
+    "eo_sat": "rrrmc_tpu/ops/sat_pallas.py:528",
 }
 SOURCES = {
     "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
@@ -156,6 +192,10 @@ SOURCES = {
     "eo_lattice": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
     "eo_dense": "rrrmc_tpu_torch/csrc/eo_dense.cu",
     "eo_stream": "rrrmc_tpu_torch/csrc/eo_dense.cu",
+    "rejfree_pspin": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
+    "eo_pspin": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
+    "rejfree_sat": "rrrmc_tpu_torch/csrc/rejfree_sat.cu",
+    "eo_sat": "rrrmc_tpu_torch/csrc/eo_sat.cu",
 }
 #: the H100 SXM's published device-memory rate, float32 rate outside the
 #: tensor cores, and int8 tensor-core rate (dense)
@@ -203,6 +243,12 @@ def _ops_eo(N, moves, flip_sites, bins):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _reference(chunk):
+    """A kernel wrapper's plain version: `<name>_reference` of its module."""
+    return getattr(sys.modules[chunk.__module__],
+                   chunk.__name__ + "_reference")
 
 
 def card_line() -> str:
@@ -375,32 +421,25 @@ def sweep_case(model, label, B, card):
 def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
                  B=CHAINS, beta=BETA):
     """A race kernel against its plain version for one 1024-move chunk of B
-    chains: the sparse kernel on a Pairwise model, the dense one on a
-    FullyConnected model."""
+    chains: the kernel of the model's family (samplers/families.py)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, rejfree_dense
+    from rrrmc_tpu_torch.ops import rejfree
+    from rrrmc_tpu_torch.samplers.families import family_of
 
     n_moves = RACE_MOVES
-    if isinstance(model, rt.FullyConnected):
-        chunk = rejfree_dense.rejfree_dense_chunk
-        ref = rejfree_dense.rejfree_dense_chunk_reference
-        tables = (rejfree_dense.kernel_couplings(model),)
-        flip_sites = model.N
-    else:
-        chunk = rejfree.rejfree_sparse_chunk
-        ref = rejfree.rejfree_sparse_chunk_reference
-        tables = (model.neigh, model.J)
-        flip_sites = model.K
+    fam = family_of(model)
+    chunk, ref = fam.race, _reference(fam.race)
+    tables = fam.tables(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     ct = rejfree.coord_dtype(mode)
     z = dict(device=DEV)
-    base = dict(sigma=st.sigma.clone(), lf=model.local_fields(st.sigma),
+    base = dict(sigma=st.sigma.clone(), lf=model.init_aux(st.sigma),
                 E=st.E.clone(), coord=torch.zeros(B, dtype=ct, **z),
                 acc=torch.zeros(B, dtype=torch.int32, **z),
                 zacc=torch.zeros(B, dtype=torch.float32, **z))
-    kw = dict(mode=mode, n_moves=n_moves, beta2s=2 * beta * model.scale,
-              seed=SEED, move0=0, chain0=0)
+    kw = dict(mode=mode, n_moves=n_moves, seed=SEED, move0=0, chain0=0,
+              beta_s=beta * model.scale)
 
     def fresh():
         return {k: v.clone() for k, v in base.items()}
@@ -428,14 +467,14 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     ms = _events_ms(lambda: run(chunk, k, target))
     p = fresh()
     plain_ms = _events_ms(lambda: run(ref, p, target))
-    integer = not model.J.dtype.is_floating_point
+    integer = not st.E.dtype.is_floating_point
     bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
                               model.N)
     applied = float(k["acc"].double().sum())
     moves = float(k["coord"].double().sum()) if mode == "rrr" else applied
     bound_ms, bound_by = bound(
         2 * _nbytes(*base.values()) + _nbytes(*tables, k["cs"], k["es"]),
-        _ops_race(model.N, moves, applied, mode, flip_sites))
+        _ops_race(model.N, moves, applied, mode, fam.flip_sites(model)))
     print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
@@ -510,21 +549,16 @@ def eo_case(model, label, B, card, kernel):
     must equal the one launch."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo, eo_dense
-    from rrrmc_tpu_torch.ops.rejfree_dense import kernel_couplings
-    from rrrmc_tpu_torch.samplers.eo import half_bound, rank_table
+    from rrrmc_tpu_torch.ops import eo
+    from rrrmc_tpu_torch.samplers.eo import rank_table
+    from rrrmc_tpu_torch.samplers.families import family_of
 
-    if isinstance(model, rt.FullyConnected):
-        chunk = eo_dense.eo_dense_chunk
-        ref = eo_dense.eo_dense_chunk_reference
-        tables, flip_sites = (kernel_couplings(model),), model.N
-    else:
-        chunk, ref = eo.eo_sparse_chunk, eo.eo_sparse_chunk_reference
-        tables, flip_sites = (model.neigh, model.J), model.K
-    integer = not model.J.dtype.is_floating_point
-    half_max = half_bound(model) if integer else None
+    fam = family_of(model)
+    chunk, ref, tables = fam.eo, _reference(fam.eo), fam.tables(model)
+    kw = fam.eo_kw(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
-    lf0 = model.local_fields(st.sigma).contiguous()
+    integer = not st.E.dtype.is_floating_point
+    lf0 = model.init_aux(st.sigma).contiguous()
     E0 = st.E.to(lf0.dtype)
     cdf = rank_table(model.N, EO_TAU, DEV)
 
@@ -534,8 +568,7 @@ def eo_case(model, label, B, card, kernel):
                                               device=DEV)]
 
     def run(fn, a):
-        fn(*a, *tables, cdf, n_moves=EO_CMP_MOVES, seed=SEED,
-           half_max=half_max)
+        fn(*a, *tables, cdf, n_moves=EO_CMP_MOVES, seed=SEED, **kw)
 
     def outs(a):
         return {"sigma": torch.cat([a[0], a[4]], dim=1), "acc": a[5],
@@ -551,19 +584,19 @@ def eo_case(model, label, B, card, kernel):
     # the same moves in two launches, the second from move0
     s = fresh()
     third = EO_CMP_MOVES // 3
-    chunk(*s, *tables, cdf, n_moves=third, seed=SEED, half_max=half_max)
+    chunk(*s, *tables, cdf, n_moves=third, seed=SEED, **kw)
     chunk(*s, *tables, cdf, n_moves=EO_CMP_MOVES - third, seed=SEED,
-          half_max=half_max, move0=third)
+          move0=third, **kw)
     require(all(torch.equal(a, b) for a, b in zip(s, k)),
             f"{kernel} {label}: two launches differ from one")
     e_err = max(float((model.energy(k[i]).double() - k[j].double()).abs()
                       .max()) for i, j in ((0, 2), (4, 3)))
     require(e_err <= (1e-4 * model.N if not integer else 0.0),
             f"{kernel} {label}: E or Emin != energy, by {e_err}")
-    bins = eo.hist_bins(integer, half_max)
+    bins = eo.hist_bins(integer, fam.key_max(model))
     bound_ms, bound_by = bound(
         2 * _nbytes(*fresh()) + _nbytes(*tables, cdf),
-        _ops_eo(model.N, B * EO_CMP_MOVES, flip_sites, bins))
+        _ops_eo(model.N, B * EO_CMP_MOVES, fam.flip_sites(model), bins))
     print(f"{kernel} {label} B={B} moves={EO_CMP_MOVES} select="
           f"{f'histogram of {bins} bins' if bins else 'radix'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
@@ -605,7 +638,7 @@ def _drive(runs, card, mods):
                 f"{name}: series {tuple(Es.shape)}, finite "
                 f"{bool(torch.isfinite(Es).all())}")
         E_re = model.energy(st.sigma)
-        if model.J.dtype.is_floating_point:
+        if st.E.dtype.is_floating_point:
             # float32 E accumulated over ~1e5 moves at |E| ~ 1e4 (one ulp
             # is 1e-3): 1e-4 per spin
             err = float((E_re.double() - st.E.double()).abs().max())
@@ -804,6 +837,62 @@ def _physics_rows() -> dict:
     return {r["kernel"]: r for r in rows if r["kernel"] in EO_ROW_MOVES}
 
 
+def _eo_run(name, model, route, chains, moves, seed, launches, card):
+    """One extremal_opt(tau=EO_TAU) run through the public API with no
+    device argument, and its checks: a kernel launched (`launches()` reads
+    the path's launch counts), LAST_ROUTE names the CUDA route, E and Emin
+    equal the energies of sigma and sigma_min (exactly for integer
+    energies, within 1e-4 * N for float ones), itmin in [0, moves].
+    Returns (record, EOResult)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    before = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = rt.extremal_opt(model, EO_TAU, moves, chains=chains, seed=seed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = launches() - before
+    require(launched > 0, f"EO {name}: no kernel launch")
+    require(rt.LAST_ROUTE == {"backend": route, "impl": "cuda"},
+            f"EO {name}: route {rt.LAST_ROUTE}")
+    errs = [float((model.to_physical(model.energy(s)).double()
+                   - e.double()).abs().max())
+            for s, e in ((r.sigma, r.E), (r.sigma_min, r.Emin))]
+    if model.energy(r.sigma).dtype.is_floating_point:
+        require(max(errs) <= 1e-4 * model.N,
+                f"EO {name}: |E - energy| {errs}")
+    else:
+        require(max(errs) == 0.0, f"EO {name}: E != energy, {errs}")
+    require(bool(((r.itmin >= 0) & (r.itmin <= moves)).all())
+            and bool(torch.isfinite(r.Emin).all()),
+            f"EO {name}: itmin or Emin out of range")
+    best = float(r.Emin.min()) / model.N
+    rec = {"run": f"extremal_opt {name}", "seconds": dt,
+           "launches": launched, "chains": chains, "moves": moves,
+           "rate": moves * chains / dt, "rate_unit": "moves*chains/s",
+           "best_E_per_spin": best,
+           "mean_Emin_per_spin": float(r.Emin.double().mean())
+           / model.N, "energy_err": max(errs)}
+    print(f"extremal_opt {name}: {rec['rate']:.4g} moves*chains/s "
+          f"({chains} chains, {moves} moves, {dt:.2f} s, {launched} "
+          f"launches), best E/N {best:.5f}, mean Emin/N "
+          f"{rec['mean_Emin_per_spin']:.5f}  [{card}]")
+    return rec, r
+
+
+def _check_row(rec, row, ref):
+    """A run's best E/N within EO_ROW_RTOL of its physics row's."""
+    best, name = rec["best_E_per_spin"], rec["run"]
+    rec["row"], rec["row_best_E_per_spin"] = row, ref
+    print(f"  physics row {row}: port best E/N {best:.5f}, JAX "
+          f"package {ref:.5f} ({rec['chains']} chains, {rec['moves']} "
+          f"moves)")
+    require(abs(best - ref) <= EO_ROW_RTOL * abs(ref),
+            f"{name}: best E/N {best} against {row}'s {ref}")
+
+
 def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
     """The EO main path: extremal_opt(tau=1.4) through the public API with
     no device argument, with every EO launch count set to 0 just before the
@@ -814,7 +903,6 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
     give identical results. Returns the run records, the path's launch
     counts and the launches of each kernel entry."""
     import torch
-    import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import eo, eo_dense
 
     rows = _physics_rows()
@@ -841,46 +929,11 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
     for name, model, route, entry, chains, moves, seed, row in runs:
         if row is not None:
             chains, moves = rows[row]["chains"], EO_ROW_MOVES[row]
-        before = eo.LAUNCHES + eo_dense.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = rt.extremal_opt(model, EO_TAU, moves, chains=chains, seed=seed)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launched = eo.LAUNCHES + eo_dense.LAUNCHES - before
-        require(launched > 0, f"EO {name}: no kernel launch")
-        require(rt.LAST_ROUTE == {"backend": route, "impl": "cuda"},
-                f"EO {name}: route {rt.LAST_ROUTE}")
-        per_entry[entry] = per_entry.get(entry, 0) + launched
-        errs = [float((model.to_physical(model.energy(s)).double()
-                       - e.double()).abs().max())
-                for s, e in ((r.sigma, r.E), (r.sigma_min, r.Emin))]
-        if model.J.dtype.is_floating_point:
-            require(max(errs) <= 1e-4 * model.N,
-                    f"EO {name}: |E - energy| {errs}")
-        else:
-            require(max(errs) == 0.0, f"EO {name}: E != energy, {errs}")
-        require(bool(((r.itmin >= 0) & (r.itmin <= moves)).all())
-                and bool(torch.isfinite(r.Emin).all()),
-                f"EO {name}: itmin or Emin out of range")
-        best = float(r.Emin.min()) / model.N
-        rec = {"run": f"extremal_opt {name}", "seconds": dt,
-               "launches": launched, "chains": chains, "moves": moves,
-               "rate": moves * chains / dt, "rate_unit": "moves*chains/s",
-               "best_E_per_spin": best,
-               "mean_Emin_per_spin": float(r.Emin.double().mean())
-               / model.N, "energy_err": max(errs)}
-        print(f"extremal_opt {name}: {rec['rate']:.4g} moves*chains/s "
-              f"({chains} chains, {moves} moves, {dt:.2f} s, {launched} "
-              f"launches), best E/N {best:.5f}, mean Emin/N "
-              f"{rec['mean_Emin_per_spin']:.5f}  [{card}]")
+        rec, r = _eo_run(name, model, route, chains, moves, seed,
+                         lambda: eo.LAUNCHES + eo_dense.LAUNCHES, card)
+        per_entry[entry] = per_entry.get(entry, 0) + rec["launches"]
         if row is not None:
-            ref = rows[row]["best_E_per_spin"]
-            rec["row"], rec["row_best_E_per_spin"] = row, ref
-            print(f"  physics row {row}: port best E/N {best:.5f}, JAX "
-                  f"package {ref:.5f} ({chains} chains, {moves} moves)")
-            require(abs(best - ref) <= EO_ROW_RTOL * abs(ref),
-                    f"EO {name}: best E/N {best} against {row}'s {ref}")
+            _check_row(rec, row, rows[row]["best_E_per_spin"])
         records.append(rec)
         results[name] = r
     a, b = results["GraphRRG(10^4) 1024 chains"], results[
@@ -893,6 +946,105 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
     torch.cuda.synchronize()
     return records, {"eo_sparse+eo_lattice": eo.LAUNCHES,
                      "eo_dense+eo_stream": eo_dense.LAUNCHES}, per_entry
+
+
+def _sat_eo_row() -> dict:
+    """The sat_eo row of bench_all_results.json (the JAX package's best and
+    mean best energy over its chains)."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "bench_all_results.json"
+    rows = json.loads(path.read_text())["sat"]
+    return next(r for r in rows if r["kernel"] == "sat_eo")
+
+
+def pspin_path(card, ps):
+    """The PSpin3 path: the race samplers through the public API (the
+    race launch count set to 0 just before them), then extremal_opt (the
+    EO launch count set to 0 just before it) on the eo_pspin7500 row's
+    chains and moves. Returns the run records and the launches of both
+    kernel entries."""
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo_pspin, pspin
+
+    route, B = "kernel-rejfree-pspin", HYPER_CHAINS
+    bkl_b, rrr_b, n = PS_BETA_BKL, PS_BETA_RRR, ps.N
+    runs = [
+        ("bklMC GraphPSpin3(7500, 3) beta=1.5", ps, route, pspin,
+         PS_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(ps, bkl_b, PS_ITERS_BKL, step=PS_ITERS_BKL // 10,
+                          chains=B, seed=51)),
+        ("rrrMC GraphPSpin3(7500, 3) beta=1.0", ps, route, pspin,
+         PS_ITERS_RRR, "moves", 10,
+         lambda: rt.rrrMC(ps, rrr_b, PS_ITERS_RRR, step=PS_ITERS_RRR // 10,
+                          chains=B, seed=52)),
+        ("wtmMC GraphPSpin3(7500, 3) beta=1.5", ps, route, pspin,
+         PS_WTM_SAMPLES * n, "virtual iterations", PS_WTM_SAMPLES,
+         lambda: rt.wtmMC(ps, bkl_b, PS_WTM_SAMPLES, step=float(n),
+                          chains=B, seed=53)),
+        ("bklMC GraphPSpin3(7500, 3) beta=1.5, 1024 chains", ps, route, pspin,
+         PS_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(ps, bkl_b, PS_ITERS_BKL, step=PS_ITERS_BKL // 10,
+                          chains=CHAINS, seed=54)),
+    ]
+    records, counts = _drive(runs, card, {"rejfree_pspin": pspin})
+    row = _physics_rows()["eo_pspin7500"]
+    eo_pspin.LAUNCHES = 0
+    rec, _ = _eo_run("GraphPSpin3(7500, 3)", ps, "kernel-eo-pspin",
+                     row["chains"], EO_ROW_MOVES["eo_pspin7500"], 55,
+                     lambda: eo_pspin.LAUNCHES, card)
+    _check_row(rec, "eo_pspin7500", row["best_E_per_spin"])
+    return records + [rec], {**counts, "eo_pspin": eo_pspin.LAUNCHES}
+
+
+def sat_path(card, sat):
+    """The K-SAT path: bklMC, wtmMC and rrrMC at beta=4 through the public
+    API (the race launch count set to 0 just before them), then
+    extremal_opt (the EO launch count set to 0 just before it), whose mean
+    best energy over the chains must lie within SAT_EO_RTOL of the sat_eo
+    row's. Returns the run records and the launches of both kernel
+    entries."""
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo_sat
+    from rrrmc_tpu_torch.ops import sat as sat_ops
+
+    route, B, beta, n = "kernel-rejfree-sat", HYPER_CHAINS, SAT_BETA, sat.N
+    runs = [
+        ("bklMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+         SAT_ITERS_BKL, "virtual iterations", 10,
+         lambda: rt.bklMC(sat, beta, SAT_ITERS_BKL,
+                          step=SAT_ITERS_BKL // 10, chains=B, seed=61)),
+        ("wtmMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+         SAT_WTM_SAMPLES * n, "virtual iterations", SAT_WTM_SAMPLES,
+         lambda: rt.wtmMC(sat, beta, SAT_WTM_SAMPLES, step=float(n),
+                          chains=B, seed=62)),
+        ("rrrMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+         SAT_ITERS_RRR, "moves", 10,
+         lambda: rt.rrrMC(sat, beta, SAT_ITERS_RRR,
+                          step=SAT_ITERS_RRR // 10, chains=B, seed=63)),
+    ]
+    records, counts = _drive(runs, card, {"rejfree_sat": sat_ops})
+    row = _sat_eo_row()
+    eo_sat.LAUNCHES = 0
+    rec, r = _eo_run("GraphSAT(10^4, 3, 4.2)", sat, "kernel-eo-sat",
+                     row["chains"], SAT_EO_MOVES, 64,
+                     lambda: eo_sat.LAUNCHES, card)
+    mean_best = rec["mean_Emin_per_spin"] * n
+    best = rec["best_E_per_spin"] * n
+    emin = r.Emin.double()
+    sem = float(emin.std()) / emin.numel() ** 0.5
+    rec.update(row="sat_eo", row_mean_best_E=row["mean_best_E"],
+               row_best_E=row["best_E"], mean_best_E=mean_best, best_E=best,
+               sem_mean_best_E=sem)
+    print(f"  physics row sat_eo: port mean best E {mean_best:.2f} (standard "
+          f"error {sem:.3f}, limit {SAT_EO_RTOL * row['mean_best_E']:.2f}), "
+          f"best {best:.0f}; JAX package {row['mean_best_E']:.2f}, best "
+          f"{row['best_E']:.0f} ({rec['chains']} chains, {rec['moves']} "
+          f"moves)")
+    require(abs(mean_best - row["mean_best_E"])
+            <= SAT_EO_RTOL * row["mean_best_E"],
+            f"EO SAT: mean best E {mean_best} against {row['mean_best_E']}")
+    return records + [rec], {**counts, "eo_sat": eo_sat.LAUNCHES}
 
 
 def main() -> int:
@@ -976,21 +1128,41 @@ def main() -> int:
     cases.append(eo_case(skn, "GraphSKNormal(4096)", 512, card,
                          "eo_stream"))
 
+    # the hypergraph models, built with no device given: the card is the
+    # default
+    ps = rt.GraphPSpin3(PSPIN_N, PSPIN_K, seed=PSPIN_SEED)
+    sat = rt.GraphSAT(SAT_N, SAT_K, SAT_ALPHA, seed=SEED)
+    require(ps.A.device.type == "cuda" and sat.A.device.type == "cuda",
+            "the hypergraph builders without a device are not on the card")
+    for model, label in ((ps, "GraphPSpin3(7500, 3)"),
+                         (sat, "GraphSAT(10^4, 3, 4.2)")):
+        kind = "pspin" if model is ps else "sat"
+        for mode in ("bkl", "wtm", "rrr"):
+            beta = (SAT_BETA if model is sat
+                    else PS_BETA_RRR if mode == "rrr" else PS_BETA_BKL)
+            cases.append(rejfree_case(model, label, mode, card,
+                                      kernel=f"rejfree_{kind}",
+                                      B=HYPER_CHAINS, beta=beta))
+        cases.append(eo_case(model, label, HYPER_CHAINS, card, f"eo_{kind}"))
+
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
     sk_records, sk_counts, sk_launches = dense_path(card, sk1, sk8, skn,
                                                     drrg, rrg7)
     eo_records, eo_counts, eo_launches = eo_path(card, rrg7, rrgn7, ea8,
                                                  sk1, drrg, skn)
+    ps_records, ps_counts = pspin_path(card, ps)
+    sat_records, sat_counts = sat_path(card, sat)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
-                                "dense SK": sk_counts, "EO": eo_counts},
+                                "dense SK": sk_counts, "EO": eo_counts,
+                                "PSpin3": ps_counts, "K-SAT": sat_counts},
                       "runs": rrg_records + ea_records + sk_records
-                      + eo_records}))
+                      + eo_records + ps_records + sat_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
                 "sweep_checkerboard": ea_counts["sweep_checkerboard"],
-                **sk_launches, **eo_launches}
+                **sk_launches, **eo_launches, **ps_counts, **sat_counts}
 
     kernels = []
     for name in REPLACES:

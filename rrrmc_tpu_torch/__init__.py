@@ -5,10 +5,10 @@ method and sampler takes a [B, N] batch of chains, devices are explicit
 (`device=`, CUDA when none is given: pass device="cpu" for the host), and
 random draws come from explicit generators (a `torch.Generator` on the host
 side, counter-based Philox inside the kernels). The single-site Metropolis,
-the checkerboard sweep of EA lattices, the dense (SK) sweep, the sparse and
-dense rejection-free race moves and the sparse and dense tau-EO moves run on
-hand-written CUDA kernels (csrc/) for a CUDA state and on their plain torch
-versions on the CPU. Names mirror the JAX package (rrrmc_tpu), which stays
+the checkerboard sweep of EA lattices, the dense (SK) sweep, the
+rejection-free race moves and the tau-EO moves (sparse, dense, and on the
+PSpin3 and K-SAT hypergraphs) run on hand-written CUDA kernels (csrc/) for
+a CUDA state and on their plain torch versions on the CPU. Names mirror the JAX package (rrrmc_tpu), which stays
 the reference. This package never imports JAX.
 """
 
@@ -18,6 +18,8 @@ from .models.pairwise import (Pairwise, make_pairwise, infer_integer_scale,
 from .models.lattice import LatticeEA, make_lattice_ea
 from .models.dense import (FullyConnected, GraphSK, GraphSKNormal, densify,
                            make_fully_connected)
+from .models.pspin import PSpin3, GraphPSpin3
+from .models.sat import SATModel, GraphSAT, make_sat, export_cnf
 from .models.graphs import (
     GraphEA, GraphEANormal, GraphEANormalDiscretized,
     GraphRRG, GraphRRGNormal, GraphRRGNormalDiscretized,
@@ -35,7 +37,8 @@ from .samplers.eo import EOResult, extremal_opt
 from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
                               LAST_ROUTE)
 from .convert import (pairwise_from_arrays, lattice_from_arrays,
-                      fully_connected_from_arrays, state_from_arrays)
+                      fully_connected_from_arrays, pspin_from_arrays,
+                      sat_from_arrays, state_from_arrays)
 from . import observables
 from . import analysis
 from . import experiments

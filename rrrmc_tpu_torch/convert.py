@@ -14,6 +14,8 @@ from .core.model import default_device
 from .models.dense import FullyConnected, dense_tensors
 from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
+from .models.pspin import PSpin3
+from .models.sat import SATModel, make_sat
 from .samplers.common import DEFAULT_SEED, MCState, make_generator
 
 
@@ -69,6 +71,26 @@ def fully_connected_from_arrays(J, h, *, scale: float,
                          device=device)
 
 
+def pspin_from_arrays(A, N: int, K: int, device=None) -> PSpin3:
+    """The port's PSpin3 from a partner table A [N, K, 2] (for example a JAX
+    PSpin3's `np.asarray(m.A)`, `m.N`, `m.K`), stored as int32."""
+    A = np.asarray(A)
+    if A.shape != (N, K, 2):
+        raise ValueError(f"expected A {(N, K, 2)}, got {A.shape}")
+    if A.min(initial=0) < 0 or A.max(initial=0) >= N:
+        raise ValueError("partner ids must lie in [0, N)")
+    return PSpin3(A=torch.tensor(A.astype(np.int32),
+                                 device=default_device(device)),
+                  N=int(N), K=int(K))
+
+
+def sat_from_arrays(N: int, A, L, device=None) -> SATModel:
+    """The port's SATModel from clause arrays A [Mc, K] (variable ids, N
+    pads) and L [Mc, K] (literal signs), through `make_sat` (for example a
+    JAX SATModel's `m.N`, `np.asarray(m.A)`, `np.asarray(m.L)`)."""
+    return make_sat(int(N), np.asarray(A), np.asarray(L), device=device)
+
+
 def state_from_arrays(model, sigma, E=None, accepted=None, *,
                       seed: int = DEFAULT_SEED, device=None) -> MCState:
     """MCState for spins sigma [B, N] on `device` (CUDA when none is
@@ -76,9 +98,8 @@ def state_from_arrays(model, sigma, E=None, accepted=None, *,
     accepted to zeros."""
     device = default_device(device)
     sigma = torch.tensor(np.asarray(sigma, dtype=np.int8), device=device)
-    dt = model.J.dtype
-    E = (model.energy(sigma) if E is None else
-         torch.tensor(np.asarray(E), device=device).to(dt))
+    E = model.energy(sigma) if E is None else torch.tensor(
+        np.asarray(E), device=device).to(model.energy(sigma[:1]).dtype)
     B = sigma.shape[0]
     acc = (torch.zeros(B, dtype=torch.int32, device=device)
            if accepted is None else

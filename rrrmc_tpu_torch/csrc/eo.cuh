@@ -202,9 +202,14 @@ __host__ __device__ __forceinline__ size_t eo_smem(int N, int nbins) {
 // sigma_min in dynamic shared memory (lf first, so every array is aligned),
 // and E, Emin and itmin, of which every thread keeps an identical copy.
 // sigma / lf / sigma_min are chain-major [B, N] in global memory: one
-// contiguous row per block, read at the start and written at the end. T is
-// the type of lf and the energies (int32 / f32).
-template <typename T>
+// contiguous row per block, read at the start and written at the end (lf
+// only with LF: the K-SAT kernel derives its lf in shared memory; a
+// run-time test there cost the sparse kernel 8 registers, and the
+// occupancy of small lattices). T is the type of lf and the energies
+// (int32 / f32). The key policy HALF_KEY: the sort key is half = sigma_i lf_i
+// (pairwise models, PSpin3: lf is a local field); without it the key is
+// lf_i itself (K-SAT: lf holds the energy change of each flip).
+template <typename T, bool HALF_KEY = true>
 struct EoChain {
   T* lf;
   int* hist;
@@ -220,24 +225,29 @@ struct EoChain {
         sig(reinterpret_cast<int8_t*>(hist + select_bins(nbins_))),
         smin(sig + spin_bytes(N_)), N(N_), nbins(nbins_) {}
 
-  // the sort key of half_i = sigma_i lf_i
+  // the sort key of site i: half_i = sigma_i lf_i, or lf_i
   __device__ __forceinline__ int32_t key(int i) const {
-    return eo_key(T(sig[i]) * lf[i]);
+    return HALF_KEY ? eo_key(T(sig[i]) * lf[i]) : eo_key(lf[i]);
   }
 
-  // a key's histogram bin, clamped so that a wrong half_max cannot write
-  // outside hist
+  // the histogram bin of an integer key, clamped so that a wrong half_max
+  // cannot write outside hist
+  __device__ __forceinline__ int bin_of_key(int32_t k) const {
+    return min(max(k + (nbins - 1) / 2, 0), nbins - 1);
+  }
+
   __device__ __forceinline__ int bin_of(int i) const {
-    return min(max(key(i) + (nbins - 1) / 2, 0), nbins - 1);
+    return bin_of_key(key(i));
   }
 
+  template <bool LF = true>
   __device__ void load(const int8_t* sigma, const T* lf_g, const T* E_g,
                        const T* emin_g, const int8_t* smin_g,
                        const int32_t* itmin_g, size_t row, int b) {
     for (int i = threadIdx.x; i < N; i += kEoThreads) {
       sig[i] = sigma[row + i];
       smin[i] = smin_g[row + i];
-      lf[i] = lf_g[row + i];
+      if (LF) lf[i] = lf_g[row + i];
     }
     E = E_g[b];
     emin = emin_g[b];
@@ -289,13 +299,14 @@ struct EoChain {
           reinterpret_cast<const int32_t*>(sig)[k];
   }
 
+  template <bool LF = true>
   __device__ void store(int8_t* sigma, T* lf_g, T* E_g, T* emin_g,
                         int8_t* smin_g, int32_t* itmin_g, size_t row, int b) {
     __syncthreads();
     for (int i = threadIdx.x; i < N; i += kEoThreads) {
       sigma[row + i] = sig[i];
       smin_g[row + i] = smin[i];
-      lf_g[row + i] = lf[i];
+      if (LF) lf_g[row + i] = lf[i];
     }
     if (threadIdx.x == 0) {
       E_g[b] = E;

@@ -17,6 +17,14 @@
 // the order statistic by up to 32 counting passes and updated lf by
 // comparing every site's K inverse columns, because Mosaic has no gather.
 //
+// With PSPIN the same kernel is tau-EO on a PSpin3 hypergraph (replaces
+// _eo_pspin_kernel; wrapper rrrmc_tpu_torch/ops/eo_pspin.py): lf holds the
+// cavity sums c, the keys s*c lie in [-K', K'] (2K' + 1 bins), and neigh is
+// the partner table A [N, K', 2] read as rows of width K = 2K'; the flip adds
+// d * s[partner of the partner] to each partner's sum (rejfree_sparse.cu).
+// A site that shares two triangles with the winner is moved between bins
+// once per update, so the histogram stays exact.
+//
 // Bound on the H100: the passes over the resident sites (the tie race's key
 // compares, the radix passes for float keys, a Philox call per group of four
 // sites that holds a member) and a few block barriers per move; global
@@ -33,8 +41,9 @@ using rrrmc::EoShared;
 constexpr int kThreads = rrrmc::kEoThreads;
 
 // T: local fields, couplings and energies (int32 / f32); HIST: integer keys
-// counted in nbins = 2*half_max + 1 bins, else the radix select
-template <typename T, bool HIST>
+// counted in nbins = 2*half_max + 1 bins, else the radix select; PSPIN: the
+// hypergraph flip
+template <typename T, bool HIST, bool PSPIN>
 __global__ void __launch_bounds__(kThreads) eo_sparse_kernel(
     int8_t* __restrict__ sigma, T* __restrict__ lf_g, T* __restrict__ E_g,
     T* __restrict__ emin_g, int8_t* __restrict__ smin_g,
@@ -66,7 +75,8 @@ __global__ void __launch_bounds__(kThreads) eo_sparse_kernel(
         const int nb = neigh[w * K + k];
         if (nb < N) {
           if (HIST) --c.hist[c.bin_of(nb)];
-          c.lf[nb] += J[w * K + k] * d;
+          c.lf[nb] += PSPIN ? d * T(c.sig[neigh[w * K + (k ^ 1)]])
+                            : J[w * K + k] * d;
           if (HIST) ++c.hist[c.bin_of(nb)];
         }
       }
@@ -77,13 +87,13 @@ __global__ void __launch_bounds__(kThreads) eo_sparse_kernel(
   c.store(sigma, lf_g, E_g, emin_g, smin_g, itmin_g, row, b);
 }
 
-template <typename T, bool HIST>
+template <typename T, bool HIST, bool PSPIN = false>
 int launch(int8_t* sigma, void* lf, void* E, void* emin, int8_t* smin,
            int32_t* itmin, const int32_t* neigh, const void* J,
            const float* cdf, int N, int K, int B, int n_moves, uint32_t seed,
            uint32_t move0, uint32_t chain0, int nbins, size_t smem,
            cudaStream_t st) {
-  auto kern = eo_sparse_kernel<T, HIST>;
+  auto kern = eo_sparse_kernel<T, HIST, PSPIN>;
   // above 48 KB a launch is refused unless the kernel opts in
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -122,4 +132,18 @@ extern "C" int rrrmc_eo_sparse(
   if (nbins > 0) return launch<int32_t, true>(RRRMC_ARGS);
   return launch<int32_t, false>(RRRMC_ARGS);
 #undef RRRMC_ARGS
+}
+
+// tau-EO on a PSpin3: lf = the cavity sums (int32), neigh = A [N, K/2, 2]
+// read as [N, K], no couplings; nbins = K + 1 (the keys' 2 * K/2 + 1 values)
+extern "C" int rrrmc_eo_pspin(
+    int8_t* sigma, void* c, void* E, void* emin, int8_t* smin,
+    int32_t* itmin, const int32_t* A, const float* cdf, int N, int K, int B,
+    int n_moves, uint32_t seed, uint32_t move0, uint32_t chain0, int nbins,
+    void* stream) {
+  if (nbins <= 0 || nbins > rrrmc::kEoHistMax) return -1;
+  return launch<int32_t, true, true>(
+      sigma, c, E, emin, smin, itmin, A, nullptr, cdf, N, K, B, n_moves,
+      seed, move0, chain0, nbins, rrrmc_eo_sparse_smem(N, nbins),
+      (cudaStream_t)stream);
 }

@@ -6,6 +6,14 @@
 // _rejfree_kernel; the wrapper and the plain torch version are
 // rrrmc_tpu_torch/ops/rejfree.py.
 //
+// With PSPIN the same kernel is the race on a PSpin3 hypergraph (replaces
+// _rejfree_pspin_kernel; wrapper rrrmc_tpu_torch/ops/pspin.py): lf holds the
+// cavity sums c (half = s*c as for a pairwise model) and neigh the partner
+// table A [N, K', 2] read as rows of width K = 2K', slots 2k and 2k+1 being
+// the two partners of triangle k. A flip then adds d * s[partner of the
+// partner] to each of the 2K' partners' sums, where the pairwise flip adds
+// J * d; nothing else differs.
+//
 // The chain's spins (int8) and local fields (int32 or f32) stay resident in
 // dynamic shared memory for the whole chunk; sigma / lf are chain-major
 // [B, N] in global memory, so the load and the store are one contiguous row
@@ -36,7 +44,19 @@ using rrrmc::boltz;
 constexpr int kThreads = rrrmc::kRaceThreads;
 constexpr int kBkl = rrrmc::kBkl, kWtm = rrrmc::kWtm, kRrr = rrrmc::kRrr;
 
-template <typename T, typename CT, int MODE>
+// the change of the field at slot k of row `row` under a flip with d =
+// -2 s_w: J * d (pairwise), or d * s_y for the partner y of that slot's
+// partner in its triangle (PSPIN, slot k ^ 1)
+template <typename T, bool PSPIN>
+__device__ __forceinline__ T flip_inc(const int32_t* __restrict__ neigh,
+                                      const T* __restrict__ J,
+                                      const int8_t* sig, int row, int k,
+                                      T d) {
+  if (PSPIN) return d * T(sig[neigh[row + (k ^ 1)]]);
+  return J[row + k] * d;
+}
+
+template <typename T, typename CT, int MODE, bool PSPIN>
 __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
     int8_t* __restrict__ sigma, T* __restrict__ lf_g, T* __restrict__ E_g,
     CT* __restrict__ coord_g, int32_t* __restrict__ acc_g,
@@ -88,7 +108,7 @@ __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
           const int nb = neigh[win * K + k];
           if (nb < N) {
             if (MODE == kRrr) saved[k] = lf[nb];
-            lf[nb] += J[win * K + k] * d;
+            lf[nb] += flip_inc<T, PSPIN>(neigh, J, sig, win * K, k, d);
           }
         }
       }
@@ -139,13 +159,13 @@ __global__ void __launch_bounds__(kThreads) rejfree_sparse_kernel(
   }
 }
 
-template <typename T, typename CT, int MODE>
+template <typename T, typename CT, int MODE, bool PSPIN = false>
 int launch(int8_t* sigma, void* lf, void* E, void* coord, int32_t* acc,
            float* zacc, void* cs, void* es, const int32_t* neigh,
            const void* J, int N, int K, int B, int n_moves, uint32_t seed,
            uint32_t move0, uint32_t chain0, float beta2s, CT target,
            size_t smem, cudaStream_t st) {
-  auto kern = rejfree_sparse_kernel<T, CT, MODE>;
+  auto kern = rejfree_sparse_kernel<T, CT, MODE, PSPIN>;
   // above 48 KB a launch is refused unless the kernel opts in
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -191,5 +211,25 @@ extern "C" int rrrmc_rejfree_sparse(
   if (mode == kRrr)
     return launch<int32_t, int32_t, kRrr>(RRRMC_ARGS, target_i, smem, st);
   return launch<int32_t, int32_t, kBkl>(RRRMC_ARGS, target_i, smem, st);
+#undef RRRMC_ARGS
+}
+
+// the PSpin3 race: lf = the cavity sums (int32), neigh = A [N, K/2, 2] read
+// as [N, K] (K = 2 x triangles per spin), no couplings
+extern "C" int rrrmc_rejfree_pspin(
+    int8_t* sigma, void* c, void* E, void* coord, int32_t* acc, float* zacc,
+    void* cs, void* es, const int32_t* A, int N, int K, int B, int n_moves,
+    uint32_t seed, uint32_t move0, uint32_t chain0, float beta2s,
+    int target_i, float target_f, int mode, void* stream) {
+  const size_t smem = rrrmc_rejfree_sparse_smem(N, K);
+  cudaStream_t st = (cudaStream_t)stream;
+#define RRRMC_ARGS sigma, c, E, coord, acc, zacc, cs, es, A, nullptr, N, K, \
+                   B, n_moves, seed, move0, chain0, beta2s
+  if (mode == kWtm)
+    return launch<int32_t, float, kWtm, true>(RRRMC_ARGS, target_f, smem, st);
+  if (mode == kRrr)
+    return launch<int32_t, int32_t, kRrr, true>(RRRMC_ARGS, target_i, smem,
+                                                st);
+  return launch<int32_t, int32_t, kBkl, true>(RRRMC_ARGS, target_i, smem, st);
 #undef RRRMC_ARGS
 }

@@ -35,6 +35,7 @@ from typing import Callable, Optional
 import torch
 
 from . import check_args, prng
+from .rejfree import pair_de
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
@@ -54,6 +55,18 @@ def hist_bins(integer: bool, half_max: Optional[int]) -> int:
     if not integer or half_max is None or 2 * half_max + 1 > HIST_MAX:
         return 0
     return 2 * int(half_max) + 1
+
+
+def key_bins(key_max: int, what: str) -> int:
+    """The histogram of the hypergraph EO kernels, whose integer keys obey
+    |key| <= key_max by their tables' shape: 2*key_max + 1 bins, or
+    NotImplementedError above HIST_MAX (they take no radix select)."""
+    bins = 2 * int(key_max) + 1
+    if bins > HIST_MAX:
+        raise NotImplementedError(
+            f"the {what} EO kernel counts its keys |key| <= {key_max} in "
+            f"{bins} histogram bins, more than {HIST_MAX}")
+    return bins
 
 
 def sort_key(half: torch.Tensor) -> torch.Tensor:
@@ -181,7 +194,7 @@ def eo_sparse_chunk_reference(sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
     N, K = neigh.shape
     rows = torch.arange(sigma.shape[0], device=sigma.device)
 
-    def flip_fields(lf, win, d):
+    def flip_fields(sig, lf, win, d):
         """The winner's K neighbours' fields += J[win, k] * d, in place."""
         nb = neigh[win].long()
         jr = J[win]
@@ -196,10 +209,16 @@ def eo_sparse_chunk_reference(sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
 
 def eo_chunk_reference(sigma, lf, E, emin, smin, itmin, cdf, flip_fields, *,
                        n_moves: int, seed: int, move0: int = 0,
-                       chain0: int = 0, bits: Optional[BitsFn] = None):
-    """The EO moves of the sparse and dense kernels' plain versions, over
-    [B, N] tensors; `flip_fields(lf, win, d)` adds the flip of the winner
-    win [B] (d = -2 sigma_win) to lf in place."""
+                       chain0: int = 0, bits: Optional[BitsFn] = None,
+                       de_of: Callable = pair_de):
+    """The EO moves of the EO kernels' plain versions, over [B, N] spins. lf
+    is the chain's resident state (local fields, cavity sums, or SAT's
+    clause counts); `flip_fields(sig, lf, win, d)` adds the flip of the
+    winner win [B] (d = -2 sigma_win, sig the spins before the flip, in lf's
+    dtype) to lf in place. Sites are ranked by the energy change of their
+    flip, dE = de_of(sig, lf) (2 sigma_i lf_i by default: the same order and
+    ties as the kernels' key sigma_i lf_i, float keys included), and a flip
+    changes E by its dE."""
     B, N = sigma.shape
     dev = sigma.device
     rows = torch.arange(B, device=dev)
@@ -207,13 +226,13 @@ def eo_chunk_reference(sigma, lf, E, emin, smin, itmin, cdf, flip_fields, *,
     rank_draws, tie_draws = eo_draws(seed, chain0, B, N, move0, n_moves, dev,
                                      bits)
     for m in range(n_moves):
-        half = sig * lf
+        de = de_of(sig, lf)
         rank = torch.searchsorted(cdf, prng.to_uniform(next(rank_draws)))
-        win = select_rank_with_ties(sort_key(half), rank, next(tie_draws))
+        win = select_rank_with_ties(sort_key(de), rank, next(tie_draws))
         s_w = sig[rows, win]
-        dE = 2 * half[rows, win]
+        dE = de[rows, win]
+        flip_fields(sig, lf, win, -2 * s_w)
         sig[rows, win] = -s_w
-        flip_fields(lf, win, -2 * s_w)
         E += dE
         better = E < emin
         emin.copy_(torch.where(better, E, emin))

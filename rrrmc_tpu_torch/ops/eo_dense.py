@@ -96,7 +96,7 @@ def eo_dense_chunk_reference(sigma, lf, E, emin, smin, itmin, J, cdf, *,
     in-place contract as `eo_dense_chunk`): the sparse kernel's plain moves
     with the winner's row of J added to lf."""
 
-    def flip_fields(lf, win, d):
+    def flip_fields(sig, lf, win, d):
         lf += d[:, None] * J[win].to(lf.dtype)
 
     eo_chunk_reference(sigma, lf, E, emin, smin, itmin, cdf, flip_fields,

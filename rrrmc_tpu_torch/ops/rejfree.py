@@ -25,8 +25,10 @@ of small lattices (N <= _LATTICE_DENSE_MAX) to the dense matmul race kernel
 is a VMEM heuristic and is not carried over: every integer lattice takes
 this kernel (5 bytes per site, 20 KB at L=16, D=3).
 
-The race: score_i = log(-log u_i) + beta2s * max(sigma_i lf_i, 0) over the
-N sites, winner = argmin (lowest index on ties), z from a shifted
+The race: score_i = log(-log u_i) + beta_s * max(dE_i, 0) over the N
+sites, with dE_i = 2 sigma_i lf_i the energy change of flipping site i and
+beta_s = beta * model.scale (the kernel takes 2 beta_s and sigma_i lf_i),
+winner = argmin (lowest index on ties), z from a shifted
 log-sum-exp. bkl advances its coordinate by a geometric skip + 1, wtm by
 exp(min score), rrr by one move and keeps the flip with probability
 min(1, z / z'). Chains whose coordinate reached `target` make no move.
@@ -91,7 +93,7 @@ def _check_args(sigma, lf, E, coord, acc, zacc, neigh, J, mode):
 
 
 def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
-                         mode: str, n_moves: int, beta2s: float, target,
+                         mode: str, n_moves: int, beta_s: float, target,
                          seed: int, move0: int = 0, chain0: int = 0,
                          bits: Optional[BitsFn] = None):
     """Advance every chain by `n_moves` race moves, in place.
@@ -100,7 +102,7 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     chain-major; E [B] (lf's dtype), coord [B] (int32, float32 for wtm),
     acc [B] int32 (applied flips) and zacc [B] float32 (summed z/N) are
     updated. neigh/J are the model's [N, K] tables (padding == N).
-    beta2s = 2 * beta * model.scale. Returns the per-move streams
+    beta_s = beta * model.scale. Returns the per-move streams
     (cs, es), each [n_moves, B]: coordinate and E after every move.
 
     Random words are Philox under key (seed, chain0 + b), counter
@@ -113,7 +115,7 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     if sigma.device.type == "cpu":
         return rejfree_sparse_chunk_reference(
             sigma, lf, E, coord, acc, zacc, neigh, J, mode=mode,
-            n_moves=n_moves, beta2s=beta2s, target=target, seed=seed,
+            n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
             move0=move0, chain0=chain0, bits=bits)
     if sigma.device.type != "cuda":
         raise ValueError(f"no race kernel for device {sigma.device}")
@@ -142,7 +144,8 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
             acc.data_ptr(), zacc.data_ptr(), cs.data_ptr(), es.data_ptr(),
             neigh.data_ptr(), J.data_ptr(), N, K, B, n_moves,
             seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-            beta2s, int(target) if ct == torch.int32 else 0, float(target),
+            2.0 * beta_s, int(target) if ct == torch.int32 else 0,
+            float(target),
             MODES[mode], 0 if is_integer(J) else 1,
             torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_sparse launch")
@@ -174,14 +177,21 @@ def block_sum(x):
     return out
 
 
-def _log_z(sig, lf, beta2s):
-    """(half, bE, log z): half = sigma*lf, bE = beta2s*max(half, 0), and the
-    shifted log-sum-exp of -bE over the sites, summed as the kernel sums."""
-    half = sig * lf
-    bE = beta2s * half.clamp(min=0).to(torch.float32)
+def _log_z(dE, beta_s):
+    """(bE, log z): bE = beta_s*max(dE, 0) and the shifted log-sum-exp of
+    -bE over the sites, summed as the kernel sums."""
+    bE = beta_s * dE.clamp(min=0).to(torch.float32)
     m = bE.min(dim=1).values
     zs = block_sum(torch.exp(m[:, None] - bE))
-    return half, bE, torch.log(zs) - m
+    return bE, torch.log(zs) - m
+
+
+def pair_de(sig, lf):
+    """The energy change of flipping each site of a pairwise model or a
+    PSpin3, 2 sigma lf: bit for bit twice the kernels' key sigma lf, so
+    beta_s * max(dE, 0) equals their 2 beta_s * max(sigma lf, 0) in
+    float32."""
+    return 2 * sig * lf
 
 
 def _geom_skip(u2, p):
@@ -194,7 +204,7 @@ def _geom_skip(u2, p):
 
 
 def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
-                                   *, mode: str, n_moves: int, beta2s: float,
+                                   *, mode: str, n_moves: int, beta_s: float,
                                    target, seed: int, move0: int = 0,
                                    chain0: int = 0,
                                    bits: Optional[BitsFn] = None):
@@ -205,7 +215,7 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
     K = neigh.shape[1]
     rows = torch.arange(B, device=sigma.device)
 
-    def lf_flipped(lf, win, d, do):
+    def lf_flipped(sig, lf, win, d, do):
         """A copy of lf with the winner's K neighbours updated where do."""
         lf = lf.clone()
         nb = neigh[win].long()
@@ -217,22 +227,28 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
 
     return race_chunk_reference(
         sigma, lf, E, coord, acc, zacc, lf_flipped, mode=mode,
-        n_moves=n_moves, beta2s=beta2s, target=target, seed=seed,
+        n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
         move0=move0, chain0=chain0, bits=bits)
 
 
 def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
-                         mode: str, n_moves: int, beta2s: float, target,
+                         mode: str, n_moves: int, beta_s: float, target,
                          seed: int, move0: int = 0, chain0: int = 0,
-                         bits: Optional[BitsFn] = None):
-    """The race moves of the sparse and dense kernels' plain versions, over
-    [B, N] tensors; `lf_flipped(lf, win, d, do)` returns a copy of lf with
-    the winner win [B] flipped (d = -2 sigma_win) in the chains where do."""
+                         bits: Optional[BitsFn] = None,
+                         de_of: Callable = pair_de):
+    """The race moves of the race kernels' plain versions, over [B, N]
+    spins. lf is the chain's resident state (local fields, cavity sums, or
+    SAT's clause counts); `lf_flipped(sig, lf, win, d, do)` returns a copy of
+    it with the winner win [B] flipped (d = -2 sigma_win, sig the spins
+    before the flip, in lf's dtype) in the chains where do. Site i races
+    with the energy change of its flip dE_i = de_of(sig, lf)[:, i]
+    (2 sigma_i lf_i by default) and the Boltzmann exponent
+    beta_s * max(dE_i, 0)."""
     B, N = sigma.shape
     dev = sigma.device
     lt = lf.dtype
     rows = torch.arange(B, device=dev)
-    beta = torch.tensor(beta2s, dtype=torch.float32, device=dev)
+    beta = torch.tensor(beta_s, dtype=torch.float32, device=dev)
     log_n = torch.log(torch.tensor(float(N), dtype=torch.float32, device=dev))
     zero = torch.zeros((), dtype=lt, device=dev)
     sig = sigma.to(lt)
@@ -255,9 +271,9 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
 
     def flipped(sig, lf, win, s_w, d, do):
         """Copies of (sig, lf) with the winner flipped where `do`."""
-        sig = sig.clone()
-        sig[rows[do], win[do]] = -s_w[do]
-        return sig, lf_flipped(lf, win, d, do)
+        sig2 = sig.clone()
+        sig2[rows[do], win[do]] = -s_w[do]
+        return sig2, lf_flipped(sig, lf, win, d, do)
 
     for m in range(n_moves):
         active = coord < target
@@ -266,18 +282,19 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
             cs[m:] = coord
             es[m:] = E
             break
-        half, bE, logz = _log_z(sig, lf, beta)
+        de = de_of(sig, lf)
+        bE, logz = _log_z(de, beta)
         u = prng.to_uniform(next(race))
         score = torch.log(-torch.log(u)) + bE
         mrow, win = score.min(dim=1)          # first index among equal mins
         s_w = sig[rows, win]
-        dE = 2 * half[rows, win]
+        dE = de[rows, win]
         z_over_n = torch.exp(logz - log_n)
         zacc += torch.where(active, z_over_n, 0.0)
         d = -2 * s_w
         if mode == "rrr":
             sig2, lf2 = flipped(sig, lf, win, s_w, d, active)
-            _, _, logz2 = _log_z(sig2, lf2, beta)
+            _, logz2 = _log_z(de_of(sig2, lf2), beta)
             ua = prng.to_uniform(next(second))
             do = active & (torch.log(ua) < logz - logz2)
             sig = torch.where(do[:, None], sig2, sig)

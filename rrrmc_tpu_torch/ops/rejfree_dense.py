@@ -75,14 +75,15 @@ def _check_args(sigma, lf, E, coord, acc, zacc, J, mode):
 
 
 def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
-                        n_moves: int, beta2s: float, target, seed: int,
+                        n_moves: int, beta_s: float, target, seed: int,
                         move0: int = 0, chain0: int = 0,
                         bits: Optional[BitsFn] = None):
     """Advance every chain by `n_moves` race moves, in place: the contract
     of ops/rejfree.py::rejfree_sparse_chunk with the dense couplings J
     [N, N] (int8 with int32 lf and E, or float32 throughout; see
-    `kernel_couplings`) in place of the neighbour tables. Returns the
-    per-move streams (cs, es), each [n_moves, B].
+    `kernel_couplings`) in place of the neighbour tables, and
+    beta_s = beta * model.scale. Returns the per-move streams (cs, es),
+    each [n_moves, B].
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
     plain version. `bits` (move, draw) replaces the generator and is taken
@@ -92,7 +93,7 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
     if sigma.device.type == "cpu":
         return rejfree_dense_chunk_reference(
             sigma, lf, E, coord, acc, zacc, J, mode=mode, n_moves=n_moves,
-            beta2s=beta2s, target=target, seed=seed, move0=move0,
+            beta_s=beta_s, target=target, seed=seed, move0=move0,
             chain0=chain0, bits=bits)
     if sigma.device.type != "cuda":
         raise ValueError(f"no race kernel for device {sigma.device}")
@@ -117,7 +118,7 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
             sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), coord.data_ptr(),
             acc.data_ptr(), zacc.data_ptr(), cs.data_ptr(), es.data_ptr(),
             J.data_ptr(), N, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, beta2s,
+            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, 2.0 * beta_s,
             int(target) if ct == torch.int32 else 0, float(target),
             MODES[mode], 0 if is_integer(J) else 1,
             torch.cuda.current_stream().cuda_stream)
@@ -127,7 +128,7 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
 
 
 def rejfree_dense_chunk_reference(sigma, lf, E, coord, acc, zacc, J, *,
-                                  mode: str, n_moves: int, beta2s: float,
+                                  mode: str, n_moves: int, beta_s: float,
                                   target, seed: int, move0: int = 0,
                                   chain0: int = 0,
                                   bits: Optional[BitsFn] = None):
@@ -135,12 +136,12 @@ def rejfree_dense_chunk_reference(sigma, lf, E, coord, acc, zacc, J, *,
     in-place contract and streams as `rejfree_dense_chunk`): the sparse
     kernel's plain moves with the winner's row of J added to lf."""
 
-    def lf_flipped(lf, win, d, do):
+    def lf_flipped(sig, lf, win, d, do):
         """lf + d * J[win] in the chains where do, else lf."""
         return torch.where(do[:, None], lf + d[:, None] * J[win].to(lf.dtype),
                            lf)
 
     return race_chunk_reference(
         sigma, lf, E, coord, acc, zacc, lf_flipped, mode=mode,
-        n_moves=n_moves, beta2s=beta2s, target=target, seed=seed,
+        n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
         move0=move0, chain0=chain0, bits=bits)

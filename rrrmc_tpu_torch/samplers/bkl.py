@@ -13,10 +13,12 @@ per-chain (coordinate, energy) stream, and checkpoint energies are filled by
 a batched searchsorted over the stream: the batch generalization of the
 reference's checkpoint drain loop.
 
-This port runs bkl, wtm and rrr on the race kernels only: the sparse one
-(ops/rejfree.py) for Pairwise models, the dense one (ops/rejfree_dense.py)
-for FullyConnected models; their generic torch paths, with hooks and
-observers, are ROADMAP.md queue 1, item 3.
+This port runs bkl, wtm and rrr on the race kernels only, one per model
+family (samplers/families.py): the sparse one (ops/rejfree.py) for Pairwise
+models, the dense one (ops/rejfree_dense.py) for FullyConnected models, and
+the hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT; their
+generic torch paths, with hooks and observers, are ROADMAP.md queue 1,
+item 3.
 """
 
 from __future__ import annotations
@@ -26,11 +28,9 @@ from typing import Optional
 import torch
 
 from ..core.model import Model
-from ..models.dense import FullyConnected
-from ..ops.rejfree import coord_dtype, rejfree_sparse_chunk, sparse_rejfree_ok
-from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
-                                 rejfree_dense_chunk)
+from ..ops.rejfree import coord_dtype
 from .common import DEFAULT_SEED, MCState, init_state, kernel_seed, set_route
+from .families import ELIGIBLE, family_of
 
 #: iteration targets above this would overflow the kernels' int32
 #: coordinates
@@ -49,12 +49,11 @@ def require_kernel_route(sampler: str, model, *, backend: str, hook,
         raise NotImplementedError(
             f"{sampler} with a hook or an observer needs the generic torch "
             f"path: {later}")
-    if not (sparse_rejfree_ok(model) or dense_rejfree_ok(model)):
+    if family_of(model) is None:
         raise NotImplementedError(
             f"{sampler}: {type(model).__name__} is not eligible for the "
-            f"race kernels (a Pairwise model with N >= 8, or a "
-            f"FullyConnected one with N >= 8 and integer |J| <= 127 or float "
-            f"J), and the generic torch path is {later}")
+            f"race kernels ({ELIGIBLE}), and the generic torch path is "
+            f"{later}")
 
 
 def fill_checkpoints(S, step, x_start, o_start, xs, os_):
@@ -80,38 +79,32 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     chain's coordinate reaches `target`; one host sync per chunk.
     Returns (Es [B, n_ckpt] physical energies, final MCState); `accepted`
     gains the applied flips, and LAST_ROUTE holds acc and the summed z/N.
-    A FullyConnected model takes the dense race kernel, any other the sparse
-    one."""
+    The model's family picks the kernel (samplers/families.py)."""
+    fam = family_of(model)
     B = state.sigma.shape[0]
     dev = state.sigma.device
     seed = kernel_seed(state.generator)
     sigma = state.sigma.clone()
-    lf = model.local_fields(sigma)
+    lf = model.init_aux(sigma)
     E = state.E.to(lf.dtype).clone()
     ct = coord_dtype(mode)
     coord = torch.zeros(B, dtype=ct, device=dev)
     acc = torch.zeros(B, dtype=torch.int32, device=dev)
     zacc = torch.zeros(B, dtype=torch.float32, device=dev)
     Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
-    beta2s = 2.0 * beta * model.scale
-    if isinstance(model, FullyConnected):
-        route, tables = "kernel-rejfree-dense", (kernel_couplings(model),)
-        chunk = rejfree_dense_chunk
-    else:
-        route, tables = "kernel-rejfree-sparse", (model.neigh, model.J)
-        chunk = rejfree_sparse_chunk
+    tables = fam.tables(model)
     k = 0
     while bool(coord.min() < target):
         x_start = coord.clone()
         e_start = model.to_physical(E)
-        cs, es = chunk(
+        cs, es = fam.race(
             sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
-            n_moves=chunk_moves, beta2s=beta2s, target=target, seed=seed,
-            move0=k * chunk_moves)
+            n_moves=chunk_moves, beta_s=beta * model.scale, target=target,
+            seed=seed, move0=k * chunk_moves)
         Es = fill_checkpoints(Es, step, x_start, e_start, cs,
                               model.to_physical(es))
         k += 1
-    set_route(route,
+    set_route(f"kernel-rejfree-{fam.name}",
               impl="cuda" if dev.type == "cuda" else "plain", mode=mode,
               acc=acc, z_over_n=zacc, chunks=k)
     return Es, MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
@@ -127,10 +120,9 @@ def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
     """Rejection-free BKL; `iters` counts virtual (rejected-inclusive)
     iterations. Returns (Es [chains, iters // step], final MCState).
 
-    Runs on a race kernel (ops/rejfree.py for a Pairwise model,
-    ops/rejfree_dense.py for a FullyConnected one: the CUDA kernel for a
-    CUDA state, its plain version on the CPU), `chunk_moves` moves per
-    launch. backend "auto" and "kernel" both take it; hooks, observers and
+    Runs on the race kernel of the model's family (families.py: the CUDA
+    kernel for a CUDA state, its plain version on the CPU), `chunk_moves`
+    moves per launch. backend "auto" and "kernel" both take it; hooks, observers and
     ineligible models raise NotImplementedError."""
     require_kernel_route("bklMC", model, backend=backend, hook=hook,
                          observer=observer)

@@ -12,9 +12,10 @@ law).
 Routes (`backend`):
 
 * "kernel": the EO kernels, ops/eo.py for sparse Pairwise models (EA
-  lattices included) and ops/eo_dense.py for FullyConnected ones: the CUDA
-  kernel for a CUDA state, its plain version on the CPU, one launch per
-  call;
+  lattices included), ops/eo_dense.py for FullyConnected ones,
+  ops/eo_pspin.py for PSpin3 and ops/eo_sat.py for K-SAT (one table of
+  the model families, samplers/families.py): the CUDA kernel for a CUDA
+  state, its plain version on the CPU, one launch per call;
 * "torch": the generic path on any model of the port, through
   `model.delta_all` and `model.flip`, drawing from the kernels' Philox
   streams, so on a model the kernels take it makes the same moves;
@@ -29,17 +30,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.dtypes import is_integer
 from ..core.model import Model
-from ..models.dense import FullyConnected
 from ..ops import prng
-from ..ops.eo import (eo_draws, eo_sparse_chunk, select_rank_with_ties,
-                      sort_key)
-from ..ops.eo_dense import eo_dense_chunk
-from ..ops.rejfree import sparse_rejfree_ok
-from ..ops.rejfree_dense import dense_rejfree_ok, kernel_couplings
+from ..ops.eo import eo_draws, select_rank_with_ties, sort_key
 from .common import (DEFAULT_SEED, MCState, init_state, kernel_seed,
                      set_route, working_copy)
+from .families import ELIGIBLE, family_of
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -66,44 +62,26 @@ def rank_table(n: int, tau: float, device) -> torch.Tensor:
 
 
 def eo_kernel_route(model) -> Optional[str]:
-    """"dense" for a FullyConnected model the dense EO kernel takes,
-    "sparse" for a Pairwise model (lattices included) the sparse one takes,
-    else None: the JAX package's `pallas_eo_eligible` without its TPU size
-    caps and chain-block rule (the shared-memory limit is checked at
-    launch)."""
-    if dense_rejfree_ok(model):
-        return "dense"
-    if sparse_rejfree_ok(model):
-        return "sparse"
-    return None
+    """The family of the EO kernel that takes `model` ("dense" for a
+    FullyConnected model, "sparse" for a Pairwise one, lattices included,
+    "pspin" for a PSpin3, "sat" for a SATModel), else None: the JAX
+    package's `pallas_eo_eligible` without its TPU size caps and
+    chain-block rule (the shared-memory limit is checked at launch)."""
+    fam = family_of(model)
+    return None if fam is None else fam.name
 
 
-def half_bound(model) -> int:
-    """The largest |sigma_i lf_i| of an integer model over every
-    configuration: the largest row sum of |J| plus |h|."""
-    if isinstance(model, FullyConnected):
-        return int(model.half_max)
-    rows = model.J.abs().to(torch.int64).sum(1) + model.h.abs().to(
-        torch.int64)
-    return int(rows.max())
-
-
-def _eo_kernel(model, route: str, cdf, state: MCState, iters: int):
+def _eo_kernel(model, cdf, state: MCState, iters: int):
+    fam = family_of(model)
     seed = kernel_seed(state.generator)
     sigma = state.sigma.clone()
-    lf = model.local_fields(sigma).contiguous()
+    lf = model.init_aux(sigma).contiguous()
     E = state.E.to(lf.dtype).clone()
     emin, smin = E.clone(), sigma.clone()
     itmin = torch.zeros(E.shape, dtype=torch.int32, device=E.device)
-    kw = dict(n_moves=iters, seed=seed,
-              half_max=half_bound(model) if is_integer(model.J) else None)
-    if route == "dense":
-        eo_dense_chunk(sigma, lf, E, emin, smin, itmin,
-                       kernel_couplings(model), cdf, **kw)
-    else:
-        eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, model.neigh,
-                        model.J, cdf, **kw)
-    set_route(f"kernel-eo-{route}",
+    fam.eo(sigma, lf, E, emin, smin, itmin, *fam.tables(model), cdf,
+           n_moves=iters, seed=seed, **fam.eo_kw(model))
+    set_route(f"kernel-eo-{fam.name}",
               impl="cuda" if sigma.device.type == "cuda" else "plain")
     return sigma, E, emin, smin, itmin
 
@@ -142,14 +120,15 @@ def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
     """Ground-state search: `iters` EO moves per chain; returns an EOResult
     (the reference's (C, Emin, Cmin, itmin)) with physical energies.
 
-    backend "kernel": the EO kernels (a Pairwise model with N >= 8 whose
-    couplings and fields are both integer or both finite floats; a
-    FullyConnected one with integer |J| <= 127 or float J), raising for
-    other models; "torch": the generic path on any model; "auto": "kernel"
-    when the model is eligible, else "torch". `step` is unused, as in the
-    JAX package (EO records no series); `block_chains`, the JAX package's
-    TPU chain block, has no counterpart (one thread block per chain) and
-    must be None."""
+    backend "kernel": the EO kernels (samplers/families.py: a Pairwise
+    model with N >= 8 whose couplings and fields are both integer or both
+    finite floats; a FullyConnected one with integer |J| <= 127 or float J;
+    a PSpin3 with N >= 9; a SATModel with N >= 8 whose clauses hold distinct
+    variables), raising for other models; "torch": the generic path on any
+    model; "auto": "kernel" when the model is eligible, else "torch".
+    `step` is unused, as in the JAX package (EO records no series);
+    `block_chains`, the JAX package's TPU chain block, has no counterpart
+    (one thread block per chain) and must be None."""
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if block_chains is not None:
@@ -163,15 +142,12 @@ def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
     if backend == "kernel" and route is None:
         raise NotImplementedError(
             f"extremal_opt(backend='kernel'): {type(model).__name__} is not "
-            f"eligible for the EO kernels (a Pairwise model with N >= 8, or "
-            f"a FullyConnected one with N >= 8 and integer |J| <= 127 or "
-            f"float J)")
+            f"eligible for the EO kernels ({ELIGIBLE})")
     cdf = rank_table(model.N, float(tau), state.sigma.device)
     if route is None:
         sigma, E, emin, smin, itmin = _eo_torch(model, cdf, state, iters)
     else:
-        sigma, E, emin, smin, itmin = _eo_kernel(model, route, cdf, state,
-                                                 iters)
+        sigma, E, emin, smin, itmin = _eo_kernel(model, cdf, state, iters)
     return EOResult(sigma=sigma, E=model.to_physical(E),
                     Emin=model.to_physical(emin), sigma_min=smin,
                     itmin=itmin)

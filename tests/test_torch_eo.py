@@ -13,8 +13,8 @@ import torch
 
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
-from rrrmc_tpu_torch.ops.eo import (eo_sparse_chunk, hist_bins, sort_key,
-                                    select_rank_with_ties)
+from rrrmc_tpu_torch.ops.eo import (eo_sparse_chunk, hist_bins, key_bins,
+                                    sort_key, select_rank_with_ties)
 from rrrmc_tpu_torch.ops.eo_dense import eo_dense_chunk
 from rrrmc_tpu_torch.ops.rejfree_dense import kernel_couplings
 from rrrmc_tpu_torch.samplers.eo import eo_kernel_route, rank_table
@@ -293,3 +293,13 @@ def test_hist_bins():
     assert hist_bins(True, 2047) == 4095
     assert hist_bins(True, 2048) == 0
     assert hist_bins(True, None) == 0 and hist_bins(False, 3) == 0
+
+
+def test_key_bins():
+    """The hypergraph EO kernels, which take no radix select, count their
+    keys |key| <= key_max in 2*key_max + 1 bins and refuse more than
+    HIST_MAX."""
+    assert key_bins(3, "PSpin3") == 7
+    assert key_bins(2047, "SAT") == 4095
+    with pytest.raises(NotImplementedError, match="SAT EO kernel"):
+        key_bins(2048, "SAT")

@@ -52,7 +52,7 @@ def _port_chunk(jm, sigma, E0, mode, bits=None, chain0=0, seed=SEED):
     zacc = torch.zeros(n, dtype=torch.float32)
     cs, es = rejfree_sparse_chunk(
         sig, lf, E, coord, acc, zacc, pm.neigh, pm.J, mode=mode,
-        n_moves=N_MOVES, beta2s=2 * BETA * pm.scale, target=TARGETS[mode],
+        n_moves=N_MOVES, beta_s=BETA * pm.scale, target=TARGETS[mode],
         seed=seed, chain0=chain0, bits=bits)
     return pm, dict(sigma=sig, lf=lf, E=E, coord=coord, acc=acc, zacc=zacc,
                     cs=cs, es=es)
@@ -154,7 +154,7 @@ def test_lattice_chunk_matches_jax_interpret(rejfree_pallas, mode, beta):
     zacc = torch.zeros(B, dtype=torch.float32)
     cs, es = rejfree_sparse_chunk(
         sig, lf, E, coord, acc, zacc, pm.neigh, pm.J, mode=mode,
-        n_moves=N_MOVES, beta2s=2 * beta * pm.scale, target=target,
+        n_moves=N_MOVES, beta_s=beta * pm.scale, target=target,
         seed=SEED, bits=lattice_race_bits(SEED, B, N))
     p = dict(sigma=sig, E=E, coord=coord, acc=acc, zacc=zacc, cs=cs, es=es)
     p = {k: v.numpy() for k, v in p.items()}
@@ -237,7 +237,7 @@ def test_wrapper_checks_arguments():
     lf = m.local_fields(st.sigma)
     z = dict(acc=torch.zeros(4, dtype=torch.int32),
              zacc=torch.zeros(4, dtype=torch.float32))
-    kw = dict(mode="bkl", n_moves=2, beta2s=1.0, target=10, seed=1)
+    kw = dict(mode="bkl", n_moves=2, beta_s=1.0, target=10, seed=1)
     with pytest.raises(ValueError, match="coord"):
         rejfree_sparse_chunk(st.sigma, lf, st.E, torch.zeros(4), z["acc"],
                              z["zacc"], m.neigh, m.J, **kw)

@@ -85,7 +85,7 @@ def _port_chunk(pm, beta, mode, sigma, E0, target, bits=None, chain0=0):
     zacc = torch.zeros(n, dtype=torch.float32)
     cs, es = rejfree_dense_chunk(
         sig, lf, E, coord, acc, zacc, kernel_couplings(pm), mode=mode,
-        n_moves=N_MOVES, beta2s=2 * beta * pm.scale, target=target,
+        n_moves=N_MOVES, beta_s=beta * pm.scale, target=target,
         seed=SEED, chain0=chain0, bits=bits)
     return dict(sigma=sig, lf=lf, E=E, coord=coord, acc=acc, zacc=zacc,
                 cs=cs, es=es)
@@ -216,7 +216,7 @@ def test_dense_race_equals_sparse_race(mode):
     zacc = torch.zeros(32)
     cs, es = rejfree_sparse_chunk(sig, lf, E, coord, acc, zacc, m.neigh, m.J,
                                   mode=mode, n_moves=N_MOVES,
-                                  beta2s=2 * 2.0 * m.scale, target=target,
+                                  beta_s=2.0 * m.scale, target=target,
                                   seed=SEED)
     s = dict(sigma=sig, lf=lf, E=E, coord=coord, acc=acc, zacc=zacc, cs=cs,
              es=es)
@@ -253,7 +253,7 @@ def test_dense_rejfree_ok_and_checks():
     lf = m.local_fields(st.sigma)
     z = (torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
          torch.zeros(4))
-    kw = dict(mode="bkl", n_moves=2, beta2s=1.0, target=10, seed=1)
+    kw = dict(mode="bkl", n_moves=2, beta_s=1.0, target=10, seed=1)
     with pytest.raises(ValueError, match="J"):
         rejfree_dense_chunk(st.sigma, lf, st.E, *z, m.J, **kw)
     with pytest.raises(ValueError, match="lf"):

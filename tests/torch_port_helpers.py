@@ -42,6 +42,17 @@ def port_lattice(jm):
                                   jm.D, jm.scale, jm.classes, device="cpu")
 
 
+def port_pspin(jm):
+    """The port's PSpin3 with the JAX model's partner table."""
+    return pt.pspin_from_arrays(np.asarray(jm.A), jm.N, jm.K, device="cpu")
+
+
+def port_sat(jm):
+    """The port's SATModel with the JAX model's clauses."""
+    return pt.sat_from_arrays(jm.N, np.asarray(jm.A), np.asarray(jm.L),
+                              device="cpu")
+
+
 def random_sigma(rng: np.random.Generator, B: int, N: int) -> np.ndarray:
     return (rng.integers(0, 2, (B, N)) * 2 - 1).astype(np.int8)
 
