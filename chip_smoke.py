@@ -56,12 +56,32 @@ Phases, any failure exits non-zero:
      section) and extremal_opt(tau=1.4) with 128 chains and 30 000 moves,
      whose mean Emin must lie within SAT_EO_RTOL of the sat_eo row's (its
      standard error over the chains, and the best, are printed beside).
+   - replica composites (`replica_path`): QIsing, GraphQSKT(1024, 16,
+     Gamma=0.3, beta=2), and REIsing, GraphSKRE(1024, 5, gamma, beta=0.4),
+     built with no device argument, 1024 chains, through sweepMC_quant /
+     sweepMC_replica and rrrMC (QIsing also bklMC and wtmMC; REIsing's
+     gamma grid 3, 4, 5 by sweepMC_replica), their observables held to
+     paper_quant_results.json's first trajectory points within
+     REPLICA_RTOL; Quant and RE over GraphRRG(1000, 3), M=8, through
+     rrrMC and bklMC and the float bases GraphQSKNormalT(1024, 16) and
+     GraphQEAT(8, 3, M=8) through bklMC, 128 chains.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
-   couplings); for EO, E and Emin equal the energies of sigma and
-   sigma_min (exactly for integer couplings, within 1e-4 * N for float
-   ones) and itmin lies in [0, moves].
+   couplings, within 1e-4 * max(1, |E|) for the replica composites'
+   float32 physical energies); for EO, E and Emin equal the energies of
+   sigma and sigma_min (exactly for integer couplings, within 1e-4 * N for
+   float ones) and itmin lies in [0, moves].
+
+The replica phases of 2 are the composite race kernel on GraphQSKT(1024,
+16) (bkl, wtm, rrr), GraphSKRE(1024, 5) (rrr) and GraphQSKNormalT(1024, 16)
+(bkl), the dense base, and on Quant and RE over GraphRRG(1000, 3) (bkl,
+wtm, rrr) and GraphQEAT(8, 3, M=8) (bkl), the sparse base, at the main
+paths' chains; and the composite sweep kernel, one sweep and a split pair,
+on GraphQSKT(1024, 16), GraphSKRE(1024, 5) and GraphQSKNormalT(1024, 16).
+Integer bases must agree bit for bit, E and z/N included. Then the
+refusals: a composite above shared memory, a sparse base under
+sweepMC_quant and a Double under bklMC each raise.
 
 The dense-model phases of 2 are the dense sweep kernel on GraphSK(1024)
 with 8192 chains (3 sweeps) and GraphSK(8192) with 2048 chains (1 sweep),
@@ -101,6 +121,10 @@ tensor-core rate, 1,979 TOP/s; and
 `library_ms`, null: no single PyTorch call computes a Metropolis sweep, a
 race move or an EO move.
 
+Each entry of the record also carries `registers`: the fewest and the most
+registers of its kernel function's instantiations, from the build's ptxas
+report (null when the library was already built).
+
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
 device is visible.
@@ -130,6 +154,10 @@ RRG_SWEEPS = 100
 #: takes ~0.3 ms per move); the sweep kernel 100 sweeps (its plain version
 #: takes ~20 ms per sweep at 8192 chains)
 SITE_MOVES, RACE_MOVES, SWEEPS = 10_000, 1024, 100
+#: moves of every race comparison but the one that gives its kernel's row
+#: (the first, bkl, case at RACE_MOVES): the other modes and the other
+#: models of a kernel, whose plain versions take 2-10 s at RACE_MOVES
+CMP_MOVES = 256
 #: dense SK path: sweeps of the two sweepMC runs, and the race samplers'
 #: run lengths on GraphSK(1024) and the other dense models
 SK_SWEEPS, SK8_SWEEPS = 500, 20
@@ -159,43 +187,73 @@ HYPER_CHAINS, PS_BETA_BKL, PS_BETA_RRR, SAT_BETA = 128, 1.5, 1.0, 4.0
 PS_ITERS_BKL, PS_ITERS_RRR, PS_WTM_SAMPLES = 2_000_000, 100_000, 200
 SAT_ITERS_BKL, SAT_ITERS_RRR, SAT_WTM_SAMPLES = 4_000_000, 50_000, 200
 SAT_EO_MOVES, SAT_EO_RTOL = 30_000, 0.05
+#: the replica path: scripts/paper_quant.py's QIsing (GraphQSKT(1024, 16,
+#: Gamma=0.3, beta=2)) and REIsing (GraphSKRE(1024, 5, gamma, beta=0.4) over
+#: the gamma grid) with 1024 chains, scripts/bench_all.py's
+#: composite_sparse section (Quant and RE over GraphRRG(1000, 3), M=8, 128
+#: chains, beta=1) and one float base each (dense GraphQSKNormalT, sparse
+#: GraphQEAT), 128 chains. The sweeps and rrr moves of QIsing and of
+#: REIsing at gamma=2 are those of the first trajectory points of
+#: paper_quant_results.json (6471680 / 16384 and 2554880 / 5120 sweeps, 6004
+#: and 17432 moves), whose mean observables the runs are held to within
+#: REPLICA_RTOL: a guard against gross faults of the physics (the files'
+#: standard errors, printed beside, are 0.02-0.1% of the means)
+Q_NK, Q_M, Q_GAMMA, Q_BETA, Q_SEED = 1024, 16, 0.3, 2.0, 8370274
+RE_NK, RE_M, RE_BETA, RE_SEED = 1024, 5, 0.4, 8370275
+RE_GAMMAS = (2.0, 3.0, 4.0, 5.0)
+Q_SWEEPS, Q_RRR, RE_SWEEPS, RE_RRR = 395, 6004, 499, 17432
+Q_ITERS_BKL, Q_WTM_SAMPLES, RE_GRID_SWEEPS = 100_000, 10, 100
+SP_NK, SP_M, SP_BETA, SP_CHAINS = 1000, 8, 1.0, 128
+SP_ITERS_RRR, SP_ITERS_BKL, FLT_ITERS_BKL = 10_000, 300_000, 100_000
+REPLICA_RTOL = 0.01
+#: sweeps per replica sweep comparison (the plain version takes seconds per
+#: sweep at these shapes)
+REPLICA_CMP_SWEEPS = 1
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
-REPLACES = {
-    "site_metropolis": "rrrmc_tpu/ops/site_pallas.py:47",
-    "rejfree_sparse": "rrrmc_tpu/ops/rejfree_pallas.py:870",
-    "rejfree_lattice": "rrrmc_tpu/ops/rejfree_pallas.py:118",
-    "sweep_checkerboard": "rrrmc_tpu/ops/sweep_pallas.py:64",
-    "sk_sweep": "rrrmc_tpu/ops/sk_pallas.py:77",
-    "sk_sweep_hbm": "rrrmc_tpu/ops/sk_pallas.py:115",
-    "rejfree_dense": "rrrmc_tpu/ops/rejfree_pallas.py:349",
-    "rejfree_stream": "rrrmc_tpu/ops/rejfree_pallas.py:559",
-    "eo_sparse": "rrrmc_tpu/ops/eo_pallas.py:449",
-    "eo_lattice": "rrrmc_tpu/ops/eo_pallas.py:66",
-    "eo_dense": "rrrmc_tpu/ops/eo_pallas.py:66",
-    "eo_stream": "rrrmc_tpu/ops/eo_pallas.py:255",
-    "rejfree_pspin": "rrrmc_tpu/ops/rejfree_pallas.py:1122",
-    "eo_pspin": "rrrmc_tpu/ops/eo_pallas.py:600",
-    "rejfree_sat": "rrrmc_tpu/ops/sat_pallas.py:306",
-    "eo_sat": "rrrmc_tpu/ops/sat_pallas.py:528",
-}
-SOURCES = {
-    "site_metropolis": "rrrmc_tpu_torch/csrc/site.cu",
-    "rejfree_sparse": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
-    "rejfree_lattice": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
-    "sweep_checkerboard": "rrrmc_tpu_torch/csrc/sweep.cu",
-    "sk_sweep": "rrrmc_tpu_torch/csrc/sk_sweep.cu",
-    "sk_sweep_hbm": "rrrmc_tpu_torch/csrc/sk_sweep.cu",
-    "rejfree_dense": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
-    "rejfree_stream": "rrrmc_tpu_torch/csrc/rejfree_dense.cu",
-    "eo_sparse": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
-    "eo_lattice": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
-    "eo_dense": "rrrmc_tpu_torch/csrc/eo_dense.cu",
-    "eo_stream": "rrrmc_tpu_torch/csrc/eo_dense.cu",
-    "rejfree_pspin": "rrrmc_tpu_torch/csrc/rejfree_sparse.cu",
-    "eo_pspin": "rrrmc_tpu_torch/csrc/eo_sparse.cu",
-    "rejfree_sat": "rrrmc_tpu_torch/csrc/rejfree_sat.cu",
-    "eo_sat": "rrrmc_tpu_torch/csrc/eo_sat.cu",
+#: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
+#: source, and its __global__ function, whose instantiations' register
+#: counts the ptxas report of the build gives
+ENTRIES = {
+    "site_metropolis": ("rrrmc_tpu/ops/site_pallas.py:47", "site.cu",
+                        "site_metropolis_kernel"),
+    "rejfree_sparse": ("rrrmc_tpu/ops/rejfree_pallas.py:870",
+                       "rejfree_sparse.cu", "rejfree_sparse_kernel"),
+    "rejfree_lattice": ("rrrmc_tpu/ops/rejfree_pallas.py:118",
+                        "rejfree_sparse.cu", "rejfree_sparse_kernel"),
+    "sweep_checkerboard": ("rrrmc_tpu/ops/sweep_pallas.py:64", "sweep.cu",
+                           "sweep_kernel"),
+    "sk_sweep": ("rrrmc_tpu/ops/sk_pallas.py:77", "sk_sweep.cu",
+                 "sk_sweep_kernel"),
+    "sk_sweep_hbm": ("rrrmc_tpu/ops/sk_pallas.py:115", "sk_sweep.cu",
+                     "sk_sweep_kernel"),
+    "rejfree_dense": ("rrrmc_tpu/ops/rejfree_pallas.py:349",
+                      "rejfree_dense.cu", "rejfree_dense_kernel"),
+    "rejfree_stream": ("rrrmc_tpu/ops/rejfree_pallas.py:559",
+                       "rejfree_dense.cu", "rejfree_dense_kernel"),
+    "eo_sparse": ("rrrmc_tpu/ops/eo_pallas.py:449", "eo_sparse.cu",
+                  "eo_sparse_kernel"),
+    "eo_lattice": ("rrrmc_tpu/ops/eo_pallas.py:66", "eo_sparse.cu",
+                   "eo_sparse_kernel"),
+    "eo_dense": ("rrrmc_tpu/ops/eo_pallas.py:66", "eo_dense.cu",
+                 "eo_dense_kernel"),
+    "eo_stream": ("rrrmc_tpu/ops/eo_pallas.py:255", "eo_dense.cu",
+                  "eo_dense_kernel"),
+    "rejfree_pspin": ("rrrmc_tpu/ops/rejfree_pallas.py:1122",
+                      "rejfree_sparse.cu", "rejfree_sparse_kernel"),
+    "eo_pspin": ("rrrmc_tpu/ops/eo_pallas.py:600", "eo_sparse.cu",
+                 "eo_sparse_kernel"),
+    "rejfree_sat": ("rrrmc_tpu/ops/sat_pallas.py:306", "rejfree_sat.cu",
+                    "rejfree_sat_kernel"),
+    "eo_sat": ("rrrmc_tpu/ops/sat_pallas.py:528", "eo_sat.cu",
+               "eo_sat_kernel"),
+    "rejfree_replica": ("rrrmc_tpu/ops/quant_pallas.py:232",
+                        "rejfree_replica.cu", "rejfree_replica_kernel"),
+    "replica_sweep": ("rrrmc_tpu/ops/quant_pallas.py:478",
+                      "replica_sweep.cu", "replica_sweep_kernel"),
+    "rejfree_replica_sparse": ("rrrmc_tpu/ops/quant_pallas.py:752",
+                               "rejfree_replica.cu",
+                               "rejfree_replica_kernel"),
 }
 #: the H100 SXM's published device-memory rate, float32 rate outside the
 #: tensor cores, and int8 tensor-core rate (dense)
@@ -327,13 +385,13 @@ def _compare(name, integer, kern: dict, plain: dict, B: int, N: int):
     return bad, max(errs["E"], errs["lf"]), errs
 
 
-def site_case(model, label, card):
+def site_case(model, label, card, n_moves=SITE_MOVES):
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import site
     from rrrmc_tpu_torch.samplers.common import init_lfT
 
-    B, n_moves = CHAINS, SITE_MOVES
+    B = CHAINS
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     g = torch.Generator(device=DEV).manual_seed(SEED)
     sites = torch.randint(0, model.N, (n_moves,), generator=g, device=DEV,
@@ -419,15 +477,15 @@ def sweep_case(model, label, B, card):
 
 
 def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
-                 B=CHAINS, beta=BETA):
-    """A race kernel against its plain version for one 1024-move chunk of B
-    chains: the kernel of the model's family (samplers/families.py)."""
+                 B=CHAINS, beta=BETA, n_moves=RACE_MOVES):
+    """A race kernel against its plain version for one chunk of n_moves
+    moves of B chains: the kernel of the model's family
+    (samplers/families.py)."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree
     from rrrmc_tpu_torch.samplers.families import family_of
 
-    n_moves = RACE_MOVES
     fam = family_of(model)
     chunk, ref = fam.race, _reference(fam.race)
     tables = fam.tables(model)
@@ -608,6 +666,168 @@ def eo_case(model, label, B, card, kernel):
             "max_abs_err": err, "errs": errs}
 
 
+def registers(log: str) -> dict:
+    """{function name: [fewest, most] registers over its instantiations}
+    from the ptxas report of the build (empty when nothing was built)."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            for name in {fn for _, _, fn in ENTRIES.values()}:
+                if f"{len(name)}{name}" in fn:
+                    lo, hi = out.get(name, [1 << 30, 0])
+                    n = int(m.group(1))
+                    out[name] = [min(lo, n), max(hi, n)]
+            fn = None
+    return out
+
+
+def _ops_replica(N, moves, applied, mode, flip_sites):
+    """A composite race move: `_ops_race` plus the site's composite dE (the
+    scaled field, the ring partners or mu and fk, two products and an add:
+    6) once for each state whose rates the move needs: the current one, and
+    for rrr the flipped one of z'."""
+    states = 2 if mode == "rrr" else 1
+    return _ops_race(N, moves, applied, mode, flip_sites) \
+        + moves * N * 6 * states
+
+
+def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves):
+    """The composite race kernel against its plain version for one chunk of
+    n_moves moves of B chains, on the family's tables: an integer base must
+    agree bit for bit (E and z/N included: the same float32 operations in
+    the same order), a float base within `_compare`'s tolerances."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree, replica
+    from rrrmc_tpu_torch.samplers.families import family_of, resident_state
+
+    fam = family_of(model)
+    tables = fam.tables(model)
+    tab = tables[0]
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    lf, E = resident_state(fam, model, st.sigma, st.E)
+    ct = rejfree.coord_dtype(mode)
+    z = dict(device=DEV)
+    base = dict(sigma=st.sigma.clone(), lf=lf, E=E,
+                coord=torch.zeros(B, dtype=ct, **z),
+                acc=torch.zeros(B, dtype=torch.int32, **z),
+                zacc=torch.zeros(B, dtype=torch.float32, **z))
+    kw = dict(mode=mode, n_moves=n_moves, seed=SEED, beta_s=beta)
+
+    def fresh():
+        return {k: v.clone() for k, v in base.items()}
+
+    def run(fn, a, target):
+        a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
+                              a["acc"], a["zacc"], *tables, target=target,
+                              **kw)
+
+    unreachable = 1e30 if mode == "wtm" else 2 ** 30
+    probe = fresh()
+    run(replica.rejfree_replica_chunk, probe, unreachable)      # warm-up
+    full = fresh()
+    ms_full = _events_ms(lambda: run(replica.rejfree_replica_chunk, full,
+                                     unreachable))
+    target = probe["coord"].double().median().item()
+    target = {"wtm": float(target), "bkl": max(int(target), 1),
+              "rrr": n_moves // 2}[mode]
+    k = fresh()
+    ms = _events_ms(lambda: run(replica.rejfree_replica_chunk, k, target))
+    p = fresh()
+    plain_ms = _events_ms(lambda: run(
+        replica.rejfree_replica_chunk_reference, p, target))
+    integer = not lf.dtype.is_floating_point
+    bad, err, errs = _compare(f"{kernel} {mode} {label}", integer, k, p, B,
+                              model.N)
+    e_err = float((model.energy(k["sigma"]).double()
+                   - k["E"].double()).abs().max())
+    require(e_err <= 1e-4 * max(1.0, float(k["E"].abs().max())),
+            f"{kernel} {mode} {label}: |E - energy| = {e_err}")
+    applied = float(k["acc"].double().sum())
+    moves = float(k["coord"].double().sum()) if mode == "rrr" else applied
+    bound_ms, bound_by = bound(
+        2 * _nbytes(*base.values()) + _nbytes(tab.J, tab.params, k["cs"],
+                                              k["es"])
+        + (_nbytes(tab.neigh) if tab.neigh is not None else 0),
+        _ops_replica(model.N, moves, applied, mode, fam.flip_sites(model)))
+    print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
+          f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
+          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+    return {"kernel": kernel, "case": f"{mode} {label}", "B": B,
+            "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "diverged": bad, "max_abs_err": err, "errs": errs}
+
+
+def replica_sweep_case(model, label, B, beta, card):
+    """The composite sweep kernel against its plain version: REPLICA_CMP_
+    SWEEPS sweeps of B chains from one random start, one Philox seed. An
+    integer base must agree bit for bit (spins, fields, E, accepted
+    counts), a float base within `_compare`'s tolerances; the same sweeps
+    split over two launches equal one."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import replica, replica_sweep
+
+    sw = replica_sweep.ReplicaSweeper(model, beta)
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    lf0, E0 = replica.replica_state(model, st.sigma, st.E)
+    n = REPLICA_CMP_SWEEPS
+
+    def run(fn, sweeps=n, sweep0=0, a=None):
+        a = a or {"sigma": st.sigma.clone(), "lf": lf0.clone(),
+                  "E": E0.clone(),
+                  "acc": torch.zeros(B, dtype=torch.int32, device=DEV)}
+        ms = _events_ms(lambda: fn(a["sigma"], a["lf"], a["E"], a["acc"],
+                                   sw.tab, beta=beta, n_sweeps=sweeps,
+                                   seed=SEED, sweep0=sweep0))
+        return a, ms
+
+    run(replica_sweep.replica_sweep_chunk)                  # warm-up
+    k, ms = run(replica_sweep.replica_sweep_chunk)
+    p, plain_ms = run(replica_sweep.replica_sweep_chunk_reference)
+    integer = not lf0.dtype.is_floating_point
+    bad, err, errs = _compare(f"replica_sweep {label}", integer, k, p, B,
+                              model.N)
+    s2, _ = run(replica_sweep.replica_sweep_chunk, sweeps=2)
+    s1, _ = run(replica_sweep.replica_sweep_chunk, sweeps=1)
+    s1, _ = run(replica_sweep.replica_sweep_chunk, sweeps=1, sweep0=1, a=s1)
+    require(all(torch.equal(s1[key], s2[key]) for key in s1),
+            f"replica_sweep {label}: two launches differ from one")
+    e_err = float((model.energy(k["sigma"]).double()
+                   - k["E"].double()).abs().max())
+    require(e_err <= 1e-4 * max(1.0, float(k["E"].abs().max())),
+            f"replica_sweep {label}: |E - energy| = {e_err}")
+    flips = float(k["acc"].double().sum())
+    # an attempted flip: a quarter of a Philox call (four sites share one
+    # call's words), dE, exp and the threshold (20); an accepted one adds
+    # its base row to the mover's block, Nk products and adds: the TPU
+    # kernel's rank-W MXU product, at the int8 tensor-core rate for an
+    # integer base, the float32 rate otherwise
+    commit = flips * 2 * sw.tab.Nk
+    bound_ms, bound_by = bound(
+        2 * _nbytes(st.sigma, lf0, E0, k["acc"])
+        + _nbytes(sw.tab.J, sw.tab.params),
+        B * model.N * n * (PHILOX_OPS / 4 + 20) + (0 if integer else commit),
+        int8_ops=commit if integer else 0.0)
+    print(f"replica_sweep {label} B={B} sweeps={n}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
+          f"accepted {flips / (B * model.N * n):.4f} of the attempts, "
+          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+    return {"kernel": "replica_sweep", "case": label, "B": B, "sweeps": n,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "accepted": flips, "diverged": bad,
+            "max_abs_err": err, "errs": errs}
+
+
 def _drive(runs, card, mods):
     """Run each (name, model, route, module, nominal, unit, n_ckpt, call)
     through the public API with every launch count of `mods` set to 0 just
@@ -638,7 +858,13 @@ def _drive(runs, card, mods):
                 f"{name}: series {tuple(Es.shape)}, finite "
                 f"{bool(torch.isfinite(Es).all())}")
         E_re = model.energy(st.sigma)
-        if st.E.dtype.is_floating_point:
+        if hasattr(model, "resid_m"):
+            # a replica composite's float32 physical E: the JAX package's
+            # check, 1e-4 * max(1, |E|)
+            err = float((E_re.double() - st.E.double()).abs().max())
+            require(err <= 1e-4 * max(1.0, float(E_re.abs().max())),
+                    f"{name}: |E - energy| = {err}")
+        elif st.E.dtype.is_floating_point:
             # float32 E accumulated over ~1e5 moves at |E| ~ 1e4 (one ulp
             # is 1e-3): 1e-4 per spin
             err = float((E_re.double() - st.E.double()).abs().max())
@@ -1047,6 +1273,169 @@ def sat_path(card, sat):
     return records + [rec], {**counts, "eo_sat": eo_sat.LAUNCHES}
 
 
+def _paper_rows() -> dict:
+    """The first trajectory points of paper_quant_results.json (the JAX
+    package's QIsing and REIsing runs at gamma=2): per engine, the sweeps or
+    moves per chain, the mean observable over the chains and its standard
+    error."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "paper_quant_results.json"
+    d = json.loads(path.read_text())
+    q, r = d["QIsing"], d["REIsing"]["gammas"]["2.0"]
+    return {"QIsing met": q["met_kernel"]["traj"][0],
+            "QIsing rrr": q["rrr_kernel"]["traj"][0],
+            "REIsing met": r["met_kernel"]["traj"][0],
+            "REIsing rrr": r["rrr_kernel"]["traj"][0]}
+
+
+def _mean_sem(x):
+    x = x.double()
+    return float(x.mean()), float(x.std()) / x.numel() ** 0.5
+
+
+def replica_path(card, qskt, skre, qrrg, rerrg, qnt, qeat):
+    """The replica path through the public API, every replica launch count
+    set to 0 just before it: QIsing on GraphQSKT(1024, 16) with 1024 chains
+    (sweepMC_quant and rrrMC, the paper's engines, then bklMC and wtmMC),
+    REIsing on GraphSKRE(1024, 5) with 1024 chains (sweepMC_replica and
+    rrrMC at gamma=2, sweepMC_replica at gamma 3, 4 and 5), Quant and RE
+    over GraphRRG(1000, 3) (rrrMC, bklMC) and the float bases (bklMC), 128
+    chains. Each run checks its route, the CUDA implementation and
+    |E - energy| <= 1e-4 max(1, |E|) (`_drive`). The QIsing and REIsing
+    (gamma=2) runs' observables are held to the paper rows within
+    REPLICA_RTOL. Returns the run records, the path's launch counts and the
+    launches of each kernel entry."""
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import replica, replica_sweep
+
+    states = {}
+
+    def keep(name, out):
+        states[name] = out[1]
+        return out
+
+    dr, sp, sw = ("kernel-rejfree-replica-dense",
+                  "kernel-rejfree-replica-sparse", "kernel-replica-sweep")
+    nq, nr, B = qskt.N, skre[2.0].N, CHAINS
+    runs = [
+        ("sweepMC_quant QSKT(1024, 16)", qskt, sw, replica_sweep,
+         Q_SWEEPS * nq, "attempted flips", 5,
+         lambda: keep("QIsing met", rt.sweepMC_quant(
+             qskt, Q_BETA, Q_SWEEPS, step=Q_SWEEPS // 5, chains=B,
+             seed=71))),
+        ("rrrMC QSKT(1024, 16)", qskt, dr, replica, Q_RRR, "moves", 4,
+         lambda: keep("QIsing rrr", rt.rrrMC(
+             qskt, Q_BETA, Q_RRR, step=Q_RRR // 4, chains=B, seed=72))),
+        ("bklMC QSKT(1024, 16)", qskt, dr, replica, Q_ITERS_BKL,
+         "virtual iterations", 10,
+         lambda: rt.bklMC(qskt, Q_BETA, Q_ITERS_BKL,
+                          step=Q_ITERS_BKL // 10, chains=B, seed=73)),
+        ("wtmMC QSKT(1024, 16)", qskt, dr, replica, Q_WTM_SAMPLES * nq,
+         "virtual iterations", Q_WTM_SAMPLES,
+         lambda: rt.wtmMC(qskt, Q_BETA, Q_WTM_SAMPLES, step=float(nq),
+                          chains=B, seed=74)),
+        ("sweepMC_replica SKRE(1024, 5) gamma=2", skre[2.0], sw,
+         replica_sweep, RE_SWEEPS * nr, "attempted flips", 1,
+         lambda: keep("REIsing met", rt.sweepMC_replica(
+             skre[2.0], RE_BETA, RE_SWEEPS, step=RE_SWEEPS, chains=B,
+             seed=75))),
+        ("rrrMC SKRE(1024, 5) gamma=2", skre[2.0], dr, replica, RE_RRR,
+         "moves", 4,
+         lambda: keep("REIsing rrr", rt.rrrMC(
+             skre[2.0], RE_BETA, RE_RRR, step=RE_RRR // 4, chains=B,
+             seed=76))),
+    ] + [
+        (f"sweepMC_replica SKRE(1024, 5) gamma={g:g}", skre[g], sw,
+         replica_sweep, RE_GRID_SWEEPS * nr, "attempted flips", 1,
+         lambda g=g: rt.sweepMC_replica(skre[g], RE_BETA, RE_GRID_SWEEPS,
+                                        step=RE_GRID_SWEEPS, chains=B,
+                                        seed=77))
+        for g in RE_GAMMAS[1:]
+    ] + [
+        (f"{fn.__name__} {label}", m, sp, replica, iters, unit, 10,
+         lambda fn=fn, m=m, iters=iters: fn(m, SP_BETA, iters,
+                                            step=iters // 10,
+                                            chains=SP_CHAINS, seed=78))
+        for m, label in ((qrrg, "Quant(RRG(1000, 3), M=8)"),
+                         (rerrg, "RE(RRG(1000, 3), M=8)"))
+        for fn, iters, unit in ((rt.rrrMC, SP_ITERS_RRR, "moves"),
+                                (rt.bklMC, SP_ITERS_BKL,
+                                 "virtual iterations"))
+    ] + [
+        ("bklMC QSKNormalT(1024, 16)", qnt, dr, replica, FLT_ITERS_BKL,
+         "virtual iterations", 10,
+         lambda: rt.bklMC(qnt, Q_BETA, FLT_ITERS_BKL,
+                          step=FLT_ITERS_BKL // 10, chains=SP_CHAINS,
+                          seed=79)),
+        ("bklMC QEAT(8, 3, M=8)", qeat, sp, replica, FLT_ITERS_BKL,
+         "virtual iterations", 10,
+         lambda: rt.bklMC(qeat, Q_BETA, FLT_ITERS_BKL,
+                          step=FLT_ITERS_BKL // 10, chains=SP_CHAINS,
+                          seed=80)),
+    ]
+    records, counts = _drive(runs, card, {"rejfree_replica": replica,
+                                          "replica_sweep": replica_sweep})
+    rows = _paper_rows()
+    re2 = skre[2.0]
+    qe = qskt.Qenergy
+    re_obs = lambda s: re2.REenergies(s).mean(1) / re2.Nk  # noqa: E731
+    # (paper row, its run, the observable: Qenergy, or the mean replica
+    # energy per spin as paper_quant.py's _re_obs_batch)
+    for key, run, fn in (
+            ("QIsing met", "sweepMC_quant QSKT(1024, 16)", qe),
+            ("QIsing rrr", "rrrMC QSKT(1024, 16)", qe),
+            ("REIsing met", "sweepMC_replica SKRE(1024, 5) gamma=2", re_obs),
+            ("REIsing rrr", "rrrMC SKRE(1024, 5) gamma=2", re_obs)):
+        mean, sem = _mean_sem(fn(states[key].sigma))
+        row = rows[key]
+        ref, ref_sem = row["obs_mean"], row["obs_sem"]
+        if key.startswith("RE"):
+            ref, ref_sem = ref[0], ref_sem[0]
+        print(f"  physics row {key} ({row['iters']} iterations a chain): "
+              f"port {mean:.5f} (standard error {sem:.5f}), JAX package "
+              f"{ref:.5f} ({ref_sem:.5f})  [{card}]")
+        next(r for r in records if r["run"] == run).update(
+            observable=mean, observable_sem=sem, row=key,
+            row_observable=ref, row_sem=ref_sem)
+        require(abs(mean - ref) <= REPLICA_RTOL * abs(ref),
+                f"{key}: {mean} against the paper row's {ref}")
+    per_run = {r["run"]: r["launches"] for r in records}
+    dense = sum(v for k, v in per_run.items()
+                if k.startswith(("rrrMC QSKT", "bklMC QSKT", "wtmMC QSKT",
+                                 "rrrMC SKRE", "bklMC QSKNormalT")))
+    sparse = sum(v for k, v in per_run.items() if "RRG" in k or "QEAT" in k)
+    return records, counts, {"rejfree_replica": dense,
+                             "rejfree_replica_sparse": sparse,
+                             "replica_sweep": counts["replica_sweep"]}
+
+
+def replica_refusals(card):
+    """No fallback: the race kernel refuses a composite whose state exceeds
+    shared memory (GraphQSKT(4096, 16): 65 536 spins), the sweep kernel a
+    composite over a sparse base, and the race samplers a Double that is
+    not a Quant / RE composite; each raises, none runs a plain version."""
+    import rrrmc_tpu_torch as rt
+
+    big = rt.GraphQSKT(4096, 16, Q_GAMMA, Q_BETA, seed=1)
+    sparse = rt.GraphQuant(SP_NK, SP_M, 1.0, 1.0,
+                           rt.GraphRRG(SP_NK, 3, (-1, 1), seed=11))
+    dbl = rt.GraphRRGNormalDiscretized(SP_NK, 3, (-1, 0, 1), seed=1)
+    for what, call, err in (
+            ("rrrMC on GraphQSKT(4096, 16)",
+             lambda: rt.rrrMC(big, Q_BETA, 10, chains=8), NotImplementedError),
+            ("sweepMC_quant on Quant(RRG)",
+             lambda: rt.sweepMC_quant(sparse, 1.0, 1, chains=8), ValueError),
+            ("bklMC on GraphRRGNormalDiscretized",
+             lambda: rt.bklMC(dbl, 1.0, 10, chains=8), NotImplementedError)):
+        try:
+            call()
+        except err as e:
+            print(f"refused as it must be: {what}: {e}  [{card}]")
+        else:
+            raise AssertionError(f"{what} ran: no fallback allowed")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1065,15 +1454,23 @@ def main() -> int:
     cuda_build.library()
     build_s = time.perf_counter() - t0
     # the ptxas report first: the build time stays in the output's tail
-    print(cuda_build.build_info["log"].strip())
+    build_log = cuda_build.build_info["log"]
+    print(build_log.strip())
     print(f"kernel build: {build_s:.1f} s ({cuda_build.build_info['path']})")
 
     m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
-    cases = [site_case(m, "RRG+-J", card), site_case(mn, "RRGNormal", card)]
+    cases = [site_case(m, "RRG+-J", card),
+             site_case(mn, "RRGNormal", card, n_moves=SITE_MOVES // 4)]
+
+    def moves(mode):
+        return RACE_MOVES if mode == "bkl" else CMP_MOVES
+
     for mode in ("bkl", "wtm", "rrr"):
-        cases.append(rejfree_case(m, "RRG+-J", mode, card))
-        cases.append(rejfree_case(mn, "RRGNormal", mode, card))
+        cases.append(rejfree_case(m, "RRG+-J", mode, card,
+                                  n_moves=moves(mode)))
+        cases.append(rejfree_case(mn, "RRGNormal", mode, card,
+                                  n_moves=CMP_MOVES))
     lat = rt.GraphEA(16, 3, (-1, 1), seed=42, device=DEV)
     field = dataclasses.replace(lat, h=torch.as_tensor(
         np.random.default_rng(SEED).integers(-2, 3, lat.N),
@@ -1084,7 +1481,8 @@ def main() -> int:
     cases.append(sweep_case(fixed, "EA3D-L16 (-1.5,0.5) exp", CHAINS, card))
     for mode in ("bkl", "wtm", "rrr"):
         cases.append(rejfree_case(lat, "EA3D-L16+-J", mode, card,
-                                  kernel="rejfree_lattice"))
+                                  kernel="rejfree_lattice",
+                                  n_moves=moves(mode)))
 
     # built and, below, sampled with no device given: the card is the
     # default
@@ -1110,11 +1508,13 @@ def main() -> int:
                          "sk_sweep"))
     for mode in ("bkl", "wtm", "rrr"):
         cases.append(rejfree_case(sk1, "GraphSK(1024)", mode, card,
-                                  kernel="rejfree_dense", beta=4.0))
+                                  kernel="rejfree_dense", beta=4.0,
+                                  n_moves=moves(mode)))
     cases.append(rejfree_case(drrg, "densify(GraphRRG(10^4))", "bkl", card,
                               kernel="rejfree_stream", beta=4.0))
     cases.append(rejfree_case(skn, "GraphSKNormal(4096)", "bkl", card,
-                              kernel="rejfree_stream", B=128, beta=4.0))
+                              kernel="rejfree_stream", B=128, beta=4.0,
+                              n_moves=CMP_MOVES))
 
     rrgn7 = rt.GraphRRGNormal(N_MAIN, 3, seed=7, device=DEV)
     ea8 = rt.GraphEA(8, 3, (-1, 1), seed=42, device=DEV)
@@ -1142,8 +1542,51 @@ def main() -> int:
                     else PS_BETA_RRR if mode == "rrr" else PS_BETA_BKL)
             cases.append(rejfree_case(model, label, mode, card,
                                       kernel=f"rejfree_{kind}",
-                                      B=HYPER_CHAINS, beta=beta))
+                                      B=HYPER_CHAINS, beta=beta,
+                                      n_moves=moves(mode)))
         cases.append(eo_case(model, label, HYPER_CHAINS, card, f"eo_{kind}"))
+
+    # the replica composites, built with no device given: the card is the
+    # default
+    qskt = rt.GraphQSKT(Q_NK, Q_M, Q_GAMMA, Q_BETA, seed=Q_SEED)
+    skre = {g: rt.GraphSKRE(RE_NK, RE_M, g, RE_BETA, seed=RE_SEED)
+            for g in RE_GAMMAS}
+    qrrg = rt.GraphQuant(SP_NK, SP_M, 1.0, 1.0,
+                         rt.GraphRRG(SP_NK, 3, (-1, 1), seed=11))
+    rerrg = rt.GraphRobustEnsemble(SP_NK, SP_M, 2.0, 1.0,
+                                   rt.GraphRRG(SP_NK, 3, (-1, 1), seed=12))
+    qnt = rt.GraphQSKNormalT(Q_NK, Q_M, Q_GAMMA, Q_BETA, seed=Q_SEED)
+    qeat = rt.GraphQEAT(8, 3, SP_M, 0.5, Q_BETA, seed=13)
+    require(qskt.resid_m.base.J.device.type == "cuda"
+            and qeat.resid_m.base.J.device.type == "cuda",
+            "the replica builders without a device are not on the card")
+    for mode in ("bkl", "wtm", "rrr"):
+        cases.append(replica_race_case(qskt, "QSKT(1024, 16)", mode, card,
+                                       "rejfree_replica", CHAINS, Q_BETA,
+                                       moves(mode)))
+    cases.append(replica_race_case(skre[2.0], "SKRE(1024, 5) gamma=2", "rrr",
+                                   card, "rejfree_replica", CHAINS, RE_BETA,
+                                   CMP_MOVES))
+    cases.append(replica_race_case(qnt, "QSKNormalT(1024, 16)", "bkl", card,
+                                   "rejfree_replica", SP_CHAINS, Q_BETA,
+                                   CMP_MOVES))
+    for model, label in ((qrrg, "Quant(RRG(1000, 3), M=8)"),
+                         (rerrg, "RE(RRG(1000, 3), M=8)")):
+        for mode in ("bkl", "wtm", "rrr"):
+            cases.append(replica_race_case(
+                model, label, mode, card, "rejfree_replica_sparse",
+                SP_CHAINS, SP_BETA,
+                moves(mode) if model is qrrg else CMP_MOVES))
+    cases.append(replica_race_case(qeat, "QEAT(8, 3, M=8)", "bkl", card,
+                                   "rejfree_replica_sparse", SP_CHAINS,
+                                   Q_BETA, CMP_MOVES))
+    cases.append(replica_sweep_case(qskt, "QSKT(1024, 16)", CHAINS, Q_BETA,
+                                    card))
+    cases.append(replica_sweep_case(skre[2.0], "SKRE(1024, 5) gamma=2",
+                                    CHAINS, RE_BETA, card))
+    cases.append(replica_sweep_case(qnt, "QSKNormalT(1024, 16)", SP_CHAINS,
+                                    Q_BETA, card))
+    replica_refusals(card)
 
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
@@ -1153,28 +1596,35 @@ def main() -> int:
                                                  sk1, drrg, skn)
     ps_records, ps_counts = pspin_path(card, ps)
     sat_records, sat_counts = sat_path(card, sat)
+    rep_records, rep_counts, rep_launches = replica_path(
+        card, qskt, skre, qrrg, rerrg, qnt, qeat)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
-                                "PSpin3": ps_counts, "K-SAT": sat_counts},
+                                "PSpin3": ps_counts, "K-SAT": sat_counts,
+                                "replica": rep_counts},
                       "runs": rrg_records + ea_records + sk_records
-                      + eo_records + ps_records + sat_records}))
+                      + eo_records + ps_records + sat_records
+                      + rep_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
                 "sweep_checkerboard": ea_counts["sweep_checkerboard"],
-                **sk_launches, **eo_launches, **ps_counts, **sat_counts}
+                **sk_launches, **eo_launches, **ps_counts, **sat_counts,
+                **rep_launches}
+    regs = registers(build_log)
 
     kernels = []
-    for name in REPLACES:
+    for name, (replaces, source, function) in ENTRIES.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = mine[0]   # times: the first case (race: bkl mode)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": f"rrrmc_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "registers": regs.get(function)})
         require(launches[name] > 0, f"{name}: not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

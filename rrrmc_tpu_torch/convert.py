@@ -15,6 +15,7 @@ from .models.dense import FullyConnected, dense_tensors
 from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
 from .models.pspin import PSpin3
+from .models.replicas import GraphQuant, GraphRobustEnsemble
 from .models.sat import SATModel, make_sat
 from .samplers.common import DEFAULT_SEED, MCState, make_generator
 
@@ -89,6 +90,22 @@ def sat_from_arrays(N: int, A, L, device=None) -> SATModel:
     pads) and L [Mc, K] (literal signs), through `make_sat` (for example a
     JAX SATModel's `m.N`, `np.asarray(m.A)`, `np.asarray(m.L)`)."""
     return make_sat(int(N), np.asarray(A), np.asarray(L), device=device)
+
+
+def replica_from_arrays(kind: str, base, *, M: int, coupling: float,
+                        beta: float):
+    """The port's QuantModel (kind "quant", coupling = Gamma) or REModel
+    (kind "re", coupling = gamma) over `base`, itself carried across with
+    `pairwise_from_arrays` / `fully_connected_from_arrays` (for example a
+    JAX QuantModel's `m.M`, `m.Gamma`, `m.beta`, or a JAX REModel's `m.M`,
+    `m.inner_m.gamma`, `m.inner_m.beta_p`). The wrapper tables (fourK, fk)
+    are derived from the constants as the JAX builders derive them."""
+    if kind == "quant":
+        return GraphQuant(base.N, int(M), float(coupling), float(beta), base)
+    if kind == "re":
+        return GraphRobustEnsemble(base.N, int(M), float(coupling),
+                                   float(beta), base)
+    raise ValueError(f"kind must be 'quant' or 're', got {kind!r}")
 
 
 def state_from_arrays(model, sigma, E=None, accepted=None, *,

@@ -1,6 +1,7 @@
 """Graph constructors: EA lattices (the roll-based LatticeEA for L > 2, the
 generic Pairwise with doubled edges for L = 2), random regular graphs,
-Ising1D, non-interacting fields, and trivial debug models.
+Ising1D, non-interacting fields, the Gaussian models split into a
+discretized inner part and a residual (`Double`), and trivial debug models.
 
 Disorder is generated on the host in numpy with the JAX package's exact
 generators (rrrmc_tpu/models/graphs.py), so the same seed gives identical
@@ -14,6 +15,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .composite import Double
 from .lattice import lattice_ea_from_levels, lattice_ea_normal
 from .pairwise import (Pairwise, make_pairwise, infer_integer_scale,
                        enumerate_pair_classes)
@@ -104,9 +106,25 @@ def _pairwise_from_levels(adj, J, n, lev, degree, device) -> Pairwise:
                          device=device)
 
 
-def _needs(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+def _discretize(x: np.ndarray, lev: Sequence[float]):
+    """Nearest-level split into (discrete, residual) (the reference's
+    discretize)."""
+    lev = np.asarray(lev, dtype=np.float64)
+    idx = np.argmin(np.abs(x[..., None] - lev), axis=-1)
+    d = lev[idx]
+    return d, x - d
+
+
+def _normal_discretized(adj, n, lev, degree, rng, device) -> Double:
+    """Gaussian couplings split into an inner Pairwise on the levels `lev`
+    (exact, integer when the levels allow) and a float residual Pairwise."""
+    Jc = assign_edge_couplings(adj, lambda: float(rng.standard_normal()))
+    dJ, rJ = zip(*(_discretize(np.asarray(row, dtype=np.float64), lev)
+                   for row in Jc))
+    inner = _pairwise_from_levels(adj, [list(d) for d in dJ], n, lev, degree,
+                                  device)
+    resid = make_pairwise(adj, [list(r) for r in rJ], n, device=device)
+    return Double(inner_m=inner, resid_m=resid, N=n)
 
 
 def GraphEA(L: int, D: int, LEV: Tuple[float, ...] = (-1, 1), *, seed=None,
@@ -153,18 +171,40 @@ def GraphRRGNormal(N: int, K: int, *, seed=None, device=None) -> Pairwise:
 
 
 def GraphRRGNormalDiscretized(N: int, K: int, LEV: Sequence[float], *,
-                              seed=None, device=None):
-    _needs("GraphRRGNormalDiscretized (Double)", "item 10")
+                              seed=None, device=None) -> Double:
+    """Gaussian-J RRG split into a discretized inner part and a residual
+    (the reference's GraphRRGNormalDiscretized), the JAX package's draw."""
+    rng = _rng(seed)
+    adj = gen_rrg_adjacency(N, K, rng)
+    return _normal_discretized(adj, N, [float(l) for l in LEV], K, rng,
+                               device)
 
 
 def GraphEANormalDiscretized(L: int, D: int, LEV: Sequence[float], *,
-                             seed=None, device=None):
-    _needs("GraphEANormalDiscretized (Double)", "item 10")
+                             seed=None, device=None) -> Double:
+    """Gaussian-J EA lattice split as GraphRRGNormalDiscretized (the
+    reference's GraphEANormalDiscretized): generic Pairwise parts, as in the
+    JAX package."""
+    rng = _rng(seed)
+    adj = gen_ea_adjacency(L, D)
+    return _normal_discretized(adj, L ** D, [float(l) for l in LEV], 2 * D,
+                               rng, device)
 
 
 def GraphFieldsNormalDiscretized(N: int, LEV: Sequence[float], *, seed=None,
-                                 device=None):
-    _needs("GraphFieldsNormalDiscretized (Double)", "item 10")
+                                 device=None) -> Double:
+    """Gaussian fields split into discretized and residual fields (the
+    reference's GraphFieldsNormalDiscretized)."""
+    rng = _rng(seed)
+    lev = [float(l) for l in LEV]
+    hd, hr = _discretize(rng.standard_normal(N), lev)
+    scale = infer_integer_scale(np.asarray(lev))
+    classes = tuple(sorted({abs(2.0 * l) for l in lev}))
+    adj = [[] for _ in range(N)]
+    inner = make_pairwise(adj, adj, N, h=hd, integer_scale=scale,
+                          classes=classes, device=device)
+    resid = make_pairwise(adj, adj, N, h=hr, device=device)
+    return Double(inner_m=inner, resid_m=resid, N=N)
 
 
 def load_ea_instance(fname: str):

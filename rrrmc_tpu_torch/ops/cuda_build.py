@@ -69,6 +69,13 @@ _SIGNATURES = {
     "rrrmc_eo_sat": (_I, [_P] * 11 + [_I] * 6 + [_U, _U, _U, _I, _P]),
     "rrrmc_eo_sat_smem": (_Z, [_I, _I, _I]),
     "rrrmc_eo_sat_max_smem": (_I, [_I]),
+    "rrrmc_rejfree_replica": (_I, [_P] * 11 + [_I] * 5 + [_U, _U, _U, _F,
+                                                          _I, _F, _I, _I, _I,
+                                                          _I, _P]),
+    "rrrmc_rejfree_replica_smem": (_Z, [_I] * 5),
+    "rrrmc_rejfree_replica_max_smem": (_I, [_I]),
+    "rrrmc_replica_sweep": (_I, [_P] * 6 + [_I] * 4 + [_F, _U, _U, _U, _I,
+                                                        _I, _P]),
 }
 
 _lib = None

@@ -25,7 +25,11 @@ Stream layout, shared by every kernel and its plain version:
 * tau-EO moves are counted across launches (`move0`): the rank draw
   (DRAW_EO_RANK = 5) is word 0 of counter (0, move, DRAW_EO_RANK, 0), and
   the tie race (DRAW_EO_TIE = 6) gives site i word i % 4 of counter
-  (i // 4, move, DRAW_EO_TIE, 0), the layout of the race.
+  (i // 4, move, DRAW_EO_TIE, 0), the layout of the race;
+* the replica composites' sweep (DRAW_REPLICA_SWEEP = 7) gives spin j of
+  sweep t word j % 4 of counter (j // 4, t, DRAW_REPLICA_SWEEP, 0), the
+  race's layout with the sweep in place of the move, sweeps counted across
+  launches. The composites' race moves use the race's draws.
 
 Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
 product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
@@ -44,6 +48,7 @@ DRAW_SWEEP = 3
 DRAW_SK = 4
 DRAW_EO_RANK = 5
 DRAW_EO_TIE = 6
+DRAW_REPLICA_SWEEP = 7
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57

@@ -243,17 +243,18 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
     before the flip, in lf's dtype) in the chains where do. Site i races
     with the energy change of its flip dE_i = de_of(sig, lf)[:, i]
     (2 sigma_i lf_i by default) and the Boltzmann exponent
-    beta_s * max(dE_i, 0)."""
+    beta_s * max(dE_i, 0). E (lf's dtype, or float32 physical energies
+    for the replica composites) gains the dE of each applied flip."""
     B, N = sigma.shape
     dev = sigma.device
     lt = lf.dtype
     rows = torch.arange(B, device=dev)
     beta = torch.tensor(beta_s, dtype=torch.float32, device=dev)
     log_n = torch.log(torch.tensor(float(N), dtype=torch.float32, device=dev))
-    zero = torch.zeros((), dtype=lt, device=dev)
+    zero = torch.zeros((), dtype=E.dtype, device=dev)
     sig = sigma.to(lt)
     cs = torch.empty((n_moves, B), dtype=coord.dtype, device=dev)
-    es = torch.empty((n_moves, B), dtype=lt, device=dev)
+    es = torch.empty((n_moves, B), dtype=E.dtype, device=dev)
 
     def draws(d):
         """Iterator over the moves' bits of draw id d."""

@@ -15,9 +15,11 @@ reference's checkpoint drain loop.
 
 This port runs bkl, wtm and rrr on the race kernels only, one per model
 family (samplers/families.py): the sparse one (ops/rejfree.py) for Pairwise
-models, the dense one (ops/rejfree_dense.py) for FullyConnected models, and
-the hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT; their
-generic torch paths, with hooks and observers, are ROADMAP.md queue 1,
+models, the dense one (ops/rejfree_dense.py) for FullyConnected models, the
+hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, and the
+replica composites' (ops/replica.py) for GraphQuant and GraphRobustEnsemble
+over a dense or sparse base; their generic torch paths, with hooks and
+observers, and every other composite (`Double`), are ROADMAP.md queue 1,
 item 3.
 """
 
@@ -30,7 +32,7 @@ import torch
 from ..core.model import Model
 from ..ops.rejfree import coord_dtype
 from .common import DEFAULT_SEED, MCState, init_state, kernel_seed, set_route
-from .families import ELIGIBLE, family_of
+from .families import ELIGIBLE, family_of, resident_state
 
 #: iteration targets above this would overflow the kernels' int32
 #: coordinates
@@ -85,8 +87,7 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     dev = state.sigma.device
     seed = kernel_seed(state.generator)
     sigma = state.sigma.clone()
-    lf = model.init_aux(sigma)
-    E = state.E.to(lf.dtype).clone()
+    lf, E = resident_state(fam, model, sigma, state.E)
     ct = coord_dtype(mode)
     coord = torch.zeros(B, dtype=ct, device=dev)
     acc = torch.zeros(B, dtype=torch.int32, device=dev)

@@ -78,10 +78,19 @@ def rebind(model: Model, state: MCState) -> MCState:
                                E=model.energy(state.sigma))
 
 
+def clone_aux(aux):
+    """A copy of an aux state: a tensor, or a tuple of them (composites)."""
+    if torch.is_tensor(aux):
+        return aux.clone()
+    if isinstance(aux, tuple):
+        return tuple(clone_aux(a) for a in aux)
+    return aux
+
+
 def working_copy(state: MCState) -> MCState:
     """A copy whose tensors the samplers may update in place."""
-    aux = state.aux.clone() if torch.is_tensor(state.aux) else state.aux
-    return dataclasses.replace(state, sigma=state.sigma.clone(), aux=aux,
+    return dataclasses.replace(state, sigma=state.sigma.clone(),
+                               aux=clone_aux(state.aux),
                                E=state.E.clone(),
                                accepted=state.accepted.clone())
 

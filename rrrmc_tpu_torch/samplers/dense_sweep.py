@@ -18,6 +18,10 @@ Two backends, each N attempted flips per chain and sweep:
   so rounding drift stays bounded by one sweep). Counts accepted flips.
 
 "auto" takes "kernel" when the model is eligible.
+
+`sweepMC_quant` (alias `sweepMC_replica`) runs the same sequential sweeps on
+the replica composites over a dense base, on their own kernel
+(ops/replica_sweep.py).
 """
 
 from __future__ import annotations
@@ -41,27 +45,34 @@ def _sweeper(model, beta: float) -> SKSweeper:
                   lambda: SKSweeper(model, beta))
 
 
-def _run_kernel(model, beta, sweeps, step, state):
-    """One kernel launch per checkpoint (and one for a remainder of
-    sweeps), continuing one Philox stream across launches."""
-    sweeper = _sweeper(model, beta)
-    seed = kernel_seed(state.generator)
-    sigma, E = state.sigma.clone(), state.E.clone()
-    lf = model.local_fields(sigma).contiguous()
+def _run_sweeps(model, sweeper, tensors, sweeps, step, seed, route):
+    """Advances `tensors` (sigma, lf, E, then what else the sweeper takes)
+    in place by `sweeps` sweeps: one launch per checkpoint (and one for a
+    remainder of sweeps), continuing one Philox stream across launches.
+    Returns the checkpoints' physical energies [chains, sweeps // step]."""
+    sigma, E = tensors[0], tensors[2]
     n_ckpt = sweeps // step
     Es = []
     for k in range(n_ckpt):
-        sweeper(sigma, lf, E, seed=seed, n_sweeps=step, sweep0=k * step)
-        Es.append(model.to_physical(E))
+        sweeper(*tensors, seed=seed, n_sweeps=step, sweep0=k * step)
+        Es.append(model.to_physical(E).clone())
     if sweeps % step:
-        sweeper(sigma, lf, E, seed=seed, n_sweeps=sweeps % step,
+        sweeper(*tensors, seed=seed, n_sweeps=sweeps % step,
                 sweep0=n_ckpt * step)
-    set_route("kernel-sk-sweep",
-              impl="cuda" if sigma.device.type == "cuda" else "plain")
+    set_route(route, impl="cuda" if sigma.device.type == "cuda" else "plain")
+    return physical_series(Es, sigma.shape[0], sigma.device)
+
+
+def _run_kernel(model, beta, sweeps, step, state):
+    """The dense sweep kernel from `state`; `accepted` is left as it was."""
+    sigma, E = state.sigma.clone(), state.E.clone()
+    lf = model.local_fields(sigma).contiguous()
+    Es = _run_sweeps(model, _sweeper(model, beta), (sigma, lf, E), sweeps,
+                     step, kernel_seed(state.generator), "kernel-sk-sweep")
     state = MCState(sigma=sigma, aux=lf, E=E,
                     accepted=state.accepted.clone(),
                     generator=state.generator)
-    return physical_series(Es, sigma.shape[0], sigma.device), state
+    return Es, state
 
 
 def _commit(J, rows, delta):
@@ -145,3 +156,40 @@ def sweepMC_dense(model: FullyConnected, beta: float, sweeps: int, *,
     if backend == "kernel":
         return _run_kernel(model, float(beta), sweeps, step, state)
     return _run_delayed(model, float(beta), sweeps, step, state, window)
+
+
+def sweepMC_quant(model, beta: float, sweeps: int, *, step: int = 1,
+                  chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
+                  state: Optional[MCState] = None, device=None):
+    """Sequential Metropolis sweeps on a GraphQuant / GraphRobustEnsemble
+    composite over a FullyConnected base (integer |J| <= 127 or float
+    couplings): the Metropolis engine of the paper's QIsing / REIsing
+    runs. One sweep is N = Nk * M attempted flips per chain, in order.
+    Returns (Es [chains, sweeps // step] physical energies, final MCState);
+    `accepted` gains the accepted flips.
+
+    Runs on the replica sweep kernel only (ops/replica_sweep.py: the CUDA
+    kernel for a CUDA state, its plain version on the CPU), one launch per
+    checkpoint (and one for a remainder of sweeps), the base fields carried
+    across launches and one Philox stream continued; an ineligible model
+    raises ValueError."""
+    from ..ops.replica import replica_state
+    from ..ops.replica_sweep import ReplicaSweeper
+
+    # the tables are built anew on each call: nothing is keyed on the
+    # identity of the base's tensors
+    sweeper = ReplicaSweeper(model, float(beta))
+    if state is None:
+        state = init_state(model, chains, seed, C0, device=device)
+    sigma = state.sigma.clone()
+    lf, E = replica_state(model, sigma, state.E)
+    acc = state.accepted.clone()
+    Es = _run_sweeps(model, sweeper, (sigma, lf, E, acc), sweeps, step,
+                     kernel_seed(state.generator), "kernel-replica-sweep")
+    state = MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
+                    accepted=acc, generator=state.generator)
+    return Es, state
+
+
+#: the same entry point covers GraphRobustEnsemble composites
+sweepMC_replica = sweepMC_quant

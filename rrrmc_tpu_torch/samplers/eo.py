@@ -35,7 +35,7 @@ from ..ops import prng
 from ..ops.eo import eo_draws, select_rank_with_ties, sort_key
 from .common import (DEFAULT_SEED, MCState, init_state, kernel_seed,
                      set_route, working_copy)
-from .families import ELIGIBLE, family_of
+from .families import ELIGIBLE, family_of, resident_state
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -66,17 +66,18 @@ def eo_kernel_route(model) -> Optional[str]:
     FullyConnected model, "sparse" for a Pairwise one, lattices included,
     "pspin" for a PSpin3, "sat" for a SATModel), else None: the JAX
     package's `pallas_eo_eligible` without its TPU size caps and
-    chain-block rule (the shared-memory limit is checked at launch)."""
+    chain-block rule (the shared-memory limit is checked at launch). A
+    family without an EO kernel (the replica composites) gives None: such a
+    model takes the torch route."""
     fam = family_of(model)
-    return None if fam is None else fam.name
+    return None if fam is None or fam.eo is None else fam.name
 
 
 def _eo_kernel(model, cdf, state: MCState, iters: int):
     fam = family_of(model)
     seed = kernel_seed(state.generator)
     sigma = state.sigma.clone()
-    lf = model.init_aux(sigma).contiguous()
-    E = state.E.to(lf.dtype).clone()
+    lf, E = resident_state(fam, model, sigma, state.E)
     emin, smin = E.clone(), sigma.clone()
     itmin = torch.zeros(E.shape, dtype=torch.int32, device=E.device)
     fam.eo(sigma, lf, E, emin, smin, itmin, *fam.tables(model), cdf,

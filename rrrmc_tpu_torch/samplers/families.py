@@ -2,10 +2,13 @@
 (samplers/bkl.py: bklMC, wtmMC, rrrMC) and extremal_opt (samplers/eo.py)
 take the first family whose eligibility rule holds for the model.
 
-Every race wrapper takes the model's resident state (model.init_aux(sigma),
-updated in place), `beta_s = beta * model.scale`, and the model's tables as
-`tables(model)` gives them; every EO wrapper takes the same state and tables
-and the rank table, plus `eo_kw(model)`.
+Every race wrapper takes the model's resident state and E as
+`state(model, sigma, E)` gives them (model.init_aux(sigma), updated in
+place, and E in its dtype; the replica composites keep their base fields and
+float32 physical energies), `beta_s = beta * model.scale`, and the model's
+tables as `tables(model)` gives them; every EO wrapper takes the same state
+and tables and the rank table, plus `eo_kw(model)`. A family without an EO
+kernel (the replica composites, in either package) has `eo` None.
 """
 
 from __future__ import annotations
@@ -24,12 +27,16 @@ from ..ops.pspin import pspin_rejfree_ok, rejfree_pspin_chunk
 from ..ops.rejfree import rejfree_sparse_chunk, sparse_rejfree_ok
 from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
                                  rejfree_dense_chunk)
+from ..ops.replica import (rejfree_replica_chunk, replica_dense_ok,
+                           replica_sparse_ok, replica_state, replica_tables)
 from ..ops.sat import rejfree_sat_chunk, sat_rejfree_ok, sat_tables
 
 #: the models the kernels take, as the samplers' errors state it
 ELIGIBLE = ("a Pairwise model with N >= 8, a FullyConnected one with N >= 8 "
-            "and integer |J| <= 127 or float J, a PSpin3 with N >= 9, or a "
-            "SATModel with N >= 8 whose clauses hold distinct variables")
+            "and integer |J| <= 127 or float J, a PSpin3 with N >= 9, a "
+            "SATModel with N >= 8 whose clauses hold distinct variables, or "
+            "a GraphQuant / GraphRobustEnsemble composite over such a "
+            "Pairwise or FullyConnected base")
 
 
 class Family(NamedTuple):
@@ -41,15 +48,23 @@ class Family(NamedTuple):
     configuration, None for float keys (it sizes the select's histogram:
     the pairwise EO wrappers take it as half_max, the hypergraph ones read
     it off their tables), and the resident fields one applied flip
-    updates."""
+    updates; and the kernels' resident state (`aux_state` when None)."""
     name: str
     eligible: Callable
     race: Callable
-    eo: Callable
+    eo: Optional[Callable]
     tables: Callable
     eo_kw: Callable
     key_max: Callable
     flip_sites: Callable
+    state: Optional[Callable] = None
+
+
+def aux_state(model, sigma, E):
+    """The resident state of the pairwise and hypergraph kernels: the
+    model's aux, and a copy of E in its dtype."""
+    lf = model.init_aux(sigma).contiguous()
+    return lf, E.to(lf.dtype).clone()
 
 
 def half_bound(model) -> Optional[int]:
@@ -89,9 +104,22 @@ FAMILIES = (
     # each of the winner's Cmax clauses
     Family("sat", sat_rejfree_ok, rejfree_sat_chunk, eo_sat_chunk,
            sat_tables, _no_kw, lambda m: m.Cmax, lambda m: m.Cmax * m.K),
+    # the replica composites: no EO kernel; a flip moves the Nk fields of
+    # the dense base row, or the K of the sparse one, in the mover's replica
+    Family("replica-dense", replica_dense_ok, rejfree_replica_chunk, None,
+           replica_tables, _no_kw, lambda m: None, lambda m: m.Nk,
+           replica_state),
+    Family("replica-sparse", replica_sparse_ok, rejfree_replica_chunk, None,
+           replica_tables, _no_kw, lambda m: None,
+           lambda m: m.resid_m.base.K, replica_state),
 )
 
 
 def family_of(model) -> Optional[Family]:
     """The first family whose kernels take `model`, or None."""
     return next((f for f in FAMILIES if f.eligible(model)), None)
+
+
+def resident_state(fam: Family, model, sigma, E):
+    """(resident state, E) of `model` as the family's kernels take them."""
+    return (fam.state or aux_state)(model, sigma, E)

@@ -30,7 +30,9 @@ def rrrMC(model: Model, beta: float, iters: int, *, step: int = 1,
           backend: str = "auto", chunk_moves: int = 1024, device=None):
     """Reduced-rejection-rate MC, called as bklMC (`iters` counts moves).
     Returns (Es [chains, iters // step], final MCState). Kernel route only,
-    as bklMC; a Double model raises NotImplementedError."""
+    as bklMC. On a GraphQuant / GraphRobustEnsemble composite the kernel
+    runs the SingleGraph rrr law on the flat composite (ops/replica.py); any
+    other Double model raises NotImplementedError."""
     if not math.isfinite(beta):
         raise ValueError(f"beta must be finite, given: {beta}")
     require_kernel_route("rrrMC", model, backend=backend, hook=hook,

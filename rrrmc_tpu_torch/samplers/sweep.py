@@ -23,6 +23,15 @@ A FullyConnected model is routed by structure, as in the JAX package: the
 dense sweep kernel when it is eligible (samplers/dense_sweep.py, backend
 "kernel"); else the delayed-update torch route when some spin has more than
 32 couplings; else route (c) on the colouring of J's sparsity pattern.
+
+A GraphQuant / GraphRobustEnsemble composite over a sparse Pairwise base
+takes the composite colour-mask sweep (the JAX package's plain-XLA route, in
+plain torch): masks of one replica slot times one colour class of the base,
+so no mask holds two interacting spins (the ring and the star couple only
+the replicas of one site, the base only the spins of one replica); route
+(c) then decides all members of a mask at once on the composite's
+`delta_all`.
+Composites over a dense base take `sweepMC_quant` (dense_sweep.py).
 """
 
 from __future__ import annotations
@@ -84,6 +93,29 @@ def _masks(colors: np.ndarray, device) -> torch.Tensor:
                            device=device)
 
 
+def composite_masks(model):
+    """[C * M, N] independent-set masks of a GraphQuant /
+    GraphRobustEnsemble composite over a sparse Pairwise base (one replica
+    slot times one colour class of the base), on the base's device; None
+    for other models or a base whose greedy colouring needs more than 32
+    colours."""
+    from ..ops.replica import replica_base
+
+    base = replica_base(model)
+    if not isinstance(base, Pairwise):
+        return None
+    colors = greedy_coloring(base.neigh.cpu().numpy(), base.N)
+    ncol = int(colors.max()) + 1
+    if ncol > 32:
+        return None
+    Nk, M = model.Nk, model.M
+    masks = np.zeros((ncol * M, Nk * M), dtype=bool)
+    for k in range(M):
+        for c in range(ncol):
+            masks[k * ncol + c, k * Nk:(k + 1) * Nk] = colors == c
+    return torch.as_tensor(masks, device=base.device)
+
+
 def _impl(t: torch.Tensor) -> str:
     return "cuda" if t.device.type == "cuda" else "plain"
 
@@ -143,30 +175,31 @@ def _run_site_sweep(model, beta, n_ckpt, step, state):
 
 
 def _run_color_masks(model, beta, n_ckpt, step, state, masks=None):
-    """Route (c): the colour-mask sweep in plain torch, uniforms from the
-    state's generator."""
+    """Route (c), and the composites' mask sweep: the colour-mask sweep in
+    plain torch on the model's delta_all, uniforms from the state's
+    generator."""
     if masks is None:
         masks = (model.sweep_masks() if hasattr(model, "sweep_masks")
                  else color_masks(model))
     st = working_copy(state)
     sigma, E, gen = st.sigma, st.E, st.generator
-    lf = model.local_fields(sigma)
+    aux = model.init_aux(sigma)
     zero = torch.zeros((), dtype=E.dtype, device=E.device)
     Es = []
     for _ in range(n_ckpt):
         for _ in range(step):
             for mask in masks:
-                dE = 2 * sigma.to(lf.dtype) * lf
+                dE = model.delta_all(sigma, aux)
                 x = -beta * model.to_physical(dE)
                 u = torch.rand(sigma.shape, generator=gen,
                                device=sigma.device)
                 acc = mask & ((x >= 0) | (u < torch.exp(x.clamp(max=0.0))))
                 sigma = torch.where(acc, -sigma, sigma)
                 E = E + torch.where(acc, dE, zero).sum(dim=1, dtype=E.dtype)
-                lf = model.local_fields(sigma)
+                aux = model.init_aux(sigma)
         Es.append(model.to_physical(E))
     set_route("torch", impl="torch", n_masks=int(masks.shape[0]))
-    state = MCState(sigma=sigma, aux=lf, E=E, accepted=st.accepted,
+    state = MCState(sigma=sigma, aux=aux, E=E, accepted=st.accepted,
                     generator=gen)
     return physical_series(Es, sigma.shape[0], sigma.device), state
 
@@ -189,17 +222,32 @@ def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
     module docstring). "kernel": route (a) or (b), raising when neither
     takes the model. "torch": route (c). A FullyConnected model takes the
     dense routes of the module docstring ("kernel": the dense sweep kernel
-    or raise; "torch": never the kernel)."""
+    or raise; "torch": never the kernel). A GraphQuant /
+    GraphRobustEnsemble composite over a sparse base takes route (c) on
+    its replica-slot x colour masks ("kernel" raises)."""
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if isinstance(model, FullyConnected):
         return _sweep_dense(model, beta, sweeps, step, chains, seed, C0,
                             state, backend, device)
     if not isinstance(model, Pairwise):
-        raise NotImplementedError(
-            f"sweepMC on {type(model).__name__}: only Pairwise and "
-            f"FullyConnected models are ported; the replica composites are "
-            f"ROADMAP.md queue 1, item 10")
+        masks = composite_masks(model)
+        if masks is None:
+            raise NotImplementedError(
+                f"sweepMC on {type(model).__name__}: the ported routes take "
+                f"Pairwise and FullyConnected models and GraphQuant / "
+                f"GraphRobustEnsemble composites over a sparse Pairwise "
+                f"base (composites over a dense base: sweepMC_quant); the "
+                f"other composites are ROADMAP.md queue 1, item 10")
+        if backend == "kernel":
+            raise NotImplementedError(
+                "sweepMC(backend='kernel'): no sweep kernel takes a "
+                "composite over a sparse base (the JAX package runs it as "
+                "plain XLA)")
+        if state is None:
+            state = init_state(model, chains, seed, C0, device=device)
+        return _run_color_masks(model, float(beta), sweeps // step, step,
+                                state, masks=masks)
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
     beta = float(beta)

@@ -159,7 +159,19 @@ DEFAULT_BUILDERS = {
     "GraphEA": lambda: pt.GraphEA(4, 2, seed=1),
     "make_pairwise": lambda: pt.make_pairwise([[1], [0]], [[1.0], [1.0]], 2),
     "init_state": lambda: pt.init_state(pt.GraphSK(8, seed=1, **CPU), 2),
+    "GraphQSKT": lambda: pt.GraphQSKT(8, 3, 0.5, 1.0, seed=1),
+    "GraphSKRE": lambda: pt.GraphSKRE(8, 3, 1.0, 1.0, seed=1),
+    "GraphQEAT": lambda: pt.GraphQEAT(3, 2, 3, 0.5, 1.0, seed=1),
+    "GraphRRGNormalDiscretized": lambda: pt.GraphRRGNormalDiscretized(
+        8, 3, (-1, 1), seed=1),
 }
+
+
+def _table(model):
+    """A coupling table of a model, or of a composite's parts."""
+    if hasattr(model, "J"):
+        return model.J
+    return getattr(model.resid_m, "base", model.resid_m).J
 
 
 @pytest.mark.parametrize("name", list(DEFAULT_BUILDERS))
@@ -173,7 +185,7 @@ def test_builders_default_to_the_card(name):
             build()
         return
     out = build()
-    t = out.sigma if name == "init_state" else out.J
+    t = out.sigma if name == "init_state" else _table(out)
     assert t.device.type == "cuda"
 
 

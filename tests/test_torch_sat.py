@@ -306,3 +306,29 @@ def test_race_samples_boltzmann(mode):
     sem = Es.mean(axis=1).std() / np.sqrt(Es.shape[0])
     want = _boltzmann_mean(m, 1.0)
     assert abs(got - want) < max(5 * sem, 0.05), (got, want, sem)
+
+
+def test_extremal_opt_emin_law_matches_jax():
+    """The distribution of the best energy Emin over chains and seeds: the
+    port's extremal_opt(backend="torch") against the JAX package's
+    extremal_opt on the CPU, on GraphSAT(120, 3, 4.2) with 64 chains, 500
+    moves and two seeds each (128 Emin values a side; the two draw from
+    different generators, so only the laws can agree). The means lie
+    within 4 standard errors of their difference and the largest gap of the
+    two empirical distribution functions is below 0.25 (the two-sample
+    Kolmogorov-Smirnov bound at p ~ 1e-3 for 128 + 128 samples)."""
+    jm = rt.GraphSAT(120, 3, 4.2, seed=3)
+    pm = port_sat(jm)
+    kw = dict(chains=64)
+    pe = np.concatenate([pt.extremal_opt(
+        pm, 1.4, 500, seed=s, backend="torch", **kw, **CPU).Emin.numpy()
+        for s in (0, 1)]).astype(np.float64)
+    je = np.concatenate([np.asarray(rt.extremal_opt(
+        jm, 1.4, 500, seed=s, **kw).Emin) for s in (0, 1)]).astype(
+            np.float64)
+    se = np.sqrt(pe.var() / pe.size + je.var() / je.size)
+    assert abs(pe.mean() - je.mean()) <= 4 * se, (pe.mean(), je.mean(), se)
+    lv = np.union1d(pe, je)
+    cdf = [np.searchsorted(np.sort(x), lv, side="right") / x.size
+           for x in (pe, je)]
+    assert np.abs(cdf[0] - cdf[1]).max() < 0.25

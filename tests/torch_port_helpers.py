@@ -53,6 +53,23 @@ def port_sat(jm):
                               device="cpu")
 
 
+def port_composite(jm):
+    """The port's composite over the JAX base's exact tables."""
+    jb = jm.resid_m.base
+    if hasattr(jb, "neigh"):
+        base = port_model(jb)
+    else:
+        base = pt.fully_connected_from_arrays(np.asarray(jm.resid_m.base.J),
+                                              np.asarray(jb.h),
+                                              scale=jb.scale, **CPU)
+    if type(jm).__name__ == "QuantModel":
+        return pt.replica_from_arrays("quant", base, M=jm.M,
+                                      coupling=jm.Gamma, beta=jm.beta)
+    return pt.replica_from_arrays("re", base, M=jm.M,
+                                  coupling=jm.inner_m.gamma,
+                                  beta=jm.inner_m.beta_p)
+
+
 def random_sigma(rng: np.random.Generator, B: int, N: int) -> np.ndarray:
     return (rng.integers(0, 2, (B, N)) * 2 - 1).astype(np.int8)
 
