@@ -65,13 +65,25 @@ Phases, any failure exits non-zero:
      REPLICA_RTOL; Quant and RE over GraphRRG(1000, 3), M=8, through
      rrrMC and bklMC and the float bases GraphQSKNormalT(1024, 16) and
      GraphQEAT(8, 3, M=8) through bklMC, 128 chains.
+   - perceptrons (`perc_path`): scripts/bench_all.py's perc_comm_section,
+     GraphPercStep(1023, 511, seed=5), GraphPercLinear and
+     GraphPercXEntr(1023, 511, 1.0, seed=5), built with no device
+     argument, 256 chains at beta=1: bklMC and rrrMC on each, wtmMC on
+     step, extremal_opt(tau=1.4) with 20 000 moves on step and xentr, the
+     Metropolis row standardMC(backend="torch") (no kernel); then, after
+     the path's launch counts are read (the law check's runs are counted
+     in their own records), a law check: bklMC's time-averaged E on
+     GraphPercStep, GraphPercLinear and GraphPercXEntr(15, 9) must equal
+     the exact Boltzmann mean of the 2^15 states within max(5 standard
+     errors, 0.05).
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
    couplings, within 1e-4 * max(1, |E|) for the replica composites'
-   float32 physical energies); for EO, E and Emin equal the energies of
-   sigma and sigma_min (exactly for integer couplings, within 1e-4 * N for
-   float ones) and itmin lies in [0, moves].
+   float32 physical energies and the xentr perceptron's float32 E); for
+   EO, E and Emin equal the energies of sigma and sigma_min (exactly for
+   integer couplings, within 1e-4 * N for float ones, 1e-4 * max(1, |E|)
+   for xentr) and itmin lies in [0, moves].
 
 The replica phases of 2 are the composite race kernel on GraphQSKT(1024,
 16) (bkl, wtm, rrr), GraphSKRE(1024, 5) (rrr) and GraphQSKNormalT(1024, 16)
@@ -82,6 +94,22 @@ on GraphQSKT(1024, 16), GraphSKRE(1024, 5) and GraphQSKNormalT(1024, 16).
 Integer bases must agree bit for bit, E and z/N included. Then the
 refusals: a composite above shared memory, a sparse base under
 sweepMC_quant and a Double under bklMC each raise.
+
+The perceptron phases of 2 are the perceptron race kernel in bkl, wtm and
+rrr mode and the perceptron EO kernel (EO_CMP_MOVES moves; the histogram
+select of 1023 bins for step and linear, the radix select for xentr) on
+the three perceptrons of the path, 256 chains at beta=1: one 1024-move
+chunk for step bkl (the row's case), CMP_MOVES moves for the others. Step
+and linear must agree bit for bit, stabilities, E and z/N included. The
+plain version of xentr computes g with torch's exp and log1p and adds the
+product in the kernel's order, so it agrees bit for bit too on this card;
+it is held to `_compare`'s float rule (at most one diverged chain, E within
+1e-5 * N, z/N and the wtm clock within rtol 1e-4). `_ops_perc` counts the
+bound's operations: the g pass, the full product xi^T g (2 N P a move,
+twice for rrr; at the int8 tensor-core rate for step and linear, whose
+operands fit int8, as the TPU kernel ran it on its MXU; xentr's float32
+product at the float32 rate), the race or select passes and the P-entry
+stability update.
 
 The dense-model phases of 2 are the dense sweep kernel on GraphSK(1024)
 with 8192 chains (3 sweeps) and GraphSK(8192) with 2048 chains (1 sweep),
@@ -209,6 +237,18 @@ REPLICA_RTOL = 0.01
 #: sweeps per replica sweep comparison (the plain version takes seconds per
 #: sweep at these shapes)
 REPLICA_CMP_SWEEPS = 1
+#: the perceptron path: scripts/bench_all.py's perc_comm_section (the
+#: step, linear and xentr perceptrons at N = 1023, P = 511, seed 5, xentr
+#: lambda = 1; 256 chains at beta = 1), the race samplers' and standardMC's
+#: run lengths, the EO moves, and the law check's instances (N = 15, P = 9,
+#: seed 11: 2^15 states enumerated) and run length
+PERC_N, PERC_P, PERC_SEED, PERC_LAM = 1023, 511, 5, 1.0
+PERC_CHAINS, PERC_BETA = 256, 1.0
+PERC_ITERS_BKL, PERC_ITERS_RRR, PERC_WTM_SAMPLES = 100_000, 20_000, 50
+PERC_ITERS_MET, PERC_EO_MOVES = 5_000, 20_000
+PERC_LAW_N, PERC_LAW_P, PERC_LAW_SEED, PERC_LAW_ITERS = 15, 9, 11, 40_000
+PERC_NAMES = {"step": "GraphPercStep", "linear": "GraphPercLinear",
+              "xentr": "GraphPercXEntr"}
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 #: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
@@ -254,6 +294,10 @@ ENTRIES = {
     "rejfree_replica_sparse": ("rrrmc_tpu/ops/quant_pallas.py:752",
                                "rejfree_replica.cu",
                                "rejfree_replica_kernel"),
+    "rejfree_perc": ("rrrmc_tpu/ops/perc_pallas.py:138", "rejfree_perc.cu",
+                     "rejfree_perc_kernel"),
+    "eo_perc": ("rrrmc_tpu/ops/perc_pallas.py:404", "eo_perc.cu",
+                "eo_perc_kernel"),
 }
 #: the H100 SXM's published device-memory rate, float32 rate outside the
 #: tensor cores, and int8 tensor-core rate (dense)
@@ -297,6 +341,28 @@ def _ops_eo(N, moves, flip_sites, bins):
     select = bins if bins else 4 * 4 * N
     flip = flip_sites * (4 if bins else 2)
     return moves * (2 * PHILOX_OPS + 3 * N + select + flip)
+
+
+def _ops_perc(N, P, moves, mode, xentr, bins=0):
+    """(ops, int8_ops) of perceptron moves, per chain and move: the g pass
+    over the P patterns (4 operations each; xentr 22: three softplus of 6
+    and 4 more), the full product xi^T g, 2 N P, and dE from it (2 per
+    site), all twice for rrr, whose z' needs dE at the flipped state too;
+    the P-entry stability update (2 each); then the race's pass over the N
+    sites as `_ops_race` counts it, or for mode "eo" the EO select and tie
+    race as `_ops_eo` counts them (`bins` of the histogram, refilled every
+    move: a pass over the N keys besides; 0 for the radix select). The TPU
+    kernel ran the product on its MXU; for step and linear (xi = +-1, g in
+    [-2, 2]) it goes in `int8_ops`, xentr's float32 product in `ops`."""
+    evals = 2 if mode == "rrr" else 1
+    product = moves * evals * 2 * N * P
+    per = evals * ((22 if xentr else 4) * P + 2 * N) + 2 * P
+    if mode == "eo":
+        ops = _ops_eo(N, moves, 0, bins) + moves * (
+            per + (N + bins if bins else 0))
+    else:
+        ops = _ops_race(N, moves, 0, mode, 0) + moves * per
+    return (ops + product, 0.0) if xentr else (ops, product)
 
 
 def _nbytes(*tensors) -> int:
@@ -477,10 +543,11 @@ def sweep_case(model, label, B, card):
 
 
 def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
-                 B=CHAINS, beta=BETA, n_moves=RACE_MOVES):
+                 B=CHAINS, beta=BETA, n_moves=RACE_MOVES, ops=None):
     """A race kernel against its plain version for one chunk of n_moves
     moves of B chains: the kernel of the model's family
-    (samplers/families.py)."""
+    (samplers/families.py). `ops(moves, applied)` gives the bound's
+    operations as `bound`'s (ops, int8_ops) (`_ops_race` by default)."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree
@@ -532,7 +599,8 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     moves = float(k["coord"].double().sum()) if mode == "rrr" else applied
     bound_ms, bound_by = bound(
         2 * _nbytes(*base.values()) + _nbytes(*tables, k["cs"], k["es"]),
-        _ops_race(model.N, moves, applied, mode, fam.flip_sites(model)))
+        *(ops(moves, applied) if ops else
+          (_ops_race(model.N, moves, applied, mode, fam.flip_sites(model)),)))
     print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
@@ -598,26 +666,26 @@ def sk_case(model, label, B, n_sweeps, card, kernel):
             "max_abs_err": 0.0}
 
 
-def eo_case(model, label, B, card, kernel):
+def eo_case(model, label, B, card, kernel, ops=None):
     """An EO kernel against its plain version: EO_CMP_MOVES tau-EO moves of
     B chains from one random start, one Philox seed, the sampler's select
     (the histogram for integer keys, the radix select for float ones).
     Spins and best spins, itmin, E and Emin and the local fields are held
     to `_compare`'s rule; the same moves split over two launches (move0)
-    must equal the one launch."""
+    must equal the one launch. `ops(moves, bins)` gives the bound's
+    operations as `bound`'s (ops, int8_ops) (`_ops_eo` by default)."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import eo
     from rrrmc_tpu_torch.samplers.eo import rank_table
-    from rrrmc_tpu_torch.samplers.families import family_of
+    from rrrmc_tpu_torch.samplers.families import family_of, resident_state
 
     fam = family_of(model)
     chunk, ref, tables = fam.eo, _reference(fam.eo), fam.tables(model)
     kw = fam.eo_kw(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     integer = not st.E.dtype.is_floating_point
-    lf0 = model.init_aux(st.sigma).contiguous()
-    E0 = st.E.to(lf0.dtype)
+    lf0, E0 = resident_state(fam, model, st.sigma, st.E)
     cdf = rank_table(model.N, EO_TAU, DEV)
 
     def fresh():
@@ -654,7 +722,9 @@ def eo_case(model, label, B, card, kernel):
     bins = eo.hist_bins(integer, fam.key_max(model))
     bound_ms, bound_by = bound(
         2 * _nbytes(*fresh()) + _nbytes(*tables, cdf),
-        _ops_eo(model.N, B * EO_CMP_MOVES, fam.flip_sites(model), bins))
+        *(ops(B * EO_CMP_MOVES, bins) if ops else
+          (_ops_eo(model.N, B * EO_CMP_MOVES, fam.flip_sites(model),
+                   bins),)))
     print(f"{kernel} {label} B={B} moves={EO_CMP_MOVES} select="
           f"{f'histogram of {bins} bins' if bins else 'radix'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
@@ -858,9 +928,11 @@ def _drive(runs, card, mods):
                 f"{name}: series {tuple(Es.shape)}, finite "
                 f"{bool(torch.isfinite(Es).all())}")
         E_re = model.energy(st.sigma)
-        if hasattr(model, "resid_m"):
-            # a replica composite's float32 physical E: the JAX package's
-            # check, 1e-4 * max(1, |E|)
+        if hasattr(model, "resid_m") or (hasattr(model, "loss_table")
+                                         and E_re.dtype.is_floating_point):
+            # a replica composite's float32 physical E, or the xentr
+            # perceptron's float32 E: the JAX package's check,
+            # 1e-4 * max(1, |E|)
             err = float((E_re.double() - st.E.double()).abs().max())
             require(err <= 1e-4 * max(1.0, float(E_re.abs().max())),
                     f"{name}: |E - energy| = {err}")
@@ -1087,8 +1159,11 @@ def _eo_run(name, model, route, chains, moves, seed, launches, card):
                    - e.double()).abs().max())
             for s, e in ((r.sigma, r.E), (r.sigma_min, r.Emin))]
     if model.energy(r.sigma).dtype.is_floating_point:
-        require(max(errs) <= 1e-4 * model.N,
-                f"EO {name}: |E - energy| {errs}")
+        # float32 E: within 1e-4 per spin, and for the xentr perceptron,
+        # whose E is of order P, 1e-4 * max(1, |E|)
+        tol = (1e-4 * max(1.0, float(r.E.abs().max()))
+               if hasattr(model, "loss_table") else 1e-4 * model.N)
+        require(max(errs) <= tol, f"EO {name}: |E - energy| {errs}")
     else:
         require(max(errs) == 0.0, f"EO {name}: E != energy, {errs}")
     require(bool(((r.itmin >= 0) & (r.itmin <= moves)).all())
@@ -1271,6 +1346,127 @@ def sat_path(card, sat):
             <= SAT_EO_RTOL * row["mean_best_E"],
             f"EO SAT: mean best E {mean_best} against {row['mean_best_E']}")
     return records + [rec], {**counts, "eo_sat": eo_sat.LAUNCHES}
+
+
+def _perc_law(card, beta=PERC_BETA):
+    """The law check on the card: bklMC at beta on GraphPercStep,
+    GraphPercLinear and GraphPercXEntr(PERC_LAW_N, PERC_LAW_P), whose
+    time-averaged E (the last three quarters of the checkpoints) must equal
+    the exact Boltzmann mean over the 2^N states within max(5 standard
+    errors, 0.05), the JAX package's rule (tests/test_perc_pallas.py).
+    Each record carries the race launches of its own run."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import perc
+
+    n = PERC_LAW_N
+    states = 2 * ((torch.arange(2 ** n, device=DEV)[:, None]
+                   >> torch.arange(n, device=DEV)) & 1).to(torch.int8) - 1
+    out = []
+    for name, model in (
+            ("GraphPercStep", rt.GraphPercStep(n, PERC_LAW_P,
+                                               seed=PERC_LAW_SEED)),
+            ("GraphPercLinear", rt.GraphPercLinear(n, PERC_LAW_P,
+                                                   seed=PERC_LAW_SEED)),
+            ("GraphPercXEntr", rt.GraphPercXEntr(n, PERC_LAW_P, PERC_LAM,
+                                                 seed=PERC_LAW_SEED))):
+        E = model.to_physical(model.energy(states)).double()
+        w = torch.exp(-beta * (E - E.min()))
+        exact = float((w * E).sum() / w.sum())
+        launches0 = perc.LAUNCHES
+        Es, _ = rt.bklMC(model, beta, PERC_LAW_ITERS,
+                         step=PERC_LAW_ITERS // 200, chains=PERC_CHAINS,
+                         seed=71)
+        require(rt.LAST_ROUTE["backend"] == "kernel-rejfree-perc"
+                and rt.LAST_ROUTE["impl"] == "cuda",
+                f"perceptron law {name}: route {rt.LAST_ROUTE}")
+        tail = Es[:, Es.shape[1] // 4:].double()
+        got = float(tail.mean())
+        sem = float(tail.std()) / (tail.shape[0] * 3.0) ** 0.5
+        print(f"bklMC law {name}({n}, {PERC_LAW_P}) beta={beta}: "
+              f"mean E {got:.5f}, exact {exact:.5f}, standard error "
+              f"{sem:.5f}  [{card}]")
+        require(abs(got - exact) < max(5 * sem, 0.05),
+                f"perceptron law {name}: {got} against {exact} ({sem})")
+        out.append({"run": f"bklMC law {name}({n}, {PERC_LAW_P})",
+                    "launches": perc.LAUNCHES - launches0,
+                    "mean_E": got, "exact_E": exact, "sem": sem})
+    return out
+
+
+def perc_path(card, percs):
+    """The perceptron path through the public API (scripts/bench_all.py's
+    perc_comm_section, 256 chains at beta = 1) with every perceptron launch
+    count set to 0 just before it: per family bklMC and rrrMC, and wtmMC on
+    step (`_drive`: route, series, E == energy(sigma) exactly for step and
+    linear, within 1e-4 max(1, |E|) for xentr); extremal_opt(tau=1.4) on
+    step and xentr for PERC_EO_MOVES moves (`_eo_run`); the Metropolis row,
+    standardMC(backend="torch"), which runs no kernel. Then, after the
+    counts are read, the law check at toy size (`_perc_law`). Returns the
+    run records and the launches of both kernel entries on the path."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo_perc, perc
+
+    route, B, beta = "kernel-rejfree-perc", PERC_CHAINS, PERC_BETA
+    runs = []
+    for seed, (fam, m) in enumerate(percs.items()):
+        label = f"{PERC_NAMES[fam]}({PERC_N}, {PERC_P})"
+        runs += [
+            (f"bklMC {label} beta=1", m, route, perc, PERC_ITERS_BKL,
+             "virtual iterations", 10,
+             lambda m=m, seed=seed: rt.bklMC(
+                 m, beta, PERC_ITERS_BKL, step=PERC_ITERS_BKL // 10,
+                 chains=B, seed=81 + seed)),
+            (f"rrrMC {label} beta=1", m, route, perc, PERC_ITERS_RRR,
+             "moves", 10,
+             lambda m=m, seed=seed: rt.rrrMC(
+                 m, beta, PERC_ITERS_RRR, step=PERC_ITERS_RRR // 10,
+                 chains=B, seed=84 + seed))]
+    step = percs["step"]
+    runs.append((f"wtmMC GraphPercStep({PERC_N}, {PERC_P}) beta=1", step,
+                 route, perc, PERC_WTM_SAMPLES * step.N,
+                 "virtual iterations", PERC_WTM_SAMPLES,
+                 lambda: rt.wtmMC(step, beta, PERC_WTM_SAMPLES,
+                                  step=float(step.N), chains=B, seed=87)))
+    mods = {"rejfree_perc": perc, "eo_perc": eo_perc}
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    records, _ = _drive(runs, card, {"rejfree_perc": perc})
+    for seed, fam in enumerate(("step", "xentr")):
+        rec, _ = _eo_run(f"{PERC_NAMES[fam]}({PERC_N}, {PERC_P})", percs[fam],
+                         "kernel-eo-perc", B, PERC_EO_MOVES, 88 + seed,
+                         lambda: eo_perc.LAUNCHES, card)
+        records.append(rec)
+    # the Metropolis row: the generic torch route, no kernel
+    for fam, m in percs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Es, st = rt.standardMC(m, beta, PERC_ITERS_MET,
+                               step=PERC_ITERS_MET // 10, chains=B, seed=90)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(rt.LAST_ROUTE["backend"] == "torch"
+                and Es.shape == (B, 10) and bool(torch.isfinite(Es).all()),
+                f"standardMC {fam}: route {rt.LAST_ROUTE}, series "
+                f"{tuple(Es.shape)}")
+        err = float((m.energy(st.sigma).double() - st.E.double()).abs()
+                    .max())
+        require(err <= (1e-4 * max(1.0, float(st.E.abs().max()))
+                        if fam == "xentr" else 0.0),
+                f"standardMC {fam}: |E - energy| = {err}")
+        rate = PERC_ITERS_MET * B / dt
+        print(f"standardMC {PERC_NAMES[fam]}({PERC_N}, {PERC_P}) beta=1 "
+              f"(torch route): {rate:.4g} moves*chains/s ({dt:.2f} s), E/N "
+              f"{float(Es[:, -1].double().mean()) / m.N:.5f}  [{card}]")
+        records.append({"run": f"standardMC {PERC_NAMES[fam]}",
+                        "seconds": dt,
+                        "launches": 0, "chains": B, "rate": rate,
+                        "rate_unit": "moves*chains/s", "energy_err": err})
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    return records + _perc_law(card), launches
 
 
 def _paper_rows() -> dict:
@@ -1588,6 +1784,30 @@ def main() -> int:
                                     Q_BETA, card))
     replica_refusals(card)
 
+    # the perceptrons (scripts/bench_all.py's perc_comm_section), built with
+    # no device given: the card is the default
+    percs = {"step": rt.GraphPercStep(PERC_N, PERC_P, seed=PERC_SEED),
+             "linear": rt.GraphPercLinear(PERC_N, PERC_P, seed=PERC_SEED),
+             "xentr": rt.GraphPercXEntr(PERC_N, PERC_P, PERC_LAM,
+                                        seed=PERC_SEED)}
+    require(all(m.xi.device.type == "cuda" for m in percs.values()),
+            "the perceptron builders without a device are not on the card")
+    for fam, model in percs.items():
+        label = f"{PERC_NAMES[fam]}({PERC_N}, {PERC_P})"
+        xentr = fam == "xentr"
+        for mode in ("bkl", "wtm", "rrr"):
+            cases.append(rejfree_case(
+                model, label, mode, card, kernel="rejfree_perc",
+                B=PERC_CHAINS, beta=PERC_BETA,
+                n_moves=RACE_MOVES if fam == "step" and mode == "bkl"
+                else CMP_MOVES,
+                ops=lambda moves, applied, mode=mode, xentr=xentr: _ops_perc(
+                    PERC_N, PERC_P, moves, mode, xentr)))
+        cases.append(eo_case(
+            model, label, PERC_CHAINS, card, "eo_perc",
+            ops=lambda moves, bins, xentr=xentr: _ops_perc(
+                PERC_N, PERC_P, moves, "eo", xentr, bins)))
+
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
     sk_records, sk_counts, sk_launches = dense_path(card, sk1, sk8, skn,
@@ -1598,19 +1818,21 @@ def main() -> int:
     sat_records, sat_counts = sat_path(card, sat)
     rep_records, rep_counts, rep_launches = replica_path(
         card, qskt, skre, qrrg, rerrg, qnt, qeat)
+    perc_records, perc_counts = perc_path(card, percs)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
                                 "PSpin3": ps_counts, "K-SAT": sat_counts,
-                                "replica": rep_counts},
+                                "replica": rep_counts,
+                                "perceptron": perc_counts},
                       "runs": rrg_records + ea_records + sk_records
                       + eo_records + ps_records + sat_records
-                      + rep_records}))
+                      + rep_records + perc_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
                 "sweep_checkerboard": ea_counts["sweep_checkerboard"],
                 **sk_launches, **eo_launches, **ps_counts, **sat_counts,
-                **rep_launches}
+                **rep_launches, **perc_counts}
     regs = registers(build_log)
 
     kernels = []

@@ -7,10 +7,10 @@ random draws come from explicit generators (a `torch.Generator` on the host
 side, counter-based Philox inside the kernels). The single-site Metropolis,
 the checkerboard sweep of EA lattices, the dense (SK) sweep, the
 rejection-free race moves and the tau-EO moves (sparse, dense, and on the
-PSpin3 and K-SAT hypergraphs), and the race moves and sweeps of the replica
-composites (GraphQuant, GraphRobustEnsemble) run on hand-written CUDA
-kernels (csrc/) for a CUDA state and on their plain torch versions on the
-CPU. Names mirror the JAX package (rrrmc_tpu), which stays
+PSpin3 and K-SAT hypergraphs and on the perceptrons), and the race moves
+and sweeps of the replica composites (GraphQuant, GraphRobustEnsemble) run
+on hand-written CUDA kernels (csrc/) for a CUDA state and on their plain
+torch versions on the CPU. Names mirror the JAX package (rrrmc_tpu), which stays
 the reference. This package never imports JAX.
 """
 
@@ -22,6 +22,10 @@ from .models.dense import (FullyConnected, GraphSK, GraphSKNormal, densify,
                            make_fully_connected)
 from .models.pspin import PSpin3, GraphPSpin3
 from .models.sat import SATModel, GraphSAT, make_sat, export_cnf
+from .models.perceptron import (Perceptron, GraphPercStep, GraphPercLinear,
+                                GraphPercXEntr, GraphQPercStepT,
+                                GraphQPercLinearT, GraphPercStepRE,
+                                GraphPercLinearRE)
 from .models.composite import Double, Mixed, mixed
 from .models.replicas import (Replicated, GraphQT, four_K, transverse_mag,
                               QuantModel, GraphQuant, GraphRE, REModel,
@@ -46,8 +50,8 @@ from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
                               LAST_ROUTE)
 from .convert import (pairwise_from_arrays, lattice_from_arrays,
                       fully_connected_from_arrays, pspin_from_arrays,
-                      sat_from_arrays, replica_from_arrays,
-                      state_from_arrays)
+                      sat_from_arrays, perceptron_from_arrays,
+                      replica_from_arrays, state_from_arrays)
 from . import observables
 from . import analysis
 from . import experiments

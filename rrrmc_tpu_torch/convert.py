@@ -14,6 +14,7 @@ from .core.model import default_device
 from .models.dense import FullyConnected, dense_tensors
 from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
+from .models.perceptron import Perceptron
 from .models.pspin import PSpin3
 from .models.replicas import GraphQuant, GraphRobustEnsemble
 from .models.sat import SATModel, make_sat
@@ -90,6 +91,27 @@ def sat_from_arrays(N: int, A, L, device=None) -> SATModel:
     pads) and L [Mc, K] (literal signs), through `make_sat` (for example a
     JAX SATModel's `m.N`, `np.asarray(m.A)`, `np.asarray(m.L)`)."""
     return make_sat(int(N), np.asarray(A), np.asarray(L), device=device)
+
+
+def perceptron_from_arrays(xi, loss_table, *, N: int, P: int, scale: float,
+                           device=None) -> Perceptron:
+    """The port's Perceptron from patterns xi [P, N] (+-1, stored as int8)
+    and its loss table [N + 1] (for example a JAX Perceptron's
+    `np.asarray(m.xi)`, `np.asarray(m.loss_table)`, `m.N`, `m.P`,
+    `m.scale`): an integer table is stored as int32, a float one as
+    float32."""
+    xi = np.asarray(xi)
+    table = np.asarray(loss_table)
+    if xi.shape != (P, N) or table.shape != (N + 1,):
+        raise ValueError(f"expected xi {(P, N)} and loss_table {(N + 1,)}, "
+                         f"got {xi.shape}, {table.shape}")
+    if not np.isin(xi, (-1, 1)).all():
+        raise ValueError("patterns must be +-1")
+    dt = itype() if np.issubdtype(table.dtype, np.integer) else ftype()
+    device = default_device(device)
+    return Perceptron(xi=torch.tensor(xi.astype(np.int8), device=device),
+                      loss_table=torch.tensor(table, device=device).to(dt),
+                      N=int(N), P=int(P), scale=float(scale))
 
 
 def replica_from_arrays(kind: str, base, *, M: int, coupling: float,

@@ -76,6 +76,14 @@ _SIGNATURES = {
     "rrrmc_rejfree_replica_max_smem": (_I, [_I]),
     "rrrmc_replica_sweep": (_I, [_P] * 6 + [_I] * 4 + [_F, _U, _U, _U, _I,
                                                         _I, _P]),
+    "rrrmc_rejfree_perc": (_I, [_P] * 10 + [_I] * 5 + [_U, _U, _U, _F, _I,
+                                                       _F, _I, _I, _F, _P]),
+    "rrrmc_rejfree_perc_smem": (_Z, [_I, _I]),
+    "rrrmc_rejfree_perc_max_smem": (_I, [_I]),
+    "rrrmc_eo_perc": (_I, [_P] * 9 + [_I] * 5 + [_U, _U, _U, _I, _I, _F,
+                                                  _P]),
+    "rrrmc_eo_perc_smem": (_Z, [_I, _I, _I]),
+    "rrrmc_eo_perc_max_smem": (_I, [_I]),
 }
 
 _lib = None

@@ -16,7 +16,8 @@ reference's checkpoint drain loop.
 This port runs bkl, wtm and rrr on the race kernels only, one per model
 family (samplers/families.py): the sparse one (ops/rejfree.py) for Pairwise
 models, the dense one (ops/rejfree_dense.py) for FullyConnected models, the
-hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, and the
+hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, the
+perceptrons' (ops/perc.py) for PercStep, PercLinear and PercXEntr, and the
 replica composites' (ops/replica.py) for GraphQuant and GraphRobustEnsemble
 over a dense or sparse base; their generic torch paths, with hooks and
 observers, and every other composite (`Double`), are ROADMAP.md queue 1,
@@ -96,6 +97,8 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     tables = fam.tables(model)
     k = 0
     while bool(coord.min() < target):
+        if fam.resync is not None:
+            fam.resync(model, lf, E)
         x_start = coord.clone()
         e_start = model.to_physical(E)
         cs, es = fam.race(

@@ -13,8 +13,9 @@ Routes (`backend`):
 
 * "kernel": the EO kernels, ops/eo.py for sparse Pairwise models (EA
   lattices included), ops/eo_dense.py for FullyConnected ones,
-  ops/eo_pspin.py for PSpin3 and ops/eo_sat.py for K-SAT (one table of
-  the model families, samplers/families.py): the CUDA kernel for a CUDA
+  ops/eo_pspin.py for PSpin3, ops/eo_sat.py for K-SAT and ops/eo_perc.py
+  for the perceptrons (one table of the model families,
+  samplers/families.py): the CUDA kernel for a CUDA
   state, its plain version on the CPU, one launch per call;
 * "torch": the generic path on any model of the port, through
   `model.delta_all` and `model.flip`, drawing from the kernels' Philox
@@ -64,7 +65,8 @@ def rank_table(n: int, tau: float, device) -> torch.Tensor:
 def eo_kernel_route(model) -> Optional[str]:
     """The family of the EO kernel that takes `model` ("dense" for a
     FullyConnected model, "sparse" for a Pairwise one, lattices included,
-    "pspin" for a PSpin3, "sat" for a SATModel), else None: the JAX
+    "pspin" for a PSpin3, "sat" for a SATModel, "perc" for a Perceptron),
+    else None: the JAX
     package's `pallas_eo_eligible` without its TPU size caps and
     chain-block rule (the shared-memory limit is checked at launch). A
     family without an EO kernel (the replica composites) gives None: such a
@@ -125,7 +127,8 @@ def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
     model with N >= 8 whose couplings and fields are both integer or both
     finite floats; a FullyConnected one with integer |J| <= 127 or float J;
     a PSpin3 with N >= 9; a SATModel with N >= 8 whose clauses hold distinct
-    variables), raising for other models; "torch": the generic path on any
+    variables; a Perceptron with an odd N >= 9 and a step, linear or xentr
+    loss), raising for other models; "torch": the generic path on any
     model; "auto": "kernel" when the model is eligible, else "torch".
     `step` is unused, as in the JAX package (EO records no series);
     `block_chains`, the JAX package's TPU chain block, has no counterpart

@@ -8,7 +8,9 @@ place, and E in its dtype; the replica composites keep their base fields and
 float32 physical energies), `beta_s = beta * model.scale`, and the model's
 tables as `tables(model)` gives them; every EO wrapper takes the same state
 and tables and the rank table, plus `eo_kw(model)`. A family without an EO
-kernel (the replica composites, in either package) has `eo` None.
+kernel (the replica composites, in either package) has `eo` None. A family
+whose float32 running E drifts (the xentr perceptron) resyncs it from the
+resident state at every chunk boundary through `resync(model, state, E)`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from ..models.dense import FullyConnected
 from ..ops.eo import eo_sparse_chunk
 from ..ops.eo_dense import eo_dense_chunk
 from ..ops.eo_pspin import eo_pspin_chunk
+from ..ops.eo_perc import eo_perc_chunk
 from ..ops.eo_sat import eo_sat_chunk
+from ..ops.perc import (perc_rejfree_ok, perc_resync, perc_state,
+                        perc_tables, rejfree_perc_chunk)
 from ..ops.pspin import pspin_rejfree_ok, rejfree_pspin_chunk
 from ..ops.rejfree import rejfree_sparse_chunk, sparse_rejfree_ok
 from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
@@ -34,9 +39,10 @@ from ..ops.sat import rejfree_sat_chunk, sat_rejfree_ok, sat_tables
 #: the models the kernels take, as the samplers' errors state it
 ELIGIBLE = ("a Pairwise model with N >= 8, a FullyConnected one with N >= 8 "
             "and integer |J| <= 127 or float J, a PSpin3 with N >= 9, a "
-            "SATModel with N >= 8 whose clauses hold distinct variables, or "
-            "a GraphQuant / GraphRobustEnsemble composite over such a "
-            "Pairwise or FullyConnected base")
+            "SATModel with N >= 8 whose clauses hold distinct variables, a "
+            "Perceptron with an odd N >= 9 and a step, linear or xentr "
+            "loss, or a GraphQuant / GraphRobustEnsemble composite over "
+            "such a Pairwise or FullyConnected base")
 
 
 class Family(NamedTuple):
@@ -48,7 +54,8 @@ class Family(NamedTuple):
     configuration, None for float keys (it sizes the select's histogram:
     the pairwise EO wrappers take it as half_max, the hypergraph ones read
     it off their tables), and the resident fields one applied flip
-    updates; and the kernels' resident state (`aux_state` when None)."""
+    updates; the kernels' resident state (`aux_state` when None); and
+    the resync of a drifting float32 E at chunk boundaries (None: none)."""
     name: str
     eligible: Callable
     race: Callable
@@ -58,6 +65,7 @@ class Family(NamedTuple):
     key_max: Callable
     flip_sites: Callable
     state: Optional[Callable] = None
+    resync: Optional[Callable] = None
 
 
 def aux_state(model, sigma, E):
@@ -104,6 +112,11 @@ FAMILIES = (
     # each of the winner's Cmax clauses
     Family("sat", sat_rejfree_ok, rejfree_sat_chunk, eo_sat_chunk,
            sat_tables, _no_kw, lambda m: m.Cmax, lambda m: m.Cmax * m.K),
+    # key dE_i, |dE_i| <= P (a flip moves each pattern's loss by at most
+    # one); a flip moves the P stabilities
+    Family("perc", perc_rejfree_ok, rejfree_perc_chunk, eo_perc_chunk,
+           perc_tables, _no_kw, lambda m: m.P, lambda m: m.P, perc_state,
+           perc_resync),
     # the replica composites: no EO kernel; a flip moves the Nk fields of
     # the dense base row, or the K of the sparse one, in the mover's replica
     Family("replica-dense", replica_dense_ok, rejfree_replica_chunk, None,

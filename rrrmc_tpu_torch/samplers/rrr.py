@@ -7,9 +7,10 @@ Per move, for single models (the reference's SingleGraph path):
    probability);
 3. accept with probability min(1, z / z').
 
-The race kernel (ops/rejfree.py, mode "rrr") picks i by an exponential race
-and evaluates the test in a shifted log domain, exact when every weight
-underflows float32. The reference's adaptive direct/staged switch
+The race kernel of the model's family (samplers/families.py: ops/rejfree.py
+for Pairwise models, ops/perc.py for the perceptrons, ..., mode "rrr")
+picks i by an exponential race and evaluates the test in a shifted log
+domain, exact when every weight underflows float32. The reference's adaptive direct/staged switch
 (`staged_thr`) selects between two implementations of this same Markov
 kernel; the race kernel needs neither, so the option is not ported.
 """

@@ -6,7 +6,9 @@ and the clocks are redrawn. Global time replaces the iteration counter;
 `step` is measured in global time scaled by 1/N (the reference's
 convention).
 
-The race kernel (ops/rejfree.py) redraws ALL clocks each move, which by
+The race kernel of the model's family (samplers/families.py: ops/rejfree.py
+for Pairwise models, ops/perc.py for the perceptrons, ...) redraws ALL
+clocks each move, which by
 exponential memorylessness is distributionally identical to the
 reference's neighbour-only redraw: the race scores are the redraw, and the
 clock advances by the winning time exp(min score).

@@ -53,6 +53,14 @@ def port_sat(jm):
                               device="cpu")
 
 
+def port_perceptron(jm):
+    """The port's Perceptron with the JAX model's patterns and loss table
+    (a float64 table of an x64 run is stored as float32)."""
+    return pt.perceptron_from_arrays(np.asarray(jm.xi),
+                                     np.asarray(jm.loss_table), N=jm.N,
+                                     P=jm.P, scale=jm.scale, device="cpu")
+
+
 def port_composite(jm):
     """The port's composite over the JAX base's exact tables."""
     jb = jm.resid_m.base
