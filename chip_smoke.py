@@ -542,12 +542,37 @@ def sweep_case(model, label, B, card):
             "diverged": 0, "max_abs_err": 0.0}
 
 
+def _fused():
+    """The wrappers of the fused race kernels (rejfree_sparse.cu with the
+    pairwise or the hypergraph flip, rejfree_replica.cu), whose block size
+    and resident type the launch rule picks (ops/rejfree.py::fused_plan)."""
+    from rrrmc_tpu_torch.ops import pspin, rejfree, replica
+
+    return (rejfree.rejfree_sparse_chunk, pspin.rejfree_pspin_chunk,
+            replica.rejfree_replica_chunk)
+
+
+def plan_text(plan) -> str:
+    """A fused launch's plan (ops/rejfree.py's LAST_PLAN) as printed."""
+    if not plan:
+        return ""
+    return (f" [T={plan['threads']}, {plan['field']} fields, "
+            f"{plan['blocks_per_sm']} blocks/SM, {plan['smem']} shared "
+            f"bytes, {plan['registers']} registers, {plan['spill_bytes']} "
+            f"local bytes]")
+
+
 def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
-                 B=CHAINS, beta=BETA, n_moves=RACE_MOVES, ops=None):
+                 B=CHAINS, beta=BETA, n_moves=RACE_MOVES, ops=None,
+                 sigma=None):
     """A race kernel against its plain version for one chunk of n_moves
     moves of B chains: the kernel of the model's family
     (samplers/families.py). `ops(moves, applied)` gives the bound's
-    operations as `bound`'s (ops, int8_ops) (`_ops_race` by default)."""
+    operations as `bound`'s (ops, int8_ops) (`_ops_race` by default). The
+    kernel takes the family's `race_kw` (a fused kernel's bound on its
+    resident fields), and a fused kernel's plain version the block size the
+    kernel ran with (the launch's plan, printed). `sigma` [B, N] replaces
+    the random start."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree
@@ -555,24 +580,28 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
 
     fam = family_of(model)
     chunk, ref = fam.race, _reference(fam.race)
+    fused = chunk in _fused()
     tables = fam.tables(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
+    sig0 = st.sigma if sigma is None else sigma
+    E0 = st.E if sigma is None else model.energy(sigma)
     ct = rejfree.coord_dtype(mode)
     z = dict(device=DEV)
-    base = dict(sigma=st.sigma.clone(), lf=model.init_aux(st.sigma),
-                E=st.E.clone(), coord=torch.zeros(B, dtype=ct, **z),
+    base = dict(sigma=sig0.clone(), lf=model.init_aux(sig0),
+                E=E0.clone(), coord=torch.zeros(B, dtype=ct, **z),
                 acc=torch.zeros(B, dtype=torch.int32, **z),
                 zacc=torch.zeros(B, dtype=torch.float32, **z))
     kw = dict(mode=mode, n_moves=n_moves, seed=SEED, move0=0, chain0=0,
               beta_s=beta * model.scale)
+    kernel_kw = fam.race_kw(model)
 
     def fresh():
         return {k: v.clone() for k, v in base.items()}
 
-    def run(fn, a, target):
+    def run(fn, a, target, **extra):
         a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
                               a["acc"], a["zacc"], *tables, target=target,
-                              **kw)
+                              **kw, **extra)
 
     # a warm-up launch, then a timed one, with an unreachable target as on
     # the main path; then half the chains stop mid-chunk at the median
@@ -580,18 +609,20 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     # compared too
     unreachable = 1e30 if mode == "wtm" else 2 ** 30
     probe = fresh()
-    run(chunk, probe, unreachable)
+    run(chunk, probe, unreachable, **kernel_kw)
     full = fresh()
-    ms_full = _events_ms(lambda: run(chunk, full, unreachable))
+    ms_full = _events_ms(lambda: run(chunk, full, unreachable, **kernel_kw))
     require(all(torch.equal(probe[key], full[key]) for key in probe),
             f"rejfree {mode} {label}: two launches on one input differ")
     target = probe["coord"].double().median().item()
     target = {"wtm": float(target), "bkl": max(int(target), 1),
               "rrr": n_moves // 2}[mode]
     k = fresh()
-    ms = _events_ms(lambda: run(chunk, k, target))
+    ms = _events_ms(lambda: run(chunk, k, target, **kernel_kw))
+    plan = dict(rejfree.LAST_PLAN) if fused else None
+    ref_kw = {"threads": plan["threads"]} if fused else {}
     p = fresh()
-    plain_ms = _events_ms(lambda: run(ref, p, target))
+    plain_ms = _events_ms(lambda: run(ref, p, target, **ref_kw))
     integer = not st.E.dtype.is_floating_point
     bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
                               model.N)
@@ -604,11 +635,12 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
-          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+          f"diverged chains {bad}, max abs err {err:.3g}{plan_text(plan)} "
+          f"[{card}]")
     return {"kernel": kernel, "case": f"{mode} {label}", "B": B,
             "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "diverged": bad, "max_abs_err": err, "errs": errs}
+            "diverged": bad, "max_abs_err": err, "errs": errs, "plan": plan}
 
 
 def sk_case(model, label, B, n_sweeps, card, kernel):
@@ -758,6 +790,125 @@ def registers(log: str) -> dict:
     return out
 
 
+def spill_bytes(log: str) -> dict:
+    """{function name: the most spill-store bytes over its instantiations}
+    from the ptxas report of the build, for the ENTRIES' functions."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            for name in {fn for _, _, fn in ENTRIES.values()}:
+                if f"{len(name)}{name}" in fn:
+                    n = max(int(m.group(1)), int(m.group(2)))
+                    out[name] = max(out.get(name, 0), n)
+    return out
+
+
+def fused_local_bytes() -> dict:
+    """{function name: the most local bytes a thread (spills included) over
+    every instantiation of the fused race kernels, every block size,
+    resident type, coordinate type and term}, from the CUDA runtime's
+    function attributes: known whether or not this run built the library."""
+    from rrrmc_tpu_torch.ops import cuda_build, rejfree
+
+    lib = cuda_build.library()
+    out = {"rejfree_sparse_kernel": 0, "rejfree_replica_kernel": 0}
+    for t in rejfree.FUSED_THREADS:
+        for field in rejfree.FIELD_CODES.values():
+            for wtm in (0, 1):
+                heads = [("rejfree_sparse_kernel",
+                          lib.rrrmc_rejfree_sparse_info, (field, wtm))]
+                heads += [("rejfree_replica_kernel",
+                           lib.rrrmc_rejfree_replica_info, (field, star, wtm))
+                          for star in (0, 1)]
+                for fn, entry, head in heads:
+                    local = rejfree.info_fn(entry, *head, device=0)(t, 0)[2]
+                    out[fn] = max(out[fn], local)
+    return out
+
+
+def fused_cases(card):
+    """The fused race kernels (rejfree_sparse.cu, rejfree_replica.cu)
+    against their plain versions bit for bit where the main paths' cases do
+    not reach: each kernel at the other block size the launch rule picks
+    (512 threads at 256 chains on GraphRRG(10^4, 3) and GraphQSKT(1024, 16),
+    whose paths run 256 at 1024 chains), the resident field types int16
+    and int32 (couplings
+    scaled to |J| = 100 and 20000 on GraphRRG(10^4, 3) and, for the
+    composite, a Quant over GraphRRG(1000, 3) at |J| = 20000), and a start
+    whose least bE is above 0 (every spin up on the ferromagnetic
+    GraphRRG(J = +1), beta = 4: every flip raises E, so the fused pass sums
+    z a second time), for both kernels. int8 (+-J graphs, PSpin3), int16
+    (the SK base of QSKT) and f32 (RRGNormal, QSKNormalT) are the main
+    paths' cases. Appended after those, so that the kernels' rows keep
+    their main-path cases."""
+    import dataclasses
+
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree, replica
+    from rrrmc_tpu_torch.samplers.families import family_of, resident_state
+
+    rrg = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    mid = dataclasses.replace(rrg, J=rrg.J * 100)
+    big = dataclasses.replace(rrg, J=rrg.J * 20000)
+    ferro = rt.GraphRRG(N_MAIN, 3, (1,), seed=SEED, device=DEV)
+    qb = rt.GraphRRG(SP_NK, 3, (-1, 1), seed=11, device=DEV)
+    qbig = rt.GraphQuant(SP_NK, SP_M, 1.0, 1.0,
+                         dataclasses.replace(qb, J=qb.J * 20000))
+    qferro = rt.GraphQuant(SP_NK, SP_M, 1.0, 1.0,
+                           rt.GraphRRG(SP_NK, 3, (1,), seed=11, device=DEV))
+    qskt = rt.GraphQSKT(Q_NK, Q_M, Q_GAMMA, Q_BETA, seed=Q_SEED)
+    B = HYPER_CHAINS
+    up, qup = (torch.ones((B, n), dtype=torch.int8, device=DEV)
+               for n in (N_MAIN, qferro.N))
+    # the start's least bE over the sites, per chain: above 0 everywhere
+    fam = family_of(qferro)
+    lf, _ = resident_state(fam, qferro, qup, qferro.energy(qup))
+    for what, de, beta in (
+            ("ferro RRG", rejfree.pair_de(up.int(), ferro.init_aux(up)), 4.0),
+            ("Quant(ferro RRG)", replica.replica_de(
+                fam.tables(qferro)[0], qup, lf), 4.0)):
+        least = float((beta * de.clamp(min=0).float()).min(1).values.min())
+        require(least > 0, f"{what}: the start's least bE is {least}")
+    cases = [
+        rejfree_case(rrg, "RRG+-J", "bkl", card, B=2 * B, n_moves=CMP_MOVES),
+        rejfree_case(mid, "RRG J=+-100", "rrr", card, B=B, beta=0.01,
+                     n_moves=CMP_MOVES),
+        rejfree_case(big, "RRG J=+-20000", "rrr", card, B=B, beta=1e-4,
+                     n_moves=CMP_MOVES),
+        rejfree_case(ferro, "ferro RRG all up", "rrr", card, B=B, beta=4.0,
+                     n_moves=CMP_MOVES, sigma=up),
+        rejfree_case(ferro, "ferro RRG all up", "bkl", card, B=B, beta=4.0,
+                     n_moves=CMP_MOVES, sigma=up),
+        replica_race_case(qskt, "QSKT(1024, 16)", "bkl", card,
+                          "rejfree_replica", 2 * B, Q_BETA, CMP_MOVES),
+        replica_race_case(qbig, "Quant(RRG(1000) J=+-20000, M=8)", "rrr",
+                          card, "rejfree_replica_sparse", B, 1e-4,
+                          CMP_MOVES),
+        replica_race_case(qferro, "Quant(ferro RRG(1000) all up, M=8)",
+                          "rrr", card, "rejfree_replica_sparse", B, 4.0,
+                          CMP_MOVES, sigma=qup),
+    ]
+    want = {("rejfree_sparse", "RRG J=+-100"): "int16",
+            ("rejfree_sparse", "RRG J=+-20000"): "int32",
+            ("rejfree_replica_sparse", "Quant(RRG(1000) J=+-20000, M=8)"):
+                "int32"}
+    for c in cases:
+        key = (c["kernel"], c["case"].split(" ", 1)[1])
+        if key in want:
+            require(c["plan"]["field"] == want[key],
+                    f"{key}: resident {c['plan']['field']}, not {want[key]}")
+    return cases
+
+
 def _ops_replica(N, moves, applied, mode, flip_sites):
     """A composite race move: `_ops_race` plus the site's composite dE (the
     scaled field, the ring partners or mu and fk, two products and an add:
@@ -768,11 +919,15 @@ def _ops_replica(N, moves, applied, mode, flip_sites):
         + moves * N * 6 * states
 
 
-def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves):
+def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves,
+                      sigma=None):
     """The composite race kernel against its plain version for one chunk of
     n_moves moves of B chains, on the family's tables: an integer base must
     agree bit for bit (E and z/N included: the same float32 operations in
-    the same order), a float base within `_compare`'s tolerances."""
+    the same order), a float base within `_compare`'s tolerances. The
+    kernel takes the family's bound on the base fields (`race_kw`), the
+    plain version the block size the kernel ran with; `sigma` [B, N]
+    replaces the random start."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree, replica
@@ -782,37 +937,44 @@ def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves):
     tables = fam.tables(model)
     tab = tables[0]
     st = rt.init_state(model, B, seed=SEED, device=DEV)
-    lf, E = resident_state(fam, model, st.sigma, st.E)
+    sig0 = st.sigma if sigma is None else sigma
+    lf, E = resident_state(fam, model, sig0, st.E if sigma is None
+                           else model.energy(sigma))
     ct = rejfree.coord_dtype(mode)
     z = dict(device=DEV)
-    base = dict(sigma=st.sigma.clone(), lf=lf, E=E,
+    base = dict(sigma=sig0.clone(), lf=lf, E=E,
                 coord=torch.zeros(B, dtype=ct, **z),
                 acc=torch.zeros(B, dtype=torch.int32, **z),
                 zacc=torch.zeros(B, dtype=torch.float32, **z))
     kw = dict(mode=mode, n_moves=n_moves, seed=SEED, beta_s=beta)
+    kernel_kw = fam.race_kw(model)
 
     def fresh():
         return {k: v.clone() for k, v in base.items()}
 
-    def run(fn, a, target):
+    def run(fn, a, target, **extra):
         a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
                               a["acc"], a["zacc"], *tables, target=target,
-                              **kw)
+                              **kw, **extra)
 
     unreachable = 1e30 if mode == "wtm" else 2 ** 30
     probe = fresh()
-    run(replica.rejfree_replica_chunk, probe, unreachable)      # warm-up
+    run(replica.rejfree_replica_chunk, probe, unreachable,      # warm-up
+        **kernel_kw)
     full = fresh()
     ms_full = _events_ms(lambda: run(replica.rejfree_replica_chunk, full,
-                                     unreachable))
+                                     unreachable, **kernel_kw))
     target = probe["coord"].double().median().item()
     target = {"wtm": float(target), "bkl": max(int(target), 1),
               "rrr": n_moves // 2}[mode]
     k = fresh()
-    ms = _events_ms(lambda: run(replica.rejfree_replica_chunk, k, target))
+    ms = _events_ms(lambda: run(replica.rejfree_replica_chunk, k, target,
+                                **kernel_kw))
+    plan = dict(rejfree.LAST_PLAN)
     p = fresh()
     plain_ms = _events_ms(lambda: run(
-        replica.rejfree_replica_chunk_reference, p, target))
+        replica.rejfree_replica_chunk_reference, p, target,
+        threads=plan["threads"]))
     integer = not lf.dtype.is_floating_point
     bad, err, errs = _compare(f"{kernel} {mode} {label}", integer, k, p, B,
                               model.N)
@@ -830,11 +992,12 @@ def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves):
     print(f"{kernel} {mode} {label} B={B} moves={n_moves}: kernel "
           f"{ms:.3f} ms ({ms_full:.3f} ms with every chain active), plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
-          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+          f"diverged chains {bad}, max abs err {err:.3g}{plan_text(plan)} "
+          f"[{card}]")
     return {"kernel": kernel, "case": f"{mode} {label}", "B": B,
             "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "diverged": bad, "max_abs_err": err, "errs": errs}
+            "diverged": bad, "max_abs_err": err, "errs": errs, "plan": plan}
 
 
 def replica_sweep_case(model, label, B, beta, card):
@@ -1608,17 +1771,19 @@ def replica_path(card, qskt, skre, qrrg, rerrg, qnt, qeat):
 
 def replica_refusals(card):
     """No fallback: the race kernel refuses a composite whose state exceeds
-    shared memory (GraphQSKT(4096, 16): 65 536 spins), the sweep kernel a
-    composite over a sparse base, and the race samplers a Double that is
-    not a Quant / RE composite; each raises, none runs a plain version."""
+    shared memory (GraphQSKT(4096, 32): 131 072 spins, 401 536 bytes with
+    its int16 base fields; GraphQSKT(4096, 16) fits in 204 864), the sweep
+    kernel a composite over a sparse base, and the race samplers a Double
+    that is not a Quant / RE composite; each raises, none runs a plain
+    version."""
     import rrrmc_tpu_torch as rt
 
-    big = rt.GraphQSKT(4096, 16, Q_GAMMA, Q_BETA, seed=1)
+    big = rt.GraphQSKT(4096, 32, Q_GAMMA, Q_BETA, seed=1)
     sparse = rt.GraphQuant(SP_NK, SP_M, 1.0, 1.0,
                            rt.GraphRRG(SP_NK, 3, (-1, 1), seed=11))
     dbl = rt.GraphRRGNormalDiscretized(SP_NK, 3, (-1, 0, 1), seed=1)
     for what, call, err in (
-            ("rrrMC on GraphQSKT(4096, 16)",
+            ("rrrMC on GraphQSKT(4096, 32)",
              lambda: rt.rrrMC(big, Q_BETA, 10, chains=8), NotImplementedError),
             ("sweepMC_quant on Quant(RRG)",
              lambda: rt.sweepMC_quant(sparse, 1.0, 1, chains=8), ValueError),
@@ -1640,7 +1805,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     import rrrmc_tpu_torch as rt   # fails in a directory without the repo
-    from rrrmc_tpu_torch.ops import cuda_build
+    from rrrmc_tpu_torch.ops import cuda_build, rejfree
 
     card = card_line()
     print(card)
@@ -1783,6 +1948,7 @@ def main() -> int:
     cases.append(replica_sweep_case(qnt, "QSKNormalT(1024, 16)", SP_CHAINS,
                                     Q_BETA, card))
     replica_refusals(card)
+    cases += fused_cases(card)
 
     # the perceptrons (scripts/bench_all.py's perc_comm_section), built with
     # no device given: the card is the default
@@ -1834,6 +2000,38 @@ def main() -> int:
                 **sk_launches, **eo_launches, **ps_counts, **sat_counts,
                 **rep_launches, **perc_counts}
     regs = registers(build_log)
+    spills = spill_bytes(build_log)
+    local = fused_local_bytes()
+    for fn, n in local.items():
+        require(n == 0 and (not build_log or spills.get(fn) == 0),
+                f"{fn}: {spills.get(fn)} spill bytes (ptxas), {n} local "
+                f"bytes a thread")
+    print(f"fused race kernels' most spill bytes (ptxas; null: not built in "
+          f"this run): {json.dumps({fn: spills.get(fn) for fn in local})}, "
+          f"most local bytes a thread over every instantiation: "
+          f"{json.dumps(local)}  [{card}]")
+    seen = {}
+    for c in cases:
+        if c.get("plan"):
+            seen.setdefault(c["kernel"], set()).add(
+                (c["plan"]["threads"], c["plan"]["field"]))
+    print(f"fused launches (T, field) held to their plain versions: "
+          f"{json.dumps({k: sorted(v) for k, v in seen.items()})}  [{card}]")
+    # every block size the rule picks on the paths and every resident type
+    # of both kernels was held
+    for source, entries in (
+            ("rejfree_sparse.cu", ("rejfree_sparse", "rejfree_lattice",
+                                   "rejfree_pspin")),
+            ("rejfree_replica.cu", ("rejfree_replica",
+                                    "rejfree_replica_sparse"))):
+        got = set().union(*(seen.get(e, set()) for e in entries))
+        for what, want, have in (
+                ("block sizes", set(rejfree.FUSED_THREADS),
+                 {t for t, _ in got}),
+                ("field types", {"int8", "int16", "int32", "float32"},
+                 {f for _, f in got})):
+            require(want <= have, f"{source}: {what} {sorted(have)} held, "
+                                  f"not all of {sorted(want)}")
 
     kernels = []
     for name, (replaces, source, function) in ENTRIES.items():
@@ -1846,7 +2044,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "registers": regs.get(function)})
+            "library_ms": None, "registers": regs.get(function),
+            **({"plan": head["plan"]} if head.get("plan") else {})})
         require(launches[name] > 0, f"{name}: not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,9 +37,9 @@ _SIGNATURES = {
                                    _P, _U, _U, _U, _F, _I, _P]),
     "rrrmc_rejfree_sparse": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _U, _U, _U, _F, _I, _F,
-                                  _I, _I, _P]),
-    "rrrmc_rejfree_sparse_smem": (_Z, [_I, _I]),
-    "rrrmc_rejfree_sparse_max_smem": (_I, [_I]),
+                                  _I, _I, _I, _I, _P]),
+    "rrrmc_rejfree_sparse_smem": (_Z, [_I, _I, _I]),
+    "rrrmc_rejfree_sparse_info": (_I, [_I, _I, _I, _Z, _I, _P]),
     "rrrmc_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
                          _U, _F, _P]),
     "rrrmc_sweep_smem": (_Z, [_I, _I]),
@@ -59,8 +59,6 @@ _SIGNATURES = {
     "rrrmc_eo_dense": (_I, [_P] * 8 + [_I, _I, _I, _U, _U, _U, _I, _I, _P]),
     "rrrmc_eo_dense_smem": (_Z, [_I, _I]),
     "rrrmc_eo_dense_max_smem": (_I, [_I]),
-    "rrrmc_rejfree_pspin": (_I, [_P] * 9 + [_I, _I, _I, _I, _U, _U, _U, _F,
-                                            _I, _F, _I, _P]),
     "rrrmc_eo_pspin": (_I, [_P] * 8 + [_I, _I, _I, _I, _U, _U, _U, _I, _P]),
     "rrrmc_rejfree_sat": (_I, [_P] * 12 + [_I] * 6 + [_U, _U, _U, _F, _I,
                                                      _F, _I, _P]),
@@ -71,9 +69,9 @@ _SIGNATURES = {
     "rrrmc_eo_sat_max_smem": (_I, [_I]),
     "rrrmc_rejfree_replica": (_I, [_P] * 11 + [_I] * 5 + [_U, _U, _U, _F,
                                                           _I, _F, _I, _I, _I,
-                                                          _I, _P]),
-    "rrrmc_rejfree_replica_smem": (_Z, [_I] * 5),
-    "rrrmc_rejfree_replica_max_smem": (_I, [_I]),
+                                                          _I, _I, _P]),
+    "rrrmc_rejfree_replica_smem": (_Z, [_I] * 6),
+    "rrrmc_rejfree_replica_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
     "rrrmc_replica_sweep": (_I, [_P] * 6 + [_I] * 4 + [_F, _U, _U, _U, _I,
                                                         _I, _P]),
     "rrrmc_rejfree_perc": (_I, [_P] * 10 + [_I] * 5 + [_U, _U, _U, _F, _I,

@@ -7,18 +7,21 @@ rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_pspin_kernel and the EO kernel
 rrrmc_tpu/ops/eo_pallas.py::_eo_pspin_kernel. To both, a PSpin3 is the
 sparse pairwise model with the cavity sum c in the place of the local field
 (half = sigma * c, dE = 2 half): the race and the EO select are the sparse
-kernels' (csrc/rejfree_sparse.cu, csrc/eo_sparse.cu), instantiated with the
+kernels' (csrc/rejfree_sparse.cu, csrc/eo_sparse.cu), run with the
 hypergraph flip. A chain keeps its spins and cavity sums resident in shared
-memory (5 bytes a site, 37.5 KB at N = 7500; the EO kernel adds the best
-spins). The flip of winner w walks w's own row of the partner table A
-[N, K, 2], read as [N, 2K]: for each triangle (w, a, b), c_a += d sigma_b
-and c_b += d sigma_a with d = -2 sigma_w, 2K updates. The TPU kernels kept
-K product tables q_k beside c and negated the products holding the winner by
-comparing every site's partner columns, because Mosaic has no gather; the
-H100 gathers the two partner spins instead. The rrr undo restores the 2K
-saved sums in reverse order, so a site that shares two triangles with w
-comes back exactly. Both kernels are bound by their passes over the
-resident sites, as the sparse ones are.
+memory (the race: |c| <= K, the bound samplers/families.py hands it, so the
+sums are int8 for K <= 127, 2 bytes a site, 15 KB at N = 7500; the EO kernel
+keeps int32 sums and the best spins). The race takes ops/rejfree.py's
+launch rule (`fused_plan`): 512 threads a chain at 128 chains. The flip
+of winner w walks w's own row of the partner table A [N, K, 2], read as
+[N, 2K]: for each triangle (w, a, b), c_a += d sigma_b and c_b += d sigma_a
+with d = -2 sigma_w, 2K updates. The TPU kernels kept K product tables q_k
+beside c and negated the products holding the winner by comparing every
+site's partner columns, because Mosaic has no gather; the H100 gathers the
+two partner spins instead. The rrr undo restores the 2K saved sums in
+reverse order, so a site that shares two triangles with w comes back
+exactly. Both kernels are bound by their passes over the resident sites,
+as the sparse ones are.
 
 The JAX run re-derives c and q from the spins at each chunk, with the seed
 stepped by 7919; the port keeps c in place across chunks and counts moves by
@@ -32,7 +35,9 @@ from typing import Optional
 import torch
 
 from . import check_args, require_smem
-from .rejfree import BitsFn, MODES, coord_dtype, race_chunk_reference
+from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
+                      fused_plan, info_fn, race_chunk_reference,
+                      resident_dtype)
 from ..models.pspin import flip_cavity
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
@@ -65,12 +70,14 @@ def _check_race(sigma, c, E, coord, acc, zacc, A, mode):
 def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
                         n_moves: int, beta_s: float, target, seed: int,
                         move0: int = 0, chain0: int = 0,
-                        bits: Optional[BitsFn] = None):
+                        bits: Optional[BitsFn] = None,
+                        field_bound: Optional[int] = None):
     """Advance every chain by `n_moves` race moves, in place: the contract
-    of ops/rejfree.py::rejfree_sparse_chunk, with the cavity sums c [B, N]
-    int32 in the place of lf, int32 E and the partner table A [N, K, 2]
-    int32 in the place of neigh/J. beta_s = beta * model.scale. Returns
-    the per-move (coordinate, E) streams, each [n_moves, B]."""
+    of ops/rejfree.py::rejfree_sparse_chunk (`field_bound` included: the
+    family's K bounds |c|), with the cavity sums c [B, N] int32 in the place
+    of lf, int32 E and the partner table A [N, K, 2] int32 in the place of
+    neigh/J. beta_s = beta * model.scale. Returns the per-move (coordinate,
+    E) streams, each [n_moves, B]."""
     global LAUNCHES
     _check_race(sigma, c, E, coord, acc, zacc, A, mode)
     if sigma.device.type == "cpu":
@@ -88,20 +95,25 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
     B, N = sigma.shape
     K2 = 2 * A.shape[1]
     dev = sigma.device
-    require_smem(lib.rrrmc_rejfree_sparse_smem(N, K2),
-                 lib.rrrmc_rejfree_sparse_max_smem(dev.index or 0), N,
-                 "PSpin3 race")
     ct = coord_dtype(mode)
+    field = resident_dtype(True, field_bound)
+    T = fused_plan(
+        "rejfree_pspin",
+        info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
+                int(mode == "wtm"), device=dev.index or 0),
+        B, lib.rrrmc_rejfree_sparse_smem(N, K2, field.itemsize), field, dev,
+        lambda need, cap: require_smem(need, cap, N, "PSpin3 race"))
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.rrrmc_rejfree_pspin(
+        err = lib.rrrmc_rejfree_sparse(
             sigma.data_ptr(), c.data_ptr(), E.data_ptr(), coord.data_ptr(),
             acc.data_ptr(), zacc.data_ptr(), cs.data_ptr(), es.data_ptr(),
-            A.data_ptr(), N, K2, B, n_moves, seed & 0xFFFFFFFF,
+            A.data_ptr(), None, N, K2, B, n_moves, seed & 0xFFFFFFFF,
             move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, 2.0 * beta_s,
             int(target) if ct == torch.int32 else 0, float(target),
-            MODES[mode], torch.cuda.current_stream().cuda_stream)
+            MODES[mode], 1, T, FIELD_CODES[field],
+            torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_pspin launch")
     LAUNCHES += 1
     return cs, es
@@ -111,9 +123,11 @@ def rejfree_pspin_chunk_reference(sigma, c, E, coord, acc, zacc, A, *,
                                   mode: str, n_moves: int, beta_s: float,
                                   target, seed: int, move0: int = 0,
                                   chain0: int = 0,
-                                  bits: Optional[BitsFn] = None):
+                                  bits: Optional[BitsFn] = None,
+                                  threads: int = THREADS):
     """Plain torch version of the PSpin3 race kernel (same arguments,
-    in-place contract and streams as `rejfree_pspin_chunk`)."""
+    in-place contract and streams as `rejfree_pspin_chunk`; z summed as the
+    kernel's fused pass sums it with `threads` threads a block)."""
 
     def c_flipped(sig, c, win, d, do):
         return flip_cavity(A, sig, c.clone(), win, d, do)
@@ -121,4 +135,4 @@ def rejfree_pspin_chunk_reference(sigma, c, E, coord, acc, zacc, A, *,
     return race_chunk_reference(
         sigma, c, E, coord, acc, zacc, c_flipped, mode=mode,
         n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
-        move0=move0, chain0=chain0, bits=bits)
+        move0=move0, chain0=chain0, bits=bits, threads=threads)

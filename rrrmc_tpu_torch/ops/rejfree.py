@@ -1,20 +1,34 @@
 """Rejection-free race moves (bkl / wtm / rrr) on sparse Pairwise models:
-the CUDA kernel (csrc/rejfree_sparse.cu), its plain torch version, and the
-eligibility rule.
+the CUDA kernel (csrc/rejfree_sparse.cu), its plain torch version, the
+eligibility rule, and the launch rule of the fused race kernels
+(rejfree_sparse.cu, rejfree_replica.cu).
 
 Source note. The kernel replaces
 rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_sparse_kernel (called by
-`_pallas_rejfree_sparse_chunk`). Per move it makes two to five passes over
-the chain's N sites (race, min and log-sum-exp of the Boltzmann terms, and
-for rrr the same again on the flipped state) plus one Philox call per four
-sites, so on the H100 it is bound by the arithmetic and the shared-memory
-reads of those passes, with a handful of block barriers per move. The design
-keeps each chain's spins and local fields resident in shared memory for the
-whole chunk (one thread block per chain; 5 bytes per site, 50 KB at N=10^4),
-so global memory is touched only at the chunk's start and end and for the
-per-move stream rows. A flip updates only the winner's K neighbours through
-its own table row, where the TPU kernel compared every site's K inverse
-columns because it had no gather.
+`_pallas_rejfree_sparse_chunk`). Per move it makes one fused pass over the
+chain's N sites (csrc/race.cuh::fused_pass: the race, min bE and the
+log-sum-exp of the Boltzmann terms from one evaluation of each site; rrr
+adds a second pass for z' on the flipped state) with one Philox call per
+four sites, so on the H100 it is bound by the arithmetic and the
+shared-memory reads of that pass, with a barrier or two per pass. The
+design keeps each chain's spins and local fields resident in shared memory
+for the whole chunk (one thread block per chain; the fields in the
+narrowest integer type their bound allows, 2 bytes per site at N=10^4 on a
++-J graph), so global memory is touched only at the chunk's start and end
+and for the per-move stream rows. A flip updates only the winner's K
+neighbours through its own table row, where the TPU kernel compared every
+site's K inverse columns because it had no gather.
+
+The launch rule (`resident_dtype`, `race_threads`, `fused_plan`): the
+wrapper keeps the fields resident as int8, int16 or int32 by the bound on
+|lf| it is given (`field_bound`: samplers/families.py computes it from the
+model, the largest row sum of |J| plus |h|; none given: int32), float32 for
+float couplings; global lf stays int32. It then takes the block size T from
+the chains and the blocks of each size that fit on an SM
+(cudaOccupancyMaxActiveBlocksPerMultiprocessor): 512 threads while the
+blocks of all chains are resident at once, else 256 (1024 threads never
+beat 512 on the H100, PERF.md section 6, PR 8, and are not built). The
+plain version adds z in the order of the T it is given.
 
 The same kernel is the port of
 rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_kernel, the TPU race on integer
@@ -23,7 +37,7 @@ keeps the padded tables), and that kernel's roll identity for the local
 fields existed only because Mosaic has no gather. The JAX package's switch
 of small lattices (N <= _LATTICE_DENSE_MAX) to the dense matmul race kernel
 is a VMEM heuristic and is not carried over: every integer lattice takes
-this kernel (5 bytes per site, 20 KB at L=16, D=3).
+this kernel (2 bytes per site at int8, 8 KB at L=16, D=3).
 
 The race: score_i = log(-log u_i) + beta_s * max(dE_i, 0) over the N
 sites, with dE_i = 2 sigma_i lf_i the energy change of flipping site i and
@@ -47,8 +61,18 @@ from ..core.dtypes import is_integer
 LAUNCHES = 0
 
 MODES = {"bkl": 0, "wtm": 1, "rrr": 2}
-#: threads of one block, one block per chain (kThreads of the kernel)
+#: threads of one block, one block per chain (kRaceThreads of race.cuh's
+#: `race` and `log_z`; the plain versions' default)
 THREADS = 256
+#: the block sizes the fused race kernels are built for
+FUSED_THREADS = (256, 512)
+#: the fused kernels' codes of the resident field types
+FIELD_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
+               torch.float32: 3}
+#: the last fused race launch: its kernel, block size, resident field type,
+#: blocks per SM, dynamic shared bytes, registers and local bytes a thread
+#: (spills), for chip_smoke.py to print and to hand the plain version
+LAST_PLAN: dict = {}
 #: BKL skip cap: bounds coordinate growth so int32 never overflows (the
 #: samplers keep iters <= 1e9)
 SKIP_CAP = 1.0e9
@@ -92,22 +116,87 @@ def _check_args(sigma, lf, E, coord, acc, zacc, neigh, J, mode):
     check_args(want, sigma.device)
 
 
+def resident_dtype(integer: bool, bound: Optional[int]) -> torch.dtype:
+    """The resident type of a fused race's fields: float32 for float
+    couplings, else the narrowest integer type that holds every |value| <=
+    `bound` (None: no bound known, int32)."""
+    if not integer:
+        return torch.float32
+    if bound is None or bound > 32767:
+        return torch.int32
+    return torch.int8 if bound <= 127 else torch.int16
+
+
+def race_threads(B: int, n_sm: int, blocks_per_sm: dict) -> int:
+    """The block size of a fused race launch of B chains: the largest T at
+    which all B blocks are resident at once on the n_sm SMs
+    (`blocks_per_sm`: {T: blocks of T threads that fit on an SM, 0 if
+    none}), else the smallest T that fits."""
+    fits = sorted(t for t, n in blocks_per_sm.items() if n > 0)
+    for t in reversed(fits):
+        if B <= n_sm * blocks_per_sm[t]:
+            return t
+    return fits[0]
+
+
+def fused_plan(kernel: str, info: Callable, B: int, need: int,
+               field: torch.dtype, dev, refuse: Callable) -> int:
+    """The block size of a fused race launch (`race_threads`), recorded in
+    LAST_PLAN with the resident `field` type. info(T, need) gives the
+    instantiation's [blocks per SM, registers, local bytes, static shared
+    bytes, most dynamic shared bytes] at `need` dynamic bytes;
+    refuse(need, cap) raises when no size fits."""
+    facts = {t: info(t, need) for t in FUSED_THREADS}
+    blocks = {t: (f[0] if need <= f[4] else 0) for t, f in facts.items()}
+    if not any(blocks.values()):
+        refuse(need, max(f[4] for f in facts.values()))
+        raise RuntimeError(f"{kernel}: no block size fits ({facts})")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads = race_threads(B, n_sm, blocks)
+    f = facts[threads]
+    LAST_PLAN.clear()
+    LAST_PLAN.update(kernel=kernel, threads=threads,
+                     field=str(field).replace("torch.", ""),
+                     blocks_per_sm=f[0], smem=need, registers=f[1],
+                     spill_bytes=f[2])
+    return threads
+
+
+def info_fn(lib_fn, *head, device: int) -> Callable:
+    """info(T, smem) of `fused_plan` through a C entry
+    lib_fn(T, *head, smem, device, out[5])."""
+    import ctypes
+
+    from .cuda_build import check
+
+    def info(t, need):
+        out = (ctypes.c_int * 5)()
+        check(lib_fn(t, *head, need, device, out), f"{lib_fn.__name__}")
+        return list(out)
+
+    return info
+
+
 def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
                          mode: str, n_moves: int, beta_s: float, target,
                          seed: int, move0: int = 0, chain0: int = 0,
-                         bits: Optional[BitsFn] = None):
+                         bits: Optional[BitsFn] = None,
+                         field_bound: Optional[int] = None):
     """Advance every chain by `n_moves` race moves, in place.
 
     sigma [B, N] int8 and lf [B, N] (int32 for integer J, else float32) are
     chain-major; E [B] (lf's dtype), coord [B] (int32, float32 for wtm),
     acc [B] int32 (applied flips) and zacc [B] float32 (summed z/N) are
-    updated. neigh/J are the model's [N, K] tables (padding == N).
+    updated. neigh/J are the model's [N, K] tables (padding == N), and
+    `field_bound` a bound on |lf| over every configuration (the family's,
+    samplers/families.py; None: int32 resident fields for integer J).
     beta_s = beta * model.scale. Returns the per-move streams
     (cs, es), each [n_moves, B]: coordinate and E after every move.
 
     Random words are Philox under key (seed, chain0 + b), counter
     (word, move0 + m, draw, 0) (see ops/prng.py). On a CUDA tensor this
-    launches the kernel; on a CPU tensor it runs the plain version. `bits`
+    launches the kernel with the launch rule's block size (`fused_plan`);
+    on a CPU tensor it runs the plain version. `bits`
     (move, draw) -> int32 ([B, N] for the race, [B] otherwise) replaces the
     generator and is taken by the plain version only."""
     global LAUNCHES
@@ -127,15 +216,22 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     B, N = sigma.shape
     K = neigh.shape[1]
     dev = sigma.device
-    smem = lib.rrrmc_rejfree_sparse_smem(N, K)
-    cap = lib.rrrmc_rejfree_sparse_max_smem(dev.index or 0)
-    if smem > cap:
+    ct = coord_dtype(mode)
+    field = resident_dtype(is_integer(J), field_bound)
+
+    def refuse(need, cap):
         raise NotImplementedError(
             f"the sparse race kernel keeps a chain's spins and local fields "
-            f"in shared memory: N={N} needs {smem} bytes, a block may have "
+            f"in shared memory: N={N} needs {need} bytes, a block may have "
             f"{cap}; sparse state in global memory is not ported yet "
             f"(ROADMAP.md queue 2, item 1)")
-    ct = coord_dtype(mode)
+
+    T = fused_plan(
+        "rejfree_sparse",
+        info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
+                int(mode == "wtm"), device=dev.index or 0),
+        B, lib.rrrmc_rejfree_sparse_smem(N, K, field.itemsize), field, dev,
+        refuse)
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=lf.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -145,44 +241,44 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
             neigh.data_ptr(), J.data_ptr(), N, K, B, n_moves,
             seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
             2.0 * beta_s, int(target) if ct == torch.int32 else 0,
-            float(target),
-            MODES[mode], 0 if is_integer(J) else 1,
+            float(target), MODES[mode], 0, T, FIELD_CODES[field],
             torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_sparse launch")
     LAUNCHES += 1
     return cs, es
 
 
-def block_sum(x):
-    """Row sums of x [B, N] float32 in the kernel's order of additions:
-    thread t of a block adds sites t, t + THREADS, ... in turn; each warp
-    folds its 32 partial sums pairwise (lane l with lane l + 16, then
-    l + 8, ..., 1); the warps' sums are then added in turn. With the same
-    order z is bit-equal to the kernel's, and so are the bkl skip, the rrr
-    acceptance and z/N that depend on it."""
+def block_sum(x, threads: int = THREADS):
+    """Row sums of x [B, N] float32 in the kernels' order of additions with
+    `threads` threads a block: thread t adds sites t, t + threads, ... in
+    turn; each warp folds its 32 partial sums pairwise (lane l with lane
+    l + 16, then l + 8, ..., 1); the warps' sums are then added in turn.
+    With the same order z is bit-equal to the kernel's, and so are the bkl
+    skip, the rrr acceptance and z/N that depend on it."""
     B, N = x.shape
-    per = -(-N // THREADS)
-    x = torch.nn.functional.pad(x, (0, per * THREADS - N))
-    x = x.view(B, per, THREADS)
+    per = -(-N // threads)
+    x = torch.nn.functional.pad(x, (0, per * threads - N))
+    x = x.view(B, per, threads)
     s = x[:, 0]
     for p in range(1, per):
         s = s + x[:, p]
-    s = s.view(B, THREADS // 32, 32)
+    s = s.view(B, threads // 32, 32)
     for o in (16, 8, 4, 2, 1):
         s = s[..., :o] + s[..., o:2 * o]
     s = s[..., 0]
     out = s[:, 0]
-    for w in range(1, THREADS // 32):
+    for w in range(1, threads // 32):
         out = out + s[:, w]
     return out
 
 
-def _log_z(dE, beta_s):
+def _log_z(dE, beta_s, threads: int = THREADS):
     """(bE, log z): bE = beta_s*max(dE, 0) and the shifted log-sum-exp of
-    -bE over the sites, summed as the kernel sums."""
+    -bE over the sites, summed as race.cuh's log_z sums (a min pass, then
+    the sum of exp(min - bE))."""
     bE = beta_s * dE.clamp(min=0).to(torch.float32)
     m = bE.min(dim=1).values
-    zs = block_sum(torch.exp(m[:, None] - bE))
+    zs = block_sum(torch.exp(m[:, None] - bE), threads)
     return bE, torch.log(zs) - m
 
 
@@ -207,10 +303,12 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
                                    *, mode: str, n_moves: int, beta_s: float,
                                    target, seed: int, move0: int = 0,
                                    chain0: int = 0,
-                                   bits: Optional[BitsFn] = None):
+                                   bits: Optional[BitsFn] = None,
+                                   threads: int = THREADS):
     """Plain torch version of the race kernel, move by move over [B, N]
     tensors (same arguments, in-place contract and streams as
-    `rejfree_sparse_chunk`)."""
+    `rejfree_sparse_chunk`; z summed as the kernel's fused pass sums it
+    with `threads` threads a block)."""
     B, N = sigma.shape
     K = neigh.shape[1]
     rows = torch.arange(B, device=sigma.device)
@@ -228,14 +326,15 @@ def rejfree_sparse_chunk_reference(sigma, lf, E, coord, acc, zacc, neigh, J,
     return race_chunk_reference(
         sigma, lf, E, coord, acc, zacc, lf_flipped, mode=mode,
         n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
-        move0=move0, chain0=chain0, bits=bits)
+        move0=move0, chain0=chain0, bits=bits, threads=threads)
 
 
 def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
                          mode: str, n_moves: int, beta_s: float, target,
                          seed: int, move0: int = 0, chain0: int = 0,
                          bits: Optional[BitsFn] = None,
-                         de_of: Callable = pair_de):
+                         de_of: Callable = pair_de,
+                         threads: int = THREADS):
     """The race moves of the race kernels' plain versions, over [B, N]
     spins. lf is the chain's resident state (local fields, cavity sums, or
     SAT's clause counts); `lf_flipped(sig, lf, win, d, do)` returns a copy of
@@ -244,7 +343,8 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
     with the energy change of its flip dE_i = de_of(sig, lf)[:, i]
     (2 sigma_i lf_i by default) and the Boltzmann exponent
     beta_s * max(dE_i, 0). E (lf's dtype, or float32 physical energies
-    for the replica composites) gains the dE of each applied flip."""
+    for the replica composites) gains the dE of each applied flip. z is
+    summed as a block of `threads` threads sums it (`_log_z`)."""
     B, N = sigma.shape
     dev = sigma.device
     lt = lf.dtype
@@ -284,7 +384,7 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
             es[m:] = E
             break
         de = de_of(sig, lf)
-        bE, logz = _log_z(de, beta)
+        bE, logz = _log_z(de, beta, threads)
         u = prng.to_uniform(next(race))
         score = torch.log(-torch.log(u)) + bE
         mrow, win = score.min(dim=1)          # first index among equal mins
@@ -295,7 +395,7 @@ def race_chunk_reference(sigma, lf, E, coord, acc, zacc, lf_flipped, *,
         d = -2 * s_w
         if mode == "rrr":
             sig2, lf2 = flipped(sig, lf, win, s_w, d, active)
-            _, logz2 = _log_z(de_of(sig2, lf2), beta)
+            _, logz2 = _log_z(de_of(sig2, lf2), beta, threads)
             ua = prng.to_uniform(next(second))
             do = active & (torch.log(ua) < logz - logz2)
             sig = torch.where(do[:, None], sig2, sig)

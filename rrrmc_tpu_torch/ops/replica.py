@@ -23,11 +23,16 @@ chain keeps its spins, its base fields (and the star's mu) resident in
 shared memory, and a flip of (i, k) adds d * J_base[i, :] (dense: Nk
 fields) or the K entries of i's neighbour row (sparse) into replica block k
 only: O(Nk) or O(K) per applied flip. The extra term is derived per site
-from the spins (ring) or mu (star) as the race reads it. It is bound by the
-arithmetic of the passes over the N = Nk * M resident sites per move, as
-the sparse race is. The TPU caps (Nk % 128, chains % 128, the composite and
-star size caps) are not carried over: the only limit is shared memory,
-checked at launch.
+from the spins (ring) or mu (star) as the race reads it, once per site and
+state in race.cuh's fused pass, which walks the sites by (k, i) without a
+division. It is bound by the arithmetic of that pass over the N = Nk * M
+resident sites per move (two for rrr), as the sparse race is. The launch
+rule is ops/rejfree.py's (`fused_plan`): the base fields stay resident as
+int8, int16 or int32 by the bound samplers/families.py hands it (the base's
+largest row sum of |J| plus |h|: int16 for the SK base at Nk = 1024), and
+the block size follows the chains. The TPU caps
+(Nk % 128, chains % 128, the composite and star size caps) are not carried
+over: the only limit is shared memory, checked at launch.
 
 Kernel rrr runs the SingleGraph rrr law on the flat composite (the JAX
 package's kernel route does the same): a different chain from the
@@ -44,8 +49,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import check_args, require_smem
-from .rejfree import (BitsFn, MODES, coord_dtype, race_chunk_reference,
-                      sparse_rejfree_ok)
+from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
+                      fused_plan, info_fn, race_chunk_reference,
+                      resident_dtype, sparse_rejfree_ok)
 from .rejfree_dense import dense_rejfree_ok, kernel_couplings
 from ..core.dtypes import is_integer
 
@@ -208,14 +214,17 @@ def _check_args(sigma, lf, E, coord, acc, zacc, tab, mode):
 def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
                           *, mode: str, n_moves: int, beta_s: float, target,
                           seed: int, move0: int = 0, chain0: int = 0,
-                          bits: Optional[BitsFn] = None):
+                          bits: Optional[BitsFn] = None,
+                          field_bound: Optional[int] = None):
     """Advance every chain by `n_moves` race moves, in place: the contract
     of ops/rejfree.py::rejfree_sparse_chunk on the composite. sigma [B, N]
     int8 (N = Nk * M, replica-major), lf [B, N] the base fields
     (`replica_state`: int32 for an integer base, float32 otherwise), E [B]
     float32 physical, coord / acc / zacc as there; `tab` the
-    `replica_tables`. beta_s is the physical beta (a composite's scale is
-    1). Returns the per-move (coordinate, E) streams, each [n_moves, B].
+    `replica_tables`, `field_bound` a bound on |lf| (the family's; None:
+    int32 resident fields for an integer base). beta_s is the physical
+    beta (a composite's scale is 1). Returns the per-move (coordinate, E)
+    streams, each [n_moves, B].
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
     plain version. `bits` (move, draw) replaces the generator and is taken
@@ -239,11 +248,17 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
     sparse = tab.neigh is not None
     K = tab.neigh.shape[1] if sparse else 0
     star = tab.term == "star"
-    require_smem(lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse,
-                                                star),
-                 lib.rrrmc_rejfree_replica_max_smem(dev.index or 0),
-                 sigma.shape[1], "replica race")
     ct = coord_dtype(mode)
+    field = resident_dtype(is_integer(lf), field_bound)
+    T = fused_plan(
+        "rejfree_replica" + ("_sparse" if sparse else ""),
+        info_fn(lib.rrrmc_rejfree_replica_info, FIELD_CODES[field],
+                int(star), int(mode == "wtm"), device=dev.index or 0),
+        B, lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse, star,
+                                          field.itemsize),
+        field, dev,
+        lambda need, cap: require_smem(need, cap, sigma.shape[1],
+                                       "replica race"))
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -254,8 +269,8 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
             tab.params.data_ptr(), tab.Nk, tab.M, K, B, n_moves,
             seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
             float(beta_s), int(target) if ct == torch.int32 else 0,
-            float(target), MODES[mode], 0 if is_integer(lf) else 1,
-            int(sparse), int(star), torch.cuda.current_stream().cuda_stream)
+            float(target), MODES[mode], int(sparse), int(star), T,
+            FIELD_CODES[field], torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_replica launch")
     LAUNCHES += 1
     return cs, es
@@ -266,10 +281,12 @@ def rejfree_replica_chunk_reference(sigma, lf, E, coord, acc, zacc,
                                     n_moves: int, beta_s: float, target,
                                     seed: int, move0: int = 0,
                                     chain0: int = 0,
-                                    bits: Optional[BitsFn] = None):
+                                    bits: Optional[BitsFn] = None,
+                                    threads: int = THREADS):
     """Plain torch version of the composite race kernel (same arguments,
     in-place contract and streams as `rejfree_replica_chunk`): the race
-    moves of ops/rejfree.py with `replica_de` and `flip_base_fields`."""
+    moves of ops/rejfree.py with `replica_de` and `flip_base_fields`, z
+    summed as the kernel's fused pass sums it with `threads` threads."""
 
     def lf_flipped(sig, lf, win, d, do):
         return flip_base_fields(tab, lf, win, d, do)
@@ -278,4 +295,4 @@ def rejfree_replica_chunk_reference(sigma, lf, E, coord, acc, zacc,
         sigma, lf, E, coord, acc, zacc, lf_flipped, mode=mode,
         n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
         move0=move0, chain0=chain0, bits=bits,
-        de_of=lambda sig, lf: replica_de(tab, sig, lf))
+        de_of=lambda sig, lf: replica_de(tab, sig, lf), threads=threads)

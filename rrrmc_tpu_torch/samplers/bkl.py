@@ -95,6 +95,7 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
     zacc = torch.zeros(B, dtype=torch.float32, device=dev)
     Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
     tables = fam.tables(model)
+    race_kw = fam.race_kw(model)
     k = 0
     while bool(coord.min() < target):
         if fam.resync is not None:
@@ -104,7 +105,7 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
         cs, es = fam.race(
             sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
             n_moves=chunk_moves, beta_s=beta * model.scale, target=target,
-            seed=seed, move0=k * chunk_moves)
+            seed=seed, move0=k * chunk_moves, **race_kw)
         Es = fill_checkpoints(Es, step, x_start, e_start, cs,
                               model.to_physical(es))
         k += 1

@@ -7,7 +7,10 @@ Every race wrapper takes the model's resident state and E as
 place, and E in its dtype; the replica composites keep their base fields and
 float32 physical energies), `beta_s = beta * model.scale`, and the model's
 tables as `tables(model)` gives them; every EO wrapper takes the same state
-and tables and the rank table, plus `eo_kw(model)`. A family without an EO
+and tables and the rank table, plus `eo_kw(model)`. The race wrappers of
+the fused kernels (sparse, pspin, replica) also take `race_kw(model)`: the
+bound on their resident fields |lf| over every configuration, from which
+they pick the fields' resident type. A family without an EO
 kernel (the replica composites, in either package) has `eo` None. A family
 whose float32 running E drifts (the xentr perceptron) resyncs it from the
 resident state at every chunk boundary through `resync(model, state, E)`.
@@ -32,8 +35,9 @@ from ..ops.pspin import pspin_rejfree_ok, rejfree_pspin_chunk
 from ..ops.rejfree import rejfree_sparse_chunk, sparse_rejfree_ok
 from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
                                  rejfree_dense_chunk)
-from ..ops.replica import (rejfree_replica_chunk, replica_dense_ok,
-                           replica_sparse_ok, replica_state, replica_tables)
+from ..ops.replica import (rejfree_replica_chunk, replica_base,
+                           replica_dense_ok, replica_sparse_ok,
+                           replica_state, replica_tables)
 from ..ops.sat import rejfree_sat_chunk, sat_rejfree_ok, sat_tables
 
 #: the models the kernels take, as the samplers' errors state it
@@ -43,6 +47,10 @@ ELIGIBLE = ("a Pairwise model with N >= 8, a FullyConnected one with N >= 8 "
             "Perceptron with an odd N >= 9 and a step, linear or xentr "
             "loss, or a GraphQuant / GraphRobustEnsemble composite over "
             "such a Pairwise or FullyConnected base")
+
+
+def _no_kw(model) -> dict:
+    return {}
 
 
 class Family(NamedTuple):
@@ -55,7 +63,8 @@ class Family(NamedTuple):
     the pairwise EO wrappers take it as half_max, the hypergraph ones read
     it off their tables), and the resident fields one applied flip
     updates; the kernels' resident state (`aux_state` when None); and
-    the resync of a drifting float32 E at chunk boundaries (None: none)."""
+    the resync of a drifting float32 E at chunk boundaries (None: none);
+    and the race wrapper's further keyword arguments."""
     name: str
     eligible: Callable
     race: Callable
@@ -66,6 +75,7 @@ class Family(NamedTuple):
     flip_sites: Callable
     state: Optional[Callable] = None
     resync: Optional[Callable] = None
+    race_kw: Callable = _no_kw
 
 
 def aux_state(model, sigma, E):
@@ -94,8 +104,10 @@ def _pairwise_kw(model) -> dict:
     return {"half_max": half_bound(model)}
 
 
-def _no_kw(model) -> dict:
-    return {}
+def _replica_race_kw(model) -> dict:
+    """The composite race's bound: its base's (the base fields are
+    resident)."""
+    return {"field_bound": half_bound(replica_base(model))}
 
 
 FAMILIES = (
@@ -104,10 +116,12 @@ FAMILIES = (
            lambda m: m.N),
     Family("sparse", sparse_rejfree_ok, rejfree_sparse_chunk,
            eo_sparse_chunk, lambda m: (m.neigh, m.J), _pairwise_kw,
-           half_bound, lambda m: m.K),
+           half_bound, lambda m: m.K,
+           race_kw=lambda m: {"field_bound": half_bound(m)}),
     # key sigma_i c_i, |c_i| <= K; a flip moves the 2K partners' sums
     Family("pspin", pspin_rejfree_ok, rejfree_pspin_chunk, eo_pspin_chunk,
-           lambda m: (m.A,), _no_kw, lambda m: m.K, lambda m: 2 * m.K),
+           lambda m: (m.A,), _no_kw, lambda m: m.K, lambda m: 2 * m.K,
+           race_kw=lambda m: {"field_bound": m.K}),
     # key dE_i, |dE_i| <= Cmax; a flip moves the dE of the K variables of
     # each of the winner's Cmax clauses
     Family("sat", sat_rejfree_ok, rejfree_sat_chunk, eo_sat_chunk,
@@ -121,10 +135,11 @@ FAMILIES = (
     # the dense base row, or the K of the sparse one, in the mover's replica
     Family("replica-dense", replica_dense_ok, rejfree_replica_chunk, None,
            replica_tables, _no_kw, lambda m: None, lambda m: m.Nk,
-           replica_state),
+           replica_state, race_kw=_replica_race_kw),
     Family("replica-sparse", replica_sparse_ok, rejfree_replica_chunk, None,
            replica_tables, _no_kw, lambda m: None,
-           lambda m: m.resid_m.base.K, replica_state),
+           lambda m: m.resid_m.base.K, replica_state,
+           race_kw=_replica_race_kw),
 )
 
 

@@ -6,6 +6,8 @@ sums are integers, so spins, E, coordinates, accepted counts, both streams,
 Emin, sigma_min and itmin agree bit for bit; the wtm clock and z/N within rtol
 1e-6 (XLA's and torch's float32 exp/log may differ in the last bit)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,8 @@ import torch
 
 import rrrmc_tpu as rt
 from rrrmc_tpu_torch.ops.eo_pspin import eo_pspin_chunk
-from rrrmc_tpu_torch.ops.pspin import pspin_rejfree_ok, rejfree_pspin_chunk
+from rrrmc_tpu_torch.ops.pspin import (pspin_rejfree_ok, rejfree_pspin_chunk,
+                                       rejfree_pspin_chunk_reference)
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype
 from rrrmc_tpu_torch.samplers.eo import rank_table
 
@@ -48,14 +51,17 @@ def _start(jm):
     return sigma, E0
 
 
-def _port_race(pm, sigma, E0, mode, target, NP):
+def _port_race(pm, sigma, E0, mode, target, NP, threads=None):
     sig = torch.from_numpy(sigma.copy())
     c = pm.local_fields(sig)
     E = torch.from_numpy(E0.copy())
     coord = torch.zeros(B, dtype=coord_dtype(mode))
     acc = torch.zeros(B, dtype=torch.int32)
     zacc = torch.zeros(B, dtype=torch.float32)
-    cs, es = rejfree_pspin_chunk(
+    # the wrapper, or the plain version summing z as `threads` threads do
+    chunk = rejfree_pspin_chunk if threads is None else functools.partial(
+        rejfree_pspin_chunk_reference, threads=threads)
+    cs, es = chunk(
         sig, c, E, coord, acc, zacc, pm.A, mode=mode, n_moves=N_MOVES,
         beta_s=BETA * pm.scale, target=target, seed=SEED,
         bits=race_bits(SEED, B, pm.N, NP))
@@ -64,13 +70,17 @@ def _port_race(pm, sigma, E0, mode, target, NP):
         es=es).items()}
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_race_matches_jax_interpret(pallas, mode, name):
+@pytest.mark.parametrize("mode,name,threads", [
+    *(pytest.param(m, n, None, id=f"{m}-{n}")
+      for m in ("bkl", "wtm", "rrr") for n in MODELS),
+    pytest.param("rrr", "PSpin3(48, 3)", 1024,
+                 id="rrr-PSpin3(48, 3)-1024threads")])
+def test_race_matches_jax_interpret(pallas, mode, name, threads):
     """One chunk of N_MOVES moves from the same spins and bits; the target
     (the median coordinate of an unbounded run, half the chunk for rrr)
     stops chains mid-chunk, so the masking of finished chains is compared
-    too."""
+    too. The plain version sums z as a block of `threads` threads does
+    (by default 256; one case at 1024)."""
     rp, _ = pallas
     jm = MODELS[name]()
     pm = port_pspin(jm)
@@ -79,7 +89,7 @@ def test_race_matches_jax_interpret(pallas, mode, name):
     rf = rp.PallasRejectionFree(jm, BETA, mode, chunk_moves=N_MOVES)
     assert rf.kind == "pspin"
     free = _port_race(pm, sigma, E0, mode, 1e30 if mode == "wtm" else 2 ** 30,
-                      rf.NP)
+                      rf.NP, threads)
     target = {"wtm": float(np.median(free["coord"])),
               "bkl": int(np.median(free["coord"])),
               "rrr": N_MOVES // 2}[mode]
@@ -88,7 +98,7 @@ def test_race_matches_jax_interpret(pallas, mode, name):
                    seed=SEED, target=target)
     j = {k: np.asarray(v) for k, v in zip(
         ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
-    p = _port_race(pm, sigma, E0, mode, target, rf.NP)
+    p = _port_race(pm, sigma, E0, mode, target, rf.NP, threads)
     done = (j["coord"] >= target).sum()
     assert 0 < done < B or mode == "rrr", done
     for key in ("sigma", "E", "acc", "es"):

@@ -5,6 +5,8 @@ graphs, and the lattice kernel (`_rejfree_kernel`, which the port folds into
 the sparse one) on EA lattices; plus the port's Philox streams and
 eligibility rule."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,8 @@ import torch
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import rejfree
-from rrrmc_tpu_torch.ops.rejfree import coord_dtype, rejfree_sparse_chunk
+from rrrmc_tpu_torch.ops.rejfree import (coord_dtype, rejfree_sparse_chunk,
+                                         rejfree_sparse_chunk_reference)
 
 from torch_port_helpers import (CPU, lattice_race_bits, pallas_interpret,
                                 port_lattice, port_model, race_bits,
@@ -37,7 +40,17 @@ def rejfree_pallas():
         yield rp
 
 
-def _port_chunk(jm, sigma, E0, mode, bits=None, chain0=0, seed=SEED):
+def _chunk(threads):
+    """The wrapper (its plain version on the CPU, 256 threads' order of
+    additions), or the plain version summing z as a block of `threads`
+    threads does."""
+    if threads is None:
+        return rejfree_sparse_chunk
+    return functools.partial(rejfree_sparse_chunk_reference, threads=threads)
+
+
+def _port_chunk(jm, sigma, E0, mode, bits=None, chain0=0, seed=SEED,
+                threads=None):
     pm = port_model(jm)
     flt = pm.J.dtype == torch.float32
     sig = torch.from_numpy(sigma.copy())
@@ -50,7 +63,7 @@ def _port_chunk(jm, sigma, E0, mode, bits=None, chain0=0, seed=SEED):
     coord = torch.zeros(n, dtype=coord_dtype(mode))
     acc = torch.zeros(n, dtype=torch.int32)
     zacc = torch.zeros(n, dtype=torch.float32)
-    cs, es = rejfree_sparse_chunk(
+    cs, es = _chunk(threads)(
         sig, lf, E, coord, acc, zacc, pm.neigh, pm.J, mode=mode,
         n_moves=N_MOVES, beta_s=BETA * pm.scale, target=TARGETS[mode],
         seed=seed, chain0=chain0, bits=bits)
@@ -58,15 +71,19 @@ def _port_chunk(jm, sigma, E0, mode, bits=None, chain0=0, seed=SEED):
                     cs=cs, es=es)
 
 
-@pytest.mark.parametrize("coupling", ["pm_j", "normal"])
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_chunk_matches_jax_interpret(rejfree_pallas, mode, coupling):
+@pytest.mark.parametrize("mode,coupling,threads", [
+    *(pytest.param(m, c, None, id=f"{m}-{c}")
+      for m in ("bkl", "wtm", "rrr") for c in ("pm_j", "normal")),
+    pytest.param("rrr", "pm_j", 1024, id="rrr-pm_j-1024threads")])
+def test_chunk_matches_jax_interpret(rejfree_pallas, mode, coupling,
+                                     threads):
     """Integer couplings: sigma, E, coord, acc and both streams EQUAL (the
     wtm clock, a float32 sum of exp(min score), and z/N within rtol 1e-6:
     XLA's and torch's float32 exp/log may differ in the last bit). Float
     couplings: at most one chain of 128 may diverge (a last-bit difference
     can flip a borderline race or acceptance); on the others E within 1e-4,
-    coordinates and z/N within rtol 1e-5."""
+    coordinates and z/N within rtol 1e-5. The plain version sums z as a
+    block of `threads` threads does (256, and one case at 1024)."""
     jm = (rt.GraphRRG(64, 3, (-1, 1), seed=3) if coupling == "pm_j"
           else rt.GraphRRGNormal(64, 3, seed=4))
     flt = coupling == "normal"
@@ -83,7 +100,7 @@ def test_chunk_matches_jax_interpret(rejfree_pallas, mode, coupling):
         ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
 
     pm, p = _port_chunk(jm, sigma, E0, mode,
-                        bits=race_bits(SEED, B, jm.N, rf.NP))
+                        bits=race_bits(SEED, B, jm.N, rf.NP), threads=threads)
     p = {k: v.numpy() for k, v in p.items()}
     done = (j["coord"] >= TARGETS[mode]).sum()
     assert 0 < done < B or mode == "rrr", done   # the masking is exercised
@@ -115,16 +132,20 @@ def test_chunk_matches_jax_interpret(rejfree_pallas, mode, coupling):
 LATTICE_TARGETS = {"bkl": 200, "wtm": 3.1, "rrr": 40}
 
 
-@pytest.mark.parametrize("beta", [1.0, 2.0])
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_lattice_chunk_matches_jax_interpret(rejfree_pallas, mode, beta):
+@pytest.mark.parametrize("mode,beta,threads", [
+    *(pytest.param(m, b, None, id=f"{m}-{b}")
+      for m in ("bkl", "wtm", "rrr") for b in (1.0, 2.0)),
+    pytest.param("bkl", 2.0, 1024, id="bkl-2.0-1024threads")])
+def test_lattice_chunk_matches_jax_interpret(rejfree_pallas, mode, beta,
+                                             threads):
     """A LatticeEA is a sparse Pairwise with K = 2D to the race: the port's
     race chunk on EA-3D L=4 +-J equals the JAX lattice kernel
     (`_pallas_rejfree_chunk`, lattice local fields by rolls) with its bits
     mapped (the bkl skip at salt 3m + 1). Spins, E, acc, the E stream and
     the bkl / rrr coordinates are EQUAL; the wtm clock and z/N within
     rtol 1e-6, float32 sums taken in another order (the JAX kernel sums
-    exp(-bE), the port a shifted log-sum-exp)."""
+    exp(-bE), the port a shifted log-sum-exp, as a block of `threads`
+    threads sums it)."""
     jm = rt.GraphEA(4, 3, (-1, 1), seed=4)
     N = jm.N
     rng = np.random.default_rng(8)
@@ -152,7 +173,7 @@ def test_lattice_chunk_matches_jax_interpret(rejfree_pallas, mode, beta):
     coord = torch.zeros(B, dtype=coord_dtype(mode))
     acc = torch.zeros(B, dtype=torch.int32)
     zacc = torch.zeros(B, dtype=torch.float32)
-    cs, es = rejfree_sparse_chunk(
+    cs, es = _chunk(threads)(
         sig, lf, E, coord, acc, zacc, pm.neigh, pm.J, mode=mode,
         n_moves=N_MOVES, beta_s=beta * pm.scale, target=target,
         seed=SEED, bits=lattice_race_bits(SEED, B, N))
@@ -190,14 +211,18 @@ def test_chunk_independent_of_batch_layout(mode):
         assert torch.equal(v, cat), key
 
 
-@pytest.mark.parametrize("n", [64, 1000])
-def test_block_sum_follows_kernel_order(n):
-    """The plain version's z sum adds in the CUDA kernel's order (strided
-    per-thread sums, a pairwise fold within each warp, the warps in turn),
-    spelled out here one float32 addition at a time."""
+@pytest.mark.parametrize("n,T", [
+    *(pytest.param(n, rejfree.THREADS, id=str(n)) for n in (64, 1000)),
+    *(pytest.param(n, t, id=f"{n}-{t}threads") for t in (512, 1024)
+      for n in (64, 1000, 2500))])
+def test_block_sum_follows_kernel_order(n, T):
+    """The plain version's z sum adds in the CUDA kernels' order with T
+    threads a block (strided per-thread sums, a pairwise fold within each
+    warp, the warps in turn), spelled out here one float32 addition at a
+    time: T = 256 for race.cuh's log_z, 256, 512 or 1024 for its fused
+    pass."""
     rng = np.random.default_rng(n)
     x = rng.exponential(size=(3, n)).astype(np.float32)
-    T = rejfree.THREADS
     want = []
     for row in x:
         part = [np.float32(0)] * T
@@ -214,7 +239,7 @@ def test_block_sum_follows_kernel_order(n):
         for v in warps[1:]:
             s = np.float32(s + v)
         want.append(s)
-    got = rejfree.block_sum(torch.from_numpy(x)).numpy()
+    got = rejfree.block_sum(torch.from_numpy(x), T).numpy()
     np.testing.assert_array_equal(got, np.array(want, np.float32))
     np.testing.assert_allclose(got, x.astype(np.float64).sum(1), rtol=1e-5)
 

@@ -10,6 +10,8 @@ tests/test_torch_replica_laws.py.
 The TPU kernels need Nk % 128 == 0 and 128 chains, so the JAX side runs at
 Nk = 128, M = 3, 128 chains, one short chunk."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +20,9 @@ import torch
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype
-from rrrmc_tpu_torch.ops.replica import (ReplicaTables, rejfree_replica_chunk,
-                                         replica_state, replica_tables)
+from rrrmc_tpu_torch.ops.replica import (
+    ReplicaTables, rejfree_replica_chunk, rejfree_replica_chunk_reference,
+    replica_state, replica_tables)
 from rrrmc_tpu_torch.ops.replica_sweep import (ReplicaSweeper,
                                                replica_sweep_chunk)
 
@@ -58,13 +61,16 @@ def _start(pm):
     return sigma, pm.energy(torch.from_numpy(sigma)).numpy()
 
 
-def _port_race(pm, beta, mode, sigma, E0, target, bits):
+def _port_race(pm, beta, mode, sigma, E0, target, bits, threads=None):
     sig = torch.from_numpy(sigma.copy())
     lf, E = replica_state(pm, sig, torch.from_numpy(E0))
     coord = torch.zeros(B, dtype=coord_dtype(mode))
     acc = torch.zeros(B, dtype=torch.int32)
     zacc = torch.zeros(B, dtype=torch.float32)
-    cs, es = rejfree_replica_chunk(
+    # the wrapper, or the plain version summing z as `threads` threads do
+    chunk = rejfree_replica_chunk if threads is None else functools.partial(
+        rejfree_replica_chunk_reference, threads=threads)
+    cs, es = chunk(
         sig, lf, E, coord, acc, zacc, *replica_tables(pm), mode=mode,
         n_moves=N_MOVES, beta_s=beta, target=target, seed=SEED, bits=bits)
     return {k: v.numpy() for k, v in dict(
@@ -72,14 +78,14 @@ def _port_race(pm, beta, mode, sigma, E0, target, bits):
         es=es).items()}
 
 
-def _target(pm, beta, mode, sigma, E0, bits):
+def _target(pm, beta, mode, sigma, E0, bits, threads=None):
     """The chunk's target: the median coordinate of a probe run with an
     unreachable one, so that about half the chains stop mid-chunk and the
     masking is compared too (rrr: every chain makes every move)."""
     if mode == "rrr":
         return N_MOVES
     p = _port_race(pm, beta, mode, sigma, E0, 1e30 if mode == "wtm"
-                   else 2 ** 30, bits)
+                   else 2 ** 30, bits, threads)
     med = float(np.median(p["coord"]))
     return med if mode == "wtm" else int(med)
 
@@ -112,11 +118,20 @@ def _compare(p, j, mode, target):
     np.testing.assert_allclose(p["zacc"], j["zacc"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("term", ["ring", "star"])
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_dense_race_matches_jax_interpret(quant_pallas, mode, term):
+def _cases(extra):
+    """(mode, term, threads) cases: each mode and term at the default block
+    size, and the (mode, term) `extra` at 1024 threads."""
+    return [*(pytest.param(m, t, None, id=f"{m}-{t}")
+              for m in ("bkl", "wtm", "rrr") for t in ("ring", "star")),
+            pytest.param(*extra, 1024,
+                         id=f"{extra[0]}-{extra[1]}-1024threads")]
+
+
+@pytest.mark.parametrize("mode,term,threads", _cases(("bkl", "ring")))
+def test_dense_race_matches_jax_interpret(quant_pallas, mode, term, threads):
     """The plain race over a dense base against `_ring_rejfree_kernel` on
-    the TPU kernel's bits (race at salt 3m, rrr and bkl at 3m + 1)."""
+    the TPU kernel's bits (race at salt 3m, rrr and bkl at 3m + 1); z summed
+    as a block of `threads` threads sums it (by default 256)."""
     qp = quant_pallas
     build, beta = DENSE[term]
     jm = build()
@@ -125,7 +140,7 @@ def test_dense_race_matches_jax_interpret(quant_pallas, mode, term):
     spec = qp.composite_spec(jm)
     assert spec is not None and spec["term"] == term
     bits = race_bits(SEED, B, pm.N, pm.N, skip_salt=1)
-    target = _target(pm, beta, mode, sigma, E0, bits)
+    target = _target(pm, beta, mode, sigma, E0, bits, threads)
     (E, coord, acc, zacc), kw = _jax_args(mode, E0, target)
     out = qp._pallas_ring_rejfree_chunk(
         jnp.asarray(sigma), E, coord, acc, zacc, spec["Jb"], spec["hph"],
@@ -134,23 +149,25 @@ def test_dense_race_matches_jax_interpret(quant_pallas, mode, term):
         n_moves=N_MOVES, mode=mode, flt=spec["flt"])
     j = {k: np.asarray(v) for k, v in zip(
         ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
-    p = _port_race(pm, beta, mode, sigma, E0, target, bits)
+    p = _port_race(pm, beta, mode, sigma, E0, target, bits,
+                   threads)
     _compare(p, j, mode, target)
 
 
-@pytest.mark.parametrize("term", ["ring", "star"])
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_sparse_race_matches_jax_interpret(quant_pallas, mode, term):
+@pytest.mark.parametrize("mode,term,threads", _cases(("rrr", "star")))
+def test_sparse_race_matches_jax_interpret(quant_pallas, mode, term,
+                                           threads):
     """The plain race over a sparse base against `_sparse_comp_kernel` on
     the TPU kernel's bits (race at salt 3m, rrr at 3m + 1, bkl at 3m + 2);
-    the resident int32 base fields EQUAL too."""
+    the resident int32 base fields EQUAL too. z summed as a block of
+    `threads` threads sums it (by default 256)."""
     qp = quant_pallas
     build, beta = SPARSE[term]
     jm = build()
     pm = port_composite(jm)
     sigma, E0 = _start(pm)
     bits = race_bits(SEED, B, pm.N, pm.N, skip_salt=2)
-    target = _target(pm, beta, mode, sigma, E0, bits)
+    target = _target(pm, beta, mode, sigma, E0, bits, threads)
     s = qp.composite_sparse_spec(jm)
     assert s is not None and s["NkP"] == NK and not s["flt"]
     sigp, lfT = qp._sparse_comp_prep(jm.resid_m.base, jnp.asarray(sigma),
@@ -163,7 +180,8 @@ def test_sparse_race_matches_jax_interpret(quant_pallas, mode, term):
         n_moves=N_MOVES, mode=mode, flt=False)
     j = {k: np.asarray(v) for k, v in zip(
         ("sigma", "lf", "E", "coord", "acc", "zacc", "cs", "es"), out)}
-    p = _port_race(pm, beta, mode, sigma, E0, target, bits)
+    p = _port_race(pm, beta, mode, sigma, E0, target, bits,
+                   threads)
     _compare(p, j, mode, target)
     np.testing.assert_array_equal(p["lf"], j["lf"].T)
 
