@@ -104,7 +104,13 @@ and linear must agree bit for bit, stabilities, E and z/N included. The
 plain version of xentr computes g with torch's exp and log1p and adds the
 product in the kernel's order, so it agrees bit for bit too on this card;
 it is held to `_compare`'s float rule (at most one diverged chain, E within
-1e-5 * N, z/N and the wtm clock within rtol 1e-4). `_ops_perc` counts the
+1e-5 * N, z/N and the wtm clock within rtol 1e-4). The race kernel reads
+the patterns as bits (ops/perc.py::pack_patterns), in shared memory on
+these models; `hyper_fused_cases` also holds it with the bits in global
+memory (GraphPercStep(1023, 2047)) and at the block size the path does
+not pick, and the SAT race likewise (256 threads, the all-up
+`sat_chain` start where every flip raises E, and at SAT_WIDE_N variables,
+the earlier SAT kernel's largest N at alpha = 4.2). `_ops_perc` counts the
 bound's operations: the g pass, the full product xi^T g (2 N P a move,
 twice for rrr; at the int8 tensor-core rate for step and linear, whose
 operands fit int8, as the TPU kernel ran it on its MXU; xentr's float32
@@ -212,6 +218,9 @@ EO_ROW_RTOL = 0.02
 PSPIN_N, PSPIN_K, PSPIN_SEED, SAT_N, SAT_K, SAT_ALPHA = 7500, 3, 7, 10_000, \
     3, 4.2
 HYPER_CHAINS, PS_BETA_BKL, PS_BETA_RRR, SAT_BETA = 128, 1.5, 1.0, 4.0
+#: the SAT race's largest N at alpha = 4.2 before its dE went to 16 bits
+#: (int32 dE: 4 N + N + 4.2 N bytes within 227 KB), held at a few chains
+SAT_WIDE_N, SAT_WIDE_CHAINS = 25_250, 8
 PS_ITERS_BKL, PS_ITERS_RRR, PS_WTM_SAMPLES = 2_000_000, 100_000, 200
 SAT_ITERS_BKL, SAT_ITERS_RRR, SAT_WTM_SAMPLES = 4_000_000, 50_000, 200
 SAT_EO_MOVES, SAT_EO_RTOL = 30_000, 0.05
@@ -544,19 +553,23 @@ def sweep_case(model, label, B, card):
 
 def _fused():
     """The wrappers of the fused race kernels (rejfree_sparse.cu with the
-    pairwise or the hypergraph flip, rejfree_replica.cu), whose block size
-    and resident type the launch rule picks (ops/rejfree.py::fused_plan)."""
-    from rrrmc_tpu_torch.ops import pspin, rejfree, replica
+    pairwise or the hypergraph flip, rejfree_replica.cu, rejfree_sat.cu,
+    rejfree_perc.cu), whose block size and resident type the launch rule
+    picks (ops/rejfree.py::fused_plan)."""
+    from rrrmc_tpu_torch.ops import perc, pspin, rejfree, replica, sat
 
     return (rejfree.rejfree_sparse_chunk, pspin.rejfree_pspin_chunk,
-            replica.rejfree_replica_chunk)
+            replica.rejfree_replica_chunk, sat.rejfree_sat_chunk,
+            perc.rejfree_perc_chunk)
 
 
 def plan_text(plan) -> str:
     """A fused launch's plan (ops/rejfree.py's LAST_PLAN) as printed."""
     if not plan:
         return ""
-    return (f" [T={plan['threads']}, {plan['field']} fields, "
+    where = (f", patterns in {plan['patterns']} memory"
+             if "patterns" in plan else "")
+    return (f" [T={plan['threads']}, {plan['field']} fields{where}, "
             f"{plan['blocks_per_sm']} blocks/SM, {plan['smem']} shared "
             f"bytes, {plan['registers']} registers, {plan['spill_bytes']} "
             f"local bytes]")
@@ -814,23 +827,31 @@ def spill_bytes(log: str) -> dict:
 def fused_local_bytes() -> dict:
     """{function name: the most local bytes a thread (spills included) over
     every instantiation of the fused race kernels, every block size,
-    resident type, coordinate type and term}, from the CUDA runtime's
-    function attributes: known whether or not this run built the library."""
+    resident type, coordinate type, term, perceptron family and pattern
+    memory}, from the CUDA runtime's function attributes: known whether or
+    not this run built the library."""
     from rrrmc_tpu_torch.ops import cuda_build, rejfree
+    from rrrmc_tpu_torch.ops.perc import FAMILY_CODES
 
     lib = cuda_build.library()
-    out = {"rejfree_sparse_kernel": 0, "rejfree_replica_kernel": 0}
+    out = {"rejfree_sparse_kernel": 0, "rejfree_replica_kernel": 0,
+           "rejfree_sat_kernel": 0, "rejfree_perc_kernel": 0}
     for t in rejfree.FUSED_THREADS:
-        for field in rejfree.FIELD_CODES.values():
-            for wtm in (0, 1):
-                heads = [("rejfree_sparse_kernel",
-                          lib.rrrmc_rejfree_sparse_info, (field, wtm))]
+        for wtm in (0, 1):
+            heads = [("rejfree_sat_kernel", lib.rrrmc_rejfree_sat_info,
+                      (wtm,))]
+            heads += [("rejfree_perc_kernel", lib.rrrmc_rejfree_perc_info,
+                       (fam, wtm, sx)) for fam in FAMILY_CODES.values()
+                      for sx in (0, 1)]
+            for field in rejfree.FIELD_CODES.values():
+                heads += [("rejfree_sparse_kernel",
+                           lib.rrrmc_rejfree_sparse_info, (field, wtm))]
                 heads += [("rejfree_replica_kernel",
                            lib.rrrmc_rejfree_replica_info, (field, star, wtm))
                           for star in (0, 1)]
-                for fn, entry, head in heads:
-                    local = rejfree.info_fn(entry, *head, device=0)(t, 0)[2]
-                    out[fn] = max(out[fn], local)
+            for fn, entry, head in heads:
+                local = rejfree.info_fn(entry, *head, device=0)(t, 0)[2]
+                out[fn] = max(out[fn], local)
     return out
 
 
@@ -907,6 +928,98 @@ def fused_cases(card):
             require(c["plan"]["field"] == want[key],
                     f"{key}: resident {c['plan']['field']}, not {want[key]}")
     return cases
+
+
+def sat_chain(n):
+    """A 3-SAT instance whose all-up start has every dE = +1: clause v holds
+    v (+), v + 1 (-) and v + 2 (-) mod n, so under all spins up v is its
+    clause's sole satisfier and breaks it when flipped, and its other two
+    clauses stay satisfied by their own first variable."""
+    import numpy as np
+    import rrrmc_tpu_torch as rt
+
+    v = np.arange(n)
+    A = np.stack([v, (v + 1) % n, (v + 2) % n], axis=1)
+    L = np.tile(np.array([1, -1, -1]), (n, 1))
+    return rt.make_sat(n, A, L, device=DEV)
+
+
+def hyper_fused_cases(card):
+    """The SAT and perceptron race kernels (rejfree_sat.cu, rejfree_perc.cu)
+    against their plain versions where the main paths' cases do not reach:
+    each at the block size its path does not pick (pinned: SAT at 256
+    threads, its path running 512 at 128 chains; the perceptrons at 512,
+    their path running 256, too few sites a thread for 512), SAT rrr and
+    bkl from a start whose least bE is above 0 (`sat_chain`, all up, beta =
+    4: the fused pass sums z a second time), the perceptrons at 512
+    threads on step, linear and xentr (xentr within `_compare`'s float
+    rule, which it meets bit for bit on this card), and the pattern bits
+    in global memory on GraphPercStep(1023, 2047) (262 KB of bits, above a
+    block's shared memory) at both block sizes, and SAT at SAT_WIDE_N
+    variables, the earlier SAT kernel's largest N at alpha = 4.2, at both
+    block sizes. Every integer case bit for bit. Appended after the
+    perceptron path's cases, so that the kernels' rows keep their main-path
+    cases."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import sat as sat_ops
+    from rrrmc_tpu_torch.ops.rejfree import pinned_threads
+
+    B = HYPER_CHAINS
+    sat = rt.GraphSAT(SAT_N, SAT_K, SAT_ALPHA, seed=SEED, device=DEV)
+    chain = sat_chain(SAT_N)
+    up = torch.ones((B, chain.N), dtype=torch.int8, device=DEV)
+    de = sat_ops.de_flip(chain.T, chain.TL)[0](up, chain.init_aux(up))
+    least = float((SAT_BETA * de.clamp(min=0).float()).min())
+    require(least > 0, f"SAT chain all up: the start's least bE is {least}")
+    step = rt.GraphPercStep(PERC_N, PERC_P, seed=PERC_SEED, device=DEV)
+    lin = rt.GraphPercLinear(PERC_N, PERC_P, seed=PERC_SEED, device=DEV)
+    xen = rt.GraphPercXEntr(PERC_N, PERC_P, PERC_LAM, seed=PERC_SEED,
+                            device=DEV)
+    wide = rt.GraphPercStep(PERC_N, 4 * PERC_P + 3, seed=PERC_SEED,
+                            device=DEV)
+
+    def perc_case(model, label, mode, threads, n_moves=CMP_MOVES):
+        xentr = model is xen
+        with pinned_threads(threads):
+            return rejfree_case(
+                model, f"{label}({PERC_N}, {model.P})", mode, card,
+                kernel="rejfree_perc", B=PERC_CHAINS, beta=PERC_BETA,
+                n_moves=n_moves,
+                ops=lambda moves, applied: _ops_perc(
+                    PERC_N, model.P, moves, mode, xentr))
+
+    # (case, the block size it must have run at; None: the rule's pick)
+    with pinned_threads(256):
+        held = [(rejfree_case(sat, "GraphSAT(10^4, 3, 4.2)", "bkl", card,
+                              kernel="rejfree_sat", B=B, beta=SAT_BETA,
+                              n_moves=CMP_MOVES), 256)]
+    wide_sat = rt.GraphSAT(SAT_WIDE_N, SAT_K, SAT_ALPHA, seed=SEED,
+                           device=DEV)
+    for threads, mode in ((256, "rrr"), (512, "bkl")):
+        with pinned_threads(threads):
+            held.append((rejfree_case(
+                wide_sat, f"GraphSAT({SAT_WIDE_N}, 3, 4.2)", mode, card,
+                kernel="rejfree_sat", B=SAT_WIDE_CHAINS, beta=SAT_BETA,
+                n_moves=CMP_MOVES), threads))
+    held += [(rejfree_case(chain, "SAT chain(10^4) all up", mode, card,
+                           kernel="rejfree_sat", B=B, beta=SAT_BETA,
+                           n_moves=CMP_MOVES, sigma=up), None)
+             for mode in ("rrr", "bkl")]
+    held += [(perc_case(step, "GraphPercStep", "bkl", 512), 512),
+             (perc_case(lin, "GraphPercLinear", "rrr", 512, CMP_MOVES // 2),
+              512),
+             (perc_case(xen, "GraphPercXEntr", "rrr", 512), 512),
+             (perc_case(wide, "GraphPercStep", "rrr", None), None),
+             (perc_case(wide, "GraphPercStep", "bkl", 512), 512)]
+    for c, threads in held:
+        require(threads is None or c["plan"]["threads"] == threads,
+                f"{c['kernel']} {c['case']}: T={c['plan']['threads']}")
+        if c["kernel"] == "rejfree_perc":
+            where = "global" if f", {wide.P})" in c["case"] else "shared"
+            require(c["plan"]["patterns"] == where,
+                    f"{c['case']}: patterns in {c['plan']['patterns']}")
+    return [c for c, _ in held]
 
 
 def _ops_replica(N, moves, applied, mode, flip_sites):
@@ -1973,6 +2086,7 @@ def main() -> int:
             model, label, PERC_CHAINS, card, "eo_perc",
             ops=lambda moves, bins, xentr=xentr: _ops_perc(
                 PERC_N, PERC_P, moves, "eo", xentr, bins)))
+    cases += hyper_fused_cases(card)
 
     rrg_records, rrg_counts = rrg_path(card)
     ea_records, ea_counts = ea_path(card)
@@ -2014,24 +2128,37 @@ def main() -> int:
     for c in cases:
         if c.get("plan"):
             seen.setdefault(c["kernel"], set()).add(
-                (c["plan"]["threads"], c["plan"]["field"]))
-    print(f"fused launches (T, field) held to their plain versions: "
-          f"{json.dumps({k: sorted(v) for k, v in seen.items()})}  [{card}]")
-    # every block size the rule picks on the paths and every resident type
-    # of both kernels was held
-    for source, entries in (
+                (c["plan"]["threads"], c["plan"]["field"],
+                 c["plan"].get("patterns", "-")))
+    print(f"fused launches (T, field, patterns) held to their plain "
+          f"versions: {json.dumps({k: sorted(v) for k, v in seen.items()})}"
+          f"  [{card}]")
+    # every block size the rule picks on the paths, every resident type of
+    # the sparse and replica kernels and both pattern memories of the
+    # perceptron kernel were held
+    every = set(rejfree.FUSED_THREADS)
+    for source, entries, fields, memories in (
             ("rejfree_sparse.cu", ("rejfree_sparse", "rejfree_lattice",
-                                   "rejfree_pspin")),
+                                   "rejfree_pspin"),
+             {"int8", "int16", "int32", "float32"}, {"-"}),
             ("rejfree_replica.cu", ("rejfree_replica",
-                                    "rejfree_replica_sparse"))):
+                                    "rejfree_replica_sparse"),
+             {"int8", "int16", "int32", "float32"}, {"-"}),
+            ("rejfree_sat.cu", ("rejfree_sat",), {"int16"}, {"-"}),
+            ("rejfree_perc.cu", ("rejfree_perc",), {"int16"},
+             {"shared", "global"})):
         got = set().union(*(seen.get(e, set()) for e in entries))
         for what, want, have in (
-                ("block sizes", set(rejfree.FUSED_THREADS),
-                 {t for t, _ in got}),
-                ("field types", {"int8", "int16", "int32", "float32"},
-                 {f for _, f in got})):
+                ("block sizes", every, {t for t, _, _ in got}),
+                ("field types", fields, {f for _, f, _ in got}),
+                ("pattern memories", memories, {m for _, _, m in got})):
             require(want <= have, f"{source}: {what} {sorted(have)} held, "
                                   f"not all of {sorted(want)}")
+        if source == "rejfree_perc.cu":
+            for m in memories:
+                require(every <= {t for t, _, mm in got if mm == m},
+                        f"{source}: patterns in {m} memory not held at "
+                        f"every block size")
 
     kernels = []
     for name, (replaces, source, function) in ENTRIES.items():

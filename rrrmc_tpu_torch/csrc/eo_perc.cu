@@ -5,7 +5,8 @@
 // eo.cuh's, with the key policy that ranks by lf itself: here lf holds dE,
 // the energy change of each flip (int32 for step and linear, float for
 // xentr), recomputed from the stabilities at every move by perc.cuh's
-// perc_de, as the race kernel computes it.
+// perc_de over the int8 patterns (the race kernel, rejfree_perc.cu, reads
+// them as bits instead).
 //
 // Resident in dynamic shared memory for the whole launch: dE, the select's
 // counters, the spins and the best spins (eo.cuh: EoChain), then g [P] and

@@ -1,7 +1,9 @@
-// Device code shared by the perceptron kernels (rejfree_perc.cu,
-// eo_perc.cu): the energy change of every flip from a chain's stabilities
-// Delta [P], resident in shared memory beside its spins, and the flip's
-// stability update. The plain versions are rrrmc_tpu_torch/ops/perc.py and
+// Device code of the perceptron kernels: the family codes and types and
+// g's terms (`perc_terms`, both kernels); for the EO kernel (eo_perc.cu)
+// the energy change of every flip from a chain's stabilities Delta [P],
+// resident in shared memory beside its spins, and the flip's stability
+// update (the race kernel, rejfree_perc.cu, computes both from the pattern
+// bits itself). The plain versions are rrrmc_tpu_torch/ops/perc.py and
 // ops/eo_perc.py (de_flip).
 //
 //   g pass   gm_a, gp_a elementwise in Delta_a (step: Delta == 1 and

@@ -1,9 +1,9 @@
 // Device code shared by the race kernels: one block per chain, block
 // reductions, the race over the sites and the shifted log-sum-exp of the
 // Boltzmann terms. `race` and `log_z` (one pass each, kRaceThreads threads)
-// serve rejfree_dense.cu, rejfree_sat.cu and rejfree_perc.cu; the fused
-// pass below (`fused_pass`, `race_moves`, T = 256 or 512 threads)
-// serves rejfree_sparse.cu and rejfree_replica.cu. The plain versions
+// serve rejfree_dense.cu; the fused pass below (`fused_pass`, `race_moves`,
+// T = 256 or 512 threads) serves rejfree_sparse.cu, rejfree_replica.cu,
+// rejfree_sat.cu and rejfree_perc.cu. The plain versions
 // (rrrmc_tpu_torch/ops/rejfree.py) add in the same order.
 #pragma once
 #include <cuda_runtime.h>
@@ -127,7 +127,7 @@ inline int race_max_smem(int device) {
   return optin - (int)sizeof(Reduce);
 }
 
-// ---- The fused pass (rejfree_sparse.cu, rejfree_replica.cu) ---------------
+// ---- The fused pass (the sparse, replica, SAT and perceptron races) -------
 //
 // One pass over a chain's N resident sites takes what `race` and `log_z`
 // took three: thread t of the T walks sites i = t + T r, r ascending
@@ -241,10 +241,10 @@ __device__ __forceinline__ void argmin_xor(float& v, int& idx, Pay& p,
 // One fused pass of a block of T threads over the N sites. site(i, pay, e)
 // returns site i's bE and sets its Pay and e = expf(0.0f - bE) (from a
 // table where bE takes few values); it is called for this thread's sites in
-// ascending order (a copy of site0 per pass, so a site walker may keep its
-// place in members). RACE: race the sites with the Philox words
-// of move mv; otherwise (rrr's z' pass) only min bE and log z. Every thread
-// returns the same `o`. One block barrier, two when min bE > 0; `r` and
+// ascending order (on a fresh copy of site0 for each walk over the sites,
+// so a site walker may keep its place in members; a lambda serves too).
+// RACE: race the sites with the Philox words of move mv; otherwise (rrr's
+// z' pass) only min bE and log z. Every thread returns the same `o`. One block barrier, two when min bE > 0; `r` and
 // f.z2 may be written again only after a further barrier.
 template <int T, bool RACE, typename Site>
 __device__ __forceinline__ void fused_pass(int N, uint32_t seed,
@@ -338,14 +338,14 @@ __device__ __forceinline__ void fused_pass(int N, uint32_t seed,
   for (int k = 1; k < W; ++k) z += r.z[k];
   if (mn != 0.0f) {
     // every flip raises E: sum exp(mn - bE) as log_z does
-    site = site0;
+    Site again = site0;
     zs = 0.0f;
     for (int rr = 0; rr < rows; ++rr) {
       const int i = tid + T * rr;
       if (i < N) {
         Pay p;
         float e;
-        zs += expf(mn - site(i, p, e));
+        zs += expf(mn - again(i, p, e));
       }
     }
     for (int o2 = 16; o2 > 0; o2 >>= 1)

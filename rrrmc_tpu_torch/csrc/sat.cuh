@@ -14,7 +14,9 @@
 // clause's two terms, O(Cmax K) shared-memory gathers. One thread takes one
 // clause slot of w (a clause holds w once: the wrapper refuses clauses with
 // a repeated variable); two clauses of w can share a variable, so dE moves
-// by shared atomics, exact and order-free in int32.
+// by shared atomics, exact and order-free: on int32 words (eo_sat.cu) or,
+// in the race (rejfree_sat.cu), on 16-bit halves of 32-bit words
+// (`DeNarrow`).
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -35,11 +37,37 @@ __device__ __forceinline__ int clause_term(int count, bool lit_true) {
   return (lit_true && count == 1 ? 1 : 0) - (count == 0 ? 1 : 0);
 }
 
+// dE in 16 bits a variable, two to a 32-bit word (the array 4-byte
+// aligned), each biased by 2^15: |dE| <= Cmax <= kDeNarrowMax, so neither
+// half leaves [1, 65535], and a 32-bit atomicAdd of a change shifted into
+// v's half moves that half alone
+struct DeNarrow {
+  uint16_t* h;
+  __device__ __forceinline__ int get(int v) const { return (int)h[v] - 32768; }
+};
+constexpr int kDeNarrowMax = 32767;
+
+// dE[v] = x, and dE[v] += x returning the old value: int32 words, or
+// DeNarrow
+__device__ __forceinline__ void de_set(int32_t* d, int v, int x) { d[v] = x; }
+__device__ __forceinline__ int de_add(int32_t* d, int v, int x) {
+  return atomicAdd(d + v, x);
+}
+__device__ __forceinline__ void de_set(DeNarrow d, int v, int x) {
+  d.h[v] = (uint16_t)(x + 32768);
+}
+__device__ __forceinline__ int de_add(DeNarrow d, int v, int x) {
+  const int sh = 16 * (v & 1);
+  const unsigned old = atomicAdd(reinterpret_cast<unsigned*>(d.h + (v & ~1)),
+                                 (unsigned)x << sh);
+  return (int)((old >> sh) & 0xffffu) - 32768;
+}
+
 // dE of every variable from the spins and the counts (after both are
 // loaded); the caller synchronises before reading dE
-template <int THREADS>
+template <int THREADS, typename DE>
 __device__ void sat_init_delta(const SatTables& t, const int8_t* sig,
-                               const uint8_t* cnt, int32_t* dE) {
+                               const uint8_t* cnt, DE dE) {
   for (int i = threadIdx.x; i < t.N; i += THREADS) {
     int s = 0;
     for (int c = 0; c < t.Cmax; ++c) {
@@ -47,18 +75,19 @@ __device__ void sat_init_delta(const SatTables& t, const int8_t* sig,
       const int lit = t.TL[(size_t)i * t.Cmax + c];
       if (a < t.Mc && lit != 0) s += clause_term(cnt[a], sig[i] == lit);
     }
-    dE[i] = s;
+    de_set(dE, i, s);
   }
 }
 
-// The flip of variable w from spin sw to -sw, by the whole block: counts
-// and dE (each change of dE[v] from `from` to `to` is reported to
-// moved(from, to), for the EO histogram). sig[w] itself is left to the
-// caller; the other variables' spins are only read. Every thread must call
-// it; the caller synchronises before and after.
-template <int THREADS, typename Moved>
+// The flip of variable w from spin sw to -sw by the first THREADS threads,
+// thread c taking clause slots c, c + THREADS, ...: counts and dE (each
+// change of dE[v] from `from` to `to` is reported to moved(from, to), for
+// the EO histogram). sig[w] itself is left to the caller; the other
+// variables' spins are only read. Each of those threads must call it; the
+// caller synchronises before and after.
+template <int THREADS, typename DE, typename Moved>
 __device__ void sat_flip(const SatTables& t, int w, int sw, const int8_t* sig,
-                         uint8_t* cnt, int32_t* dE, Moved moved) {
+                         uint8_t* cnt, DE dE, Moved moved) {
   const int ns = -sw;
   for (int c = threadIdx.x; c < t.Cmax; c += THREADS) {
     const size_t slot = (size_t)w * t.Cmax + c;
@@ -76,7 +105,7 @@ __device__ void sat_flip(const SatTables& t, int w, int sw, const int8_t* sig,
                  : clause_term(now, sig[v] == lit)
                        - clause_term(old, sig[v] == lit);
       if (delta != 0) {
-        const int from = atomicAdd(dE + v, delta);
+        const int from = de_add(dE, v, delta);
         moved(from, from + delta);
       }
     }

@@ -61,9 +61,9 @@ _SIGNATURES = {
     "rrrmc_eo_dense_max_smem": (_I, [_I]),
     "rrrmc_eo_pspin": (_I, [_P] * 8 + [_I, _I, _I, _I, _U, _U, _U, _I, _P]),
     "rrrmc_rejfree_sat": (_I, [_P] * 12 + [_I] * 6 + [_U, _U, _U, _F, _I,
-                                                     _F, _I, _P]),
-    "rrrmc_rejfree_sat_smem": (_Z, [_I, _I]),
-    "rrrmc_rejfree_sat_max_smem": (_I, [_I]),
+                                                     _F, _I, _I, _P]),
+    "rrrmc_rejfree_sat_smem": (_Z, [_I, _I, _I]),
+    "rrrmc_rejfree_sat_info": (_I, [_I, _I, _Z, _I, _P]),
     "rrrmc_eo_sat": (_I, [_P] * 11 + [_I] * 6 + [_U, _U, _U, _I, _P]),
     "rrrmc_eo_sat_smem": (_Z, [_I, _I, _I]),
     "rrrmc_eo_sat_max_smem": (_I, [_I]),
@@ -74,10 +74,11 @@ _SIGNATURES = {
     "rrrmc_rejfree_replica_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
     "rrrmc_replica_sweep": (_I, [_P] * 6 + [_I] * 4 + [_F, _U, _U, _U, _I,
                                                         _I, _P]),
-    "rrrmc_rejfree_perc": (_I, [_P] * 10 + [_I] * 5 + [_U, _U, _U, _F, _I,
-                                                       _F, _I, _I, _F, _P]),
-    "rrrmc_rejfree_perc_smem": (_Z, [_I, _I]),
-    "rrrmc_rejfree_perc_max_smem": (_I, [_I]),
+    "rrrmc_rejfree_perc": (_I, [_P] * 9 + [_I] * 4 + [_U, _U, _U, _F, _I,
+                                                      _F, _I, _I, _F, _I, _I,
+                                                      _I, _P]),
+    "rrrmc_rejfree_perc_smem": (_Z, [_I, _I, _I, _I, _I]),
+    "rrrmc_rejfree_perc_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
     "rrrmc_eo_perc": (_I, [_P] * 9 + [_I] * 5 + [_U, _U, _U, _I, _I, _F,
                                                   _P]),
     "rrrmc_eo_perc_smem": (_Z, [_I, _I, _I]),

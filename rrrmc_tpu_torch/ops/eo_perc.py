@@ -28,13 +28,14 @@ from .perc import FAMILY_CODES, check_perc_args, de_flip, table_family
 LAUNCHES = 0
 
 
-def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, cdf, *,
-                  n_moves: int, seed: int, move0: int = 0, chain0: int = 0,
-                  bits: Optional[BitsFn] = None):
+def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
+                  cdf, *, n_moves: int, seed: int, move0: int = 0,
+                  chain0: int = 0, bits: Optional[BitsFn] = None):
     """Advance every chain by `n_moves` EO moves, in place: the contract of
     ops/eo.py::eo_sparse_chunk, with the stabilities delta [B, P] int32 in
     the place of lf, E and emin int32 (float32 for xentr) and the tables of
-    ops/perc.py::perc_tables in the place of neigh/J. The key is dE: the
+    ops/perc.py::perc_tables in the place of neigh/J (it reads xi4 and xiT,
+    not the race kernel's bits xb). The key is dE: the
     kernel counts integer keys in 2 P + 1 histogram bins when that is at
     most HIST_MAX, else (and for xentr) it takes the radix select."""
     global LAUNCHES
@@ -43,10 +44,10 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, cdf, *,
     fam, c = check_perc_args(sigma, delta, E, {
         "emin": (emin, (B,), et), "smin": (smin, (B, N), torch.int8),
         "itmin": (itmin, (B,), torch.int32),
-        "cdf": (cdf, (N,), torch.float32)}, xi4, xiT, loss)
+        "cdf": (cdf, (N,), torch.float32)}, xi4, xiT, loss, xb)
     if sigma.device.type == "cpu":
         return eo_perc_chunk_reference(
-            sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, cdf,
+            sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb, cdf,
             n_moves=n_moves, seed=seed, move0=move0, chain0=chain0,
             bits=bits)
     if sigma.device.type != "cuda":
@@ -75,7 +76,7 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, cdf, *,
 
 
 def eo_perc_chunk_reference(sigma, delta, E, emin, smin, itmin, xi4, xiT,
-                            loss, cdf, *, n_moves: int, seed: int,
+                            loss, xb, cdf, *, n_moves: int, seed: int,
                             move0: int = 0, chain0: int = 0,
                             bits: Optional[BitsFn] = None):
     """Plain torch version of the perceptron EO kernel (same arguments and

@@ -19,21 +19,37 @@ the loss table. The integer families give dE = dE2 >> 1, exactly (dE2 is
 even); xentr dE = dE2 * 0.5 in float32. A flip of w moves the stabilities by
 -2 sigma_w xi[:, w].
 
-One thread block per chain keeps its spins (int8), stabilities (int32), g
-and dE (int32, float32 for xentr) in shared memory for the whole launch, 9 KB
-at N = 1023, P = 511; the stabilities come from the caller's [B, P] int32
-tensor (the model's aux) and are written back to it. The patterns stay in
-global memory, shared by every chain, in both orientations as int8: xi
-[P, 4 ceil(N/4)] (zero past N), read four sites a word for the product, and
-xi^T [N, P], whose row w is the flip's column. The product is written by
-hand: a thread takes four sites and adds xi_ai g_a over a = 0 .. P-1 in
-turn, in int32 for step and linear, in float32 for xentr; tot is a block
-sum in the order of ops/rejfree.py::block_sum. The TPU kernel padded to 128
-rows and ran the product and the rank-1 stability update on its MXU. Per
-move the kernel reads the N P pattern bytes once per product (twice for
-rrr, which recomputes dE at the tentative flip and undoes a rejected flip
-exactly), so it is bound by that stream from L2 and the products' integer
-or float operations.
+The EO kernel (one thread block per chain, 256 threads) keeps its spins
+(int8), stabilities (int32), g and dE (int32, float32 for xentr) in shared
+memory and reads the patterns from global memory, shared by every chain, in
+both orientations as int8: xi [P, 4 ceil(N/4)] (zero past N), four sites a
+word for the product, and xi^T [N, P], whose row w is the flip's column; a
+thread takes four sites and adds xi_ai g_a over a = 0 .. P-1 in turn, in
+int32 for step and linear, in float32 for xentr; tot is a block sum in the
+order of ops/rejfree.py::block_sum. The TPU kernels padded to 128 rows and
+ran the product and the rank-1 stability update on their MXU.
+
+The race kernel takes the patterns as bits instead: they are +-1 (the
+model's formula assumes it: N odd makes Delta odd; `perc_rejfree_ok` refuses
+other patterns), so `perc_tables` packs them once per sampler call into xb
+[ceil(P/32), N] words, word-major, bit a % 32 of xb[a // 32, i] set where
+xi_ai = +1, 64 KB at N = 1023, P = 511, which the kernel keeps in shared
+memory (read from global memory where they do not fit beside the state:
+the plan's "patterns", "shared" or "global"). After each flip it rebuilds
+g's state from the stabilities by warp ballots, as 0/1 masks m over the
+patterns: step one plane [Delta == 1] | [Delta == -1], linear two,
+[Delta < 2] and [Delta < 0], with g their sum; over +-1 patterns
+sum_a xi_ai m_a = 2 popc(x_i & m) - popc(m), exact integer arithmetic of
+ceil(P/32) AND + POPC a plane and a site. Xentr keeps g in float32 and adds
++-g_a in pattern order, the sign taken from the bit, which equals
+float(xi_ai) g_a. dE is computed by the site of race.cuh's fused pass
+itself (`race_moves`, the launch rule of ops/rejfree.py: 256 threads a
+chain, 1023 sites being too few a thread for 512), so the int8 pattern
+stream from L2 that set the earlier kernel's pace is gone; rrr's z' takes a
+second pass, and a rejected flip is undone exactly (integer stabilities).
+The plain version takes the block size (`threads`) for z's order and
+xentr's tot, and computes the product from the int8 patterns, never from
+the bits: it is the kernel's independent check.
 
 The race weighs site i by beta * scale * max(dE_i, 0), the port's
 convention, which gives the same float32 score as the TPU's
@@ -56,8 +72,9 @@ import numpy as np
 import torch
 
 from . import check_args, require_smem
-from .rejfree import BitsFn, MODES, block_sum, coord_dtype, \
-    race_chunk_reference
+from .rejfree import (BitsFn, FUSED_THREADS, LAST_PLAN, MODES, THREADS,
+                      block_sum, coord_dtype, fused_plan, info_fn,
+                      race_chunk_reference)
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
@@ -112,22 +129,50 @@ def perc_rejfree_ok(model) -> bool:
     the shared-memory limit is checked at launch): a Perceptron with
     N >= 8, N odd (the elementwise g of the step family assumes odd
     stabilities; the JAX rule omits it, and its kernels give a wrong dE at
-    even N) and a recognised family."""
+    even N), +-1 patterns (the model's formula assumes them, and the race
+    kernel holds one bit a pattern entry; the JAX kernels take any int8)
+    and a recognised family. The pattern check reads the device once."""
     from ..models.perceptron import Perceptron
 
     return (isinstance(model, Perceptron) and model.N >= 8
             and model.N % 2 == 1 and model.P >= 1
-            and perc_family(model) is not None)
+            and perc_family(model) is not None
+            and plus_minus_one(model.xi))
+
+
+def plus_minus_one(xi: torch.Tensor) -> bool:
+    """Whether every pattern entry is +1 or -1."""
+    return bool(((xi == 1) | (xi == -1)).all())
+
+
+def pack_patterns(xi: torch.Tensor) -> torch.Tensor:
+    """The race kernel's pattern bits of xi [P, N], which must be +-1 (a
+    ValueError otherwise): xb [ceil(P/32), N] int32 (the kernel reads
+    uint32), word-major, bit a % 32 of xb[a // 32, i] set where xi[a, i] =
+    +1; bits past P are 0."""
+    if not plus_minus_one(xi):
+        raise ValueError("the perceptron race kernel takes +-1 patterns")
+    P, N = xi.shape
+    W = -(-P // 32)
+    bits = torch.zeros((32 * W, N), dtype=torch.int64, device=xi.device)
+    bits[:P] = (xi > 0).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=xi.device)
+    words = (bits.view(W, 32, N) << shifts[:, None]).sum(1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32).contiguous()
 
 
 def perc_tables(model) -> tuple:
     """The kernels' tables of a Perceptron: (xi [P, 4 ceil(N/4)] int8, zero
-    past N; xi^T [N, P] int8; the loss table, which gives the family)."""
+    past N; xi^T [N, P] int8; the loss table, which gives the family; the
+    race kernel's pattern bits, `pack_patterns(model.xi)`, which the EO
+    kernel and the plain versions do not read)."""
     P, N = model.xi.shape
     xi4 = torch.zeros((P, -(-N // 4) * 4), dtype=torch.int8,
                       device=model.xi.device)
     xi4[:, :N] = model.xi
-    return xi4, model.xi.t().contiguous(), model.loss_table
+    return (xi4, model.xi.t().contiguous(), model.loss_table,
+            pack_patterns(model.xi))
 
 
 def perc_state(model, sigma, E):
@@ -144,7 +189,7 @@ def perc_resync(model, delta, E) -> None:
         E.copy_(model.energy_of(delta))
 
 
-def check_perc_args(sigma, delta, E, scalars: dict, xi4, xiT, loss):
+def check_perc_args(sigma, delta, E, scalars: dict, xi4, xiT, loss, xb):
     """check_args for the spins, stabilities, E, the wrapper's `scalars`
     and the tables; returns (family, c)."""
     B, N = sigma.shape
@@ -159,7 +204,8 @@ def check_perc_args(sigma, delta, E, scalars: dict, xi4, xiT, loss):
                 **scalars,
                 "xi4": (xi4, (P, -(-N // 4) * 4), torch.int8),
                 "xiT": (xiT, (N, P), torch.int8),
-                "loss": (loss, (N + 1,), et)}, sigma.device)
+                "loss": (loss, (N + 1,), et),
+                "xb": (xb, (-(-P // 32), N), torch.int32)}, sigma.device)
     return fam, c
 
 
@@ -180,13 +226,13 @@ def g_terms(fam: str, c: float, delta: torch.Tensor):
     return sp(nc * (d - 2.0)) - sp0, sp(nc * (d + 2.0)) - sp0
 
 
-def de_flip(fam: str, c: float, xi4, xiT, N: int):
+def de_flip(fam: str, c: float, xi4, xiT, N: int, threads: int = THREADS):
     """(de_of, delta_flipped) of the plain versions: de_of(sig, delta) the
     [B, N] energy changes from the stabilities (the kernels' arithmetic:
     the float product adds xi_ai g_a over a in turn, tot is summed in the
-    kernel's order), delta_flipped(sig, delta, win, d, do) a copy of the
-    stabilities with the winner win [B] flipped (d = -2 sigma_win) where
-    do."""
+    order of a block of `threads` threads), delta_flipped(sig, delta, win,
+    d, do) a copy of the stabilities with the winner win [B] flipped
+    (d = -2 sigma_win) where do."""
     xi = xi4[:, :N]
     xf = xi.to(torch.float32)
     P = xi.shape[0]
@@ -199,7 +245,7 @@ def de_flip(fam: str, c: float, xi4, xiT, N: int):
             proj = (g.to(torch.float64) @ xi.to(torch.float64)).to(
                 torch.int32)
             return (tot[:, None] + sig.to(torch.int32) * proj) >> 1
-        tot = block_sum(gm + gp)
+        tot = block_sum(gm + gp, threads)
         B = sig.shape[0]
         proj = torch.zeros((B, N), dtype=torch.float32, device=sig.device)
         # the terms xi_ai g_a (exact: xi = +-1) of a block of patterns at a
@@ -219,14 +265,19 @@ def de_flip(fam: str, c: float, xi4, xiT, N: int):
 
 
 def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
-                       *, mode: str, n_moves: int, beta_s: float, target,
+                       xb, *, mode: str, n_moves: int, beta_s: float, target,
                        seed: int, move0: int = 0, chain0: int = 0,
                        bits: Optional[BitsFn] = None):
     """Advance every chain by `n_moves` race moves, in place: the contract
     of ops/rejfree.py::rejfree_sparse_chunk, with the stabilities delta
     [B, P] int32 in the place of lf, E int32 (float32 for xentr) and the
-    tables of `perc_tables` in the place of neigh/J. beta_s = beta *
-    model.scale. Returns the per-move (coordinate, E) streams, each
+    tables of `perc_tables` in the place of neigh/J (xb the bits of xi4's
+    +-1 patterns, which the kernel reads in their place). beta_s = beta *
+    model.scale. On a CUDA tensor this launches the kernel with the launch
+    rule's block size, the bits in shared memory where they fit beside the
+    state, else in global memory (`LAST_PLAN["patterns"]`), and the step
+    and linear families' exp table over |dE| <= P; on a CPU tensor it runs
+    the plain version. Returns the per-move (coordinate, E) streams, each
     [n_moves, B]."""
     global LAUNCHES
     if mode not in MODES:
@@ -235,10 +286,10 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
     fam, c = check_perc_args(sigma, delta, E, {
         "coord": (coord, (B,), coord_dtype(mode)),
         "acc": (acc, (B,), torch.int32),
-        "zacc": (zacc, (B,), torch.float32)}, xi4, xiT, loss)
+        "zacc": (zacc, (B,), torch.float32)}, xi4, xiT, loss, xb)
     if sigma.device.type == "cpu":
         return rejfree_perc_chunk_reference(
-            sigma, delta, E, coord, acc, zacc, xi4, xiT, loss, mode=mode,
+            sigma, delta, E, coord, acc, zacc, xi4, xiT, loss, xb, mode=mode,
             n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
             move0=move0, chain0=chain0, bits=bits)
     if sigma.device.type != "cuda":
@@ -250,9 +301,28 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
     lib = library()
     P = xiT.shape[1]
     dev = sigma.device
-    require_smem(lib.rrrmc_rejfree_perc_smem(N, P),
-                 lib.rrrmc_rejfree_perc_max_smem(dev.index or 0), N,
-                 "perceptron race")
+    code = FAMILY_CODES[fam]
+    n_ez = 0 if fam == "xentr" else P + 1
+    wtm = int(mode == "wtm")
+
+    def plan(sx):
+        """(info, need) of the instantiations with the pattern bits in
+        shared memory (sx = 1) or in global memory."""
+        return (info_fn(lib.rrrmc_rejfree_perc_info, code, wtm, sx,
+                        device=dev.index or 0),
+                lib.rrrmc_rejfree_perc_smem(N, P, code, n_ez, sx))
+
+    # the pattern bits in shared memory where some block size fits them
+    info, need = plan(1)
+    sx = int(any(need <= f[4] and f[0] > 0
+                 for f in (info(t, need) for t in FUSED_THREADS)))
+    if not sx:
+        info, need = plan(0)
+    threads = fused_plan(
+        "rejfree_perc", info, B, N, need,
+        torch.int16 if N <= 32767 else torch.int32, dev,
+        lambda need, cap: require_smem(need, cap, N, "perceptron race"))
+    LAST_PLAN["patterns"] = "shared" if sx else "global"
     ct = coord_dtype(mode)
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=E.dtype, device=dev)
@@ -260,11 +330,10 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
         err = lib.rrrmc_rejfree_perc(
             sigma.data_ptr(), delta.data_ptr(), E.data_ptr(),
             coord.data_ptr(), acc.data_ptr(), zacc.data_ptr(), cs.data_ptr(),
-            es.data_ptr(), xi4.data_ptr(), xiT.data_ptr(), N, P,
-            xi4.shape[1] // 4, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, beta_s,
-            int(target) if ct == torch.int32 else 0, float(target),
-            MODES[mode], FAMILY_CODES[fam], c,
+            es.data_ptr(), xb.data_ptr(), N, P, B, n_moves,
+            seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
+            beta_s, int(target) if ct == torch.int32 else 0, float(target),
+            MODES[mode], code, c, n_ez, threads, sx,
             torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_perc launch")
     LAUNCHES += 1
@@ -272,16 +341,20 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
 
 
 def rejfree_perc_chunk_reference(sigma, delta, E, coord, acc, zacc, xi4,
-                                 xiT, loss, *, mode: str, n_moves: int,
+                                 xiT, loss, xb, *, mode: str, n_moves: int,
                                  beta_s: float, target, seed: int,
                                  move0: int = 0, chain0: int = 0,
-                                 bits: Optional[BitsFn] = None):
+                                 bits: Optional[BitsFn] = None,
+                                 threads: int = THREADS):
     """Plain torch version of the perceptron race kernel (same arguments,
-    in-place contract and streams as `rejfree_perc_chunk`): dE is
-    recomputed from the stabilities at every move, as in the kernel."""
+    in-place contract and streams as `rejfree_perc_chunk`; z and xentr's
+    tot summed as a block of `threads` threads sums them): dE is
+    recomputed from the stabilities at every move, the product from the
+    int8 patterns (xb is not read)."""
     fam, c = table_family(loss, sigma.shape[1])
-    de_of, delta_flipped = de_flip(fam, c, xi4, xiT, sigma.shape[1])
+    de_of, delta_flipped = de_flip(fam, c, xi4, xiT, sigma.shape[1],
+                                   threads)
     return race_chunk_reference(
         sigma, delta, E, coord, acc, zacc, delta_flipped, mode=mode,
         n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
-        move0=move0, chain0=chain0, bits=bits, de_of=de_of)
+        move0=move0, chain0=chain0, bits=bits, de_of=de_of, threads=threads)

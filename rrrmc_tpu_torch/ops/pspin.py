@@ -101,8 +101,8 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
         "rejfree_pspin",
         info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
                 int(mode == "wtm"), device=dev.index or 0),
-        B, lib.rrrmc_rejfree_sparse_smem(N, K2, field.itemsize), field, dev,
-        lambda need, cap: require_smem(need, cap, N, "PSpin3 race"))
+        B, N, lib.rrrmc_rejfree_sparse_smem(N, K2, field.itemsize), field,
+        dev, lambda need, cap: require_smem(need, cap, N, "PSpin3 race"))
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -26,9 +26,10 @@ model, the largest row sum of |J| plus |h|; none given: int32), float32 for
 float couplings; global lf stays int32. It then takes the block size T from
 the chains and the blocks of each size that fit on an SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor): 512 threads while the
-blocks of all chains are resident at once, else 256 (1024 threads never
-beat 512 on the H100, PERF.md section 6, PR 8, and are not built). The
-plain version adds z in the order of the T it is given.
+blocks of all chains are resident at once and a chain has at least
+MIN_SITES_PER_THREAD sites a thread, else 256 (1024 threads never beat
+512 on the H100, PERF.md section 6, and are not built). The plain
+version adds z in the order of the T it is given.
 
 The same kernel is the port of
 rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_kernel, the TPU race on integer
@@ -50,7 +51,8 @@ min(1, z / z'). Chains whose coordinate reached `target` make no move.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -66,6 +68,14 @@ MODES = {"bkl": 0, "wtm": 1, "rrr": 2}
 THREADS = 256
 #: the block sizes the fused race kernels are built for
 FUSED_THREADS = (256, 512)
+#: the fewest sites a thread at which the larger block pays: below it, the
+#: reductions and barriers of a move over more warps cost more than the
+#: split of the pass saves. On the H100 (PERF.md section 6,
+#: scripts/torch_race_timing.py --sweep) 512 threads ran 15% slower than
+#: 256 at 2 sites a thread (the perceptron, 1023 sites, 256 chains) and
+#: 12-24% faster at 4, 5.9, 8 and 11.7 (K-SAT and the step perceptron, 128
+#: chains); between 2 and 4 nothing was measured, and 3 is the midpoint
+MIN_SITES_PER_THREAD = 3
 #: the fused kernels' codes of the resident field types
 FIELD_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
                torch.float32: 3}
@@ -73,6 +83,9 @@ FIELD_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
 #: blocks per SM, dynamic shared bytes, registers and local bytes a thread
 #: (spills), for chip_smoke.py to print and to hand the plain version
 LAST_PLAN: dict = {}
+#: the block size `pinned_threads` holds every fused launch to (None: the
+#: launch rule's)
+_PINNED: Optional[int] = None
 #: BKL skip cap: bounds coordinate growth so int32 never overflows (the
 #: samplers keep iters <= 1e9)
 SKIP_CAP = 1.0e9
@@ -127,32 +140,41 @@ def resident_dtype(integer: bool, bound: Optional[int]) -> torch.dtype:
     return torch.int8 if bound <= 127 else torch.int16
 
 
-def race_threads(B: int, n_sm: int, blocks_per_sm: dict) -> int:
-    """The block size of a fused race launch of B chains: the largest T at
-    which all B blocks are resident at once on the n_sm SMs
+def race_threads(B: int, n_sm: int, blocks_per_sm: dict, N: int) -> int:
+    """The block size of a fused race launch of B chains of N sites: the
+    largest T at which all B blocks are resident at once on the n_sm SMs
     (`blocks_per_sm`: {T: blocks of T threads that fit on an SM, 0 if
-    none}), else the smallest T that fits."""
+    none}) and, but for the smallest T, each thread has at least
+    MIN_SITES_PER_THREAD sites; else the smallest T that fits."""
     fits = sorted(t for t, n in blocks_per_sm.items() if n > 0)
     for t in reversed(fits):
-        if B <= n_sm * blocks_per_sm[t]:
+        if B <= n_sm * blocks_per_sm[t] and (
+                t == fits[0] or N >= MIN_SITES_PER_THREAD * t):
             return t
     return fits[0]
 
 
-def fused_plan(kernel: str, info: Callable, B: int, need: int,
+def fused_plan(kernel: str, info: Callable, B: int, N: int, need: int,
                field: torch.dtype, dev, refuse: Callable) -> int:
-    """The block size of a fused race launch (`race_threads`), recorded in
-    LAST_PLAN with the resident `field` type. info(T, need) gives the
-    instantiation's [blocks per SM, registers, local bytes, static shared
-    bytes, most dynamic shared bytes] at `need` dynamic bytes;
-    refuse(need, cap) raises when no size fits."""
+    """The block size of a fused race launch of B chains of N sites
+    (`race_threads`), recorded in LAST_PLAN with the resident `field`
+    type. info(T, need) gives the instantiation's [blocks per SM,
+    registers, local bytes, static shared bytes, most dynamic shared
+    bytes] at `need` dynamic bytes; refuse(need, cap) raises when no size
+    fits."""
     facts = {t: info(t, need) for t in FUSED_THREADS}
     blocks = {t: (f[0] if need <= f[4] else 0) for t, f in facts.items()}
     if not any(blocks.values()):
         refuse(need, max(f[4] for f in facts.values()))
         raise RuntimeError(f"{kernel}: no block size fits ({facts})")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    threads = race_threads(B, n_sm, blocks)
+    if _PINNED is not None:
+        if not blocks.get(_PINNED):
+            raise ValueError(f"{kernel}: {_PINNED} threads a block do not "
+                             f"fit at {need} shared bytes ({facts})")
+        threads = _PINNED
+    else:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        threads = race_threads(B, n_sm, blocks, N)
     f = facts[threads]
     LAST_PLAN.clear()
     LAST_PLAN.update(kernel=kernel, threads=threads,
@@ -160,6 +182,24 @@ def fused_plan(kernel: str, info: Callable, B: int, need: int,
                      blocks_per_sm=f[0], smem=need, registers=f[1],
                      spill_bytes=f[2])
     return threads
+
+
+@contextlib.contextmanager
+def pinned_threads(threads: Optional[int]) -> Iterator[None]:
+    """Within the block, every fused race launch takes `threads` threads a
+    block (one of FUSED_THREADS; a ValueError at launch where it does not
+    fit), whatever the launch rule would pick; None leaves the rule. For
+    the checks and timings of a kernel at the block size its path does not
+    pick (chip_smoke.py, scripts/torch_race_timing.py)."""
+    global _PINNED
+    if threads is not None and threads not in FUSED_THREADS:
+        raise ValueError(f"threads must be one of {FUSED_THREADS}, "
+                         f"got {threads}")
+    before, _PINNED = _PINNED, threads
+    try:
+        yield
+    finally:
+        _PINNED = before
 
 
 def info_fn(lib_fn, *head, device: int) -> Callable:
@@ -230,8 +270,8 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
         "rejfree_sparse",
         info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
                 int(mode == "wtm"), device=dev.index or 0),
-        B, lib.rrrmc_rejfree_sparse_smem(N, K, field.itemsize), field, dev,
-        refuse)
+        B, N, lib.rrrmc_rejfree_sparse_smem(N, K, field.itemsize), field,
+        dev, refuse)
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=lf.dtype, device=dev)
     with torch.cuda.device(dev):

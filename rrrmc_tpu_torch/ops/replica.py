@@ -254,8 +254,9 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
         "rejfree_replica" + ("_sparse" if sparse else ""),
         info_fn(lib.rrrmc_rejfree_replica_info, FIELD_CODES[field],
                 int(star), int(mode == "wtm"), device=dev.index or 0),
-        B, lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse, star,
-                                          field.itemsize),
+        B, sigma.shape[1],
+        lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse, star,
+                                       field.itemsize),
         field, dev,
         lambda need, cap: require_smem(need, cap, sigma.shape[1],
                                        "replica race"))

@@ -6,9 +6,10 @@ wrapper is ops/eo_sat.py).
 Source note. The race kernel replaces
 rrrmc_tpu/ops/sat_pallas.py::_rejfree_sat_kernel and the EO kernel that
 file's _eo_sat_kernel. A chain keeps in shared memory its spins (int8), its
-per-clause satisfied counts (uint8) and the exact int32 energy change of
-flipping each variable, dE (5 bytes a variable and one a clause: 92 KB at
-N = 10^4, alpha = 4.2; the EO kernel adds the best spins). The TPU kernels
+per-clause satisfied counts (uint8) and the exact energy change of
+flipping each variable, dE (16 bits in the race, |dE| <= Cmax <= 32767:
+3 bytes a variable and one a clause, 72 KB at N = 10^4, alpha = 4.2; int32
+in the EO kernel, which adds the best spins). The TPU kernels
 bit-packed the counts per variable and clause slot and recomputed dE from
 them over all Cmax slots at every move, comparing every site's partner
 columns to the winner, because Mosaic has no gather. Here the counts are
@@ -16,16 +17,24 @@ per clause, unpacked, and dE is kept incrementally: the flip of w moves the
 counts of w's clauses by -sigma_w * TL[w] and, for each such clause, the dE
 of its K variables by the difference of the clause's terms (+1 where the
 variable is the sole satisfier, -1 where the clause is violated), O(Cmax K)
-gathers from shared memory with one thread per clause slot and shared
-atomics where two clauses share a variable. dE is derived from the counts
-once per launch. Between launches the counts live in the caller's [B, Mc]
-int32 tensor (the model's aux), written back in place.
+gathers from shared memory, by one warp with a lane per clause slot (the
+race) or by the block with a thread per slot (EO), and shared atomics
+where two clauses share a variable (32-bit atomics on the race's pairs of
+16-bit dE). dE is derived from the counts once per launch. Between
+launches the counts live in the caller's [B, Mc] int32 tensor (the model's
+aux), written back in place.
 
 The race weighs site i by beta * scale * max(dE_i, 0), as every race
-kernel does, and a flip changes E by dE_w; the EO key is dE, |dE| <= max_conn, so integer keys take a histogram of
-2 max_conn + 1 bins. rrr applies the flip tentatively and, when rejected,
-applies the same flip again, which is exact. The kernels are bound by their
-passes over the resident sites, as the sparse ones are.
+kernel does, and a flip changes E by dE_w; the EO key is dE, |dE| <=
+max_conn, so integer keys take a histogram of 2 max_conn + 1 bins. The race
+kernel runs race.cuh's fused pass (`race_moves`: the race, min bE and z
+from one evaluation of each variable, behind the score bound) with the
+launch rule of ops/rejfree.py (`fused_plan`: 512 threads a chain at 128
+chains), the Boltzmann terms from a table of exp(-beta_s k) over k = 0 ..
+Cmax; the plain version sums z in the order of the T it is given. rrr
+applies the flip tentatively and, when rejected, applies the same flip
+again, which is exact. The race is bound by its fused pass over the
+resident variables; the EO kernel by its passes, as the sparse one is.
 """
 
 from __future__ import annotations
@@ -35,11 +44,14 @@ from typing import Optional
 import torch
 
 from . import check_args, require_smem
-from .rejfree import BitsFn, MODES, coord_dtype, race_chunk_reference
+from .rejfree import (BitsFn, MODES, THREADS, coord_dtype, fused_plan,
+                      info_fn, race_chunk_reference)
 from ..models.sat import delta_from_counts, flip_counts
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: the race kernel's bound on Cmax, which bounds |dE| (its 16-bit dE)
+DE_MAX = 32767
 
 
 def sat_rejfree_ok(model) -> bool:
@@ -96,9 +108,12 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
                       bits: Optional[BitsFn] = None):
     """Advance every chain by `n_moves` race moves, in place: the contract
     of ops/rejfree.py::rejfree_sparse_chunk, with the satisfied counts sat
-    [B, Mc] int32 in the place of lf, int32 E, the model's tables A, L
-    [Mc, K] and T, TL [N, Cmax] (int32) in the place of neigh/J.
-    Returns the per-move (coordinate, E) streams, each [n_moves, B]."""
+    [B, Mc] int32 in the place of lf, int32 E and the model's tables A, L
+    [Mc, K] and T, TL [N, Cmax] (int32) in the place of neigh/J. On a CUDA
+    tensor this launches the kernel with the launch rule's block size
+    (`fused_plan`; a variable in more than 32767 clauses, beyond its 16-bit
+    dE, is refused); on a CPU tensor it runs the plain version. Returns the
+    per-move (coordinate, E) streams, each [n_moves, B]."""
     global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
@@ -116,16 +131,24 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
+    Cmax = T.shape[1]
+    if Cmax > DE_MAX:
+        raise NotImplementedError(
+            f"the SAT race kernel keeps dE in 16 bits: a variable in "
+            f"{Cmax} clauses exceeds its bound {DE_MAX}")
     from .cuda_build import check, library
 
     lib = library()
     N = sigma.shape[1]
     Mc, K = A.shape
     dev = sigma.device
-    require_smem(lib.rrrmc_rejfree_sat_smem(N, Mc),
-                 lib.rrrmc_rejfree_sat_max_smem(dev.index or 0), N,
-                 "SAT race")
     ct = coord_dtype(mode)
+    threads = fused_plan(
+        "rejfree_sat",
+        info_fn(lib.rrrmc_rejfree_sat_info, int(mode == "wtm"),
+                device=dev.index or 0),
+        B, N, lib.rrrmc_rejfree_sat_smem(N, Mc, Cmax), torch.int16,
+        dev, lambda need, cap: require_smem(need, cap, N, "SAT race"))
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -133,10 +156,11 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
             sigma.data_ptr(), sat.data_ptr(), E.data_ptr(), coord.data_ptr(),
             acc.data_ptr(), zacc.data_ptr(), cs.data_ptr(), es.data_ptr(),
             A.data_ptr(), L.data_ptr(), T.data_ptr(), TL.data_ptr(), N, Mc,
-            K, T.shape[1], B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
+            K, Cmax, B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
             chain0 & 0xFFFFFFFF, beta_s,
             int(target) if ct == torch.int32 else 0, float(target),
-            MODES[mode], torch.cuda.current_stream().cuda_stream)
+            MODES[mode], threads,
+            torch.cuda.current_stream().cuda_stream)
     check(err, "rejfree_sat launch")
     LAUNCHES += 1
     return cs, es
@@ -146,12 +170,14 @@ def rejfree_sat_chunk_reference(sigma, sat, E, coord, acc, zacc, A, L, T, TL,
                                 *, mode: str, n_moves: int, beta_s: float,
                                 target, seed: int, move0: int = 0,
                                 chain0: int = 0,
-                                bits: Optional[BitsFn] = None):
+                                bits: Optional[BitsFn] = None,
+                                threads: int = THREADS):
     """Plain torch version of the SAT race kernel (same arguments, in-place
-    contract and streams as `rejfree_sat_chunk`): dE is recomputed from the
-    counts at every move."""
+    contract and streams as `rejfree_sat_chunk`; z summed as the kernel's
+    fused pass sums it with `threads` threads a block): dE is recomputed
+    from the counts at every move."""
     de_of, sat_flipped = de_flip(T, TL)
     return race_chunk_reference(
         sigma, sat, E, coord, acc, zacc, sat_flipped, mode=mode,
         n_moves=n_moves, beta_s=beta_s, target=target, seed=seed,
-        move0=move0, chain0=chain0, bits=bits, de_of=de_of)
+        move0=move0, chain0=chain0, bits=bits, de_of=de_of, threads=threads)

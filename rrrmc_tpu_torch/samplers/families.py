@@ -44,9 +44,9 @@ from ..ops.sat import rejfree_sat_chunk, sat_rejfree_ok, sat_tables
 ELIGIBLE = ("a Pairwise model with N >= 8, a FullyConnected one with N >= 8 "
             "and integer |J| <= 127 or float J, a PSpin3 with N >= 9, a "
             "SATModel with N >= 8 whose clauses hold distinct variables, a "
-            "Perceptron with an odd N >= 9 and a step, linear or xentr "
-            "loss, or a GraphQuant / GraphRobustEnsemble composite over "
-            "such a Pairwise or FullyConnected base")
+            "Perceptron with an odd N >= 9, +-1 patterns and a step, linear "
+            "or xentr loss, or a GraphQuant / GraphRobustEnsemble composite "
+            "over such a Pairwise or FullyConnected base")
 
 
 def _no_kw(model) -> dict:

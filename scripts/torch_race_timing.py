@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the race kernels of the PyTorch + CUDA port on their kernel-table
-cases (PERF.md section 6, rows 2, 4, 7, 14 and 16), for the rrrmc_tpu_torch
-package under --root, so that two trees are timed in one call on one card:
+cases (PERF.md section 6, rows 2, 4, 7, 14, 16, 17 and 19; row 19 on step,
+its case, and on xentr), for the rrrmc_tpu_torch package under --root, so
+that two trees are timed in one call on one card:
 
     python3 scripts/torch_race_timing.py --root DIR [--sweep] [--reps 3]
+        [--rows 17,19]
 
 Each case is chip_smoke.py's row case: B chains from init_state(seed=167),
 one chunk of 1024 moves through the model family's race wrapper, timed with
@@ -11,14 +13,18 @@ CUDA events: first with a target no chain reaches (every chain active),
 then with the target at the median coordinate of that launch (about half
 the chains stop mid-chunk: the row's time). bkl and rrr each; --reps
 launches of each, all printed. --sweep also times the fused race kernels at
-every block size they are built for (ops/rejfree.py's FUSED_THREADS), the
-launch rule's choice replaced for the purpose. Prints one JSON line per
-case and the card's name and power limit; exits 1 without a card.
+every block size they are built for (ops/rejfree.py's FUSED_THREADS,
+pinned by `pinned_threads`, which --sweep needs in the tree), and the
+crossover cases: K-SAT and the step perceptron at 128 chains with 4-12
+sites a thread at 512 threads, between the rows' 2 and 15-20, where the
+launch rule's MIN_SITES_PER_THREAD falls. Prints one JSON line per case
+and the card's name and power limit; exits 1 without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -39,7 +45,22 @@ CASES = (
     (16, "Quant(GraphRRG(1000, 3), M=8)", lambda rt: rt.GraphQuant(
         1000, 8, 1.0, 1.0, rt.GraphRRG(1000, 3, (-1, 1), seed=11,
                                        device="cuda")), 128, 1.0),
+    (17, "GraphSAT(10^4, 3, 4.2)", lambda rt: rt.GraphSAT(
+        10_000, 3, 4.2, seed=SEED, device="cuda"), 128, 4.0),
+    (19, "GraphPercStep(1023, 511)", lambda rt: rt.GraphPercStep(
+        1023, 511, seed=5, device="cuda"), 256, 1.0),
+    (19, "GraphPercXEntr(1023, 511)", lambda rt: rt.GraphPercXEntr(
+        1023, 511, 1.0, seed=5, device="cuda"), 256, 1.0),
 )
+#: --sweep only: (label, builder, chains, beta) with 4-12 sites a thread at
+#: 512 threads, the patterns' bits in shared memory
+CROSSOVER = tuple(
+    (f"GraphSAT({n}, 3, 4.2)", lambda rt, n=n: rt.GraphSAT(
+        n, 3, 4.2, seed=SEED, device="cuda"), 128, 4.0)
+    for n in (3000, 4096, 6000)) + tuple(
+    (f"GraphPercStep({n}, {p})", lambda rt, n=n, p=p: rt.GraphPercStep(
+        n, p, seed=5, device="cuda"), 128, 1.0)
+    for n, p in ((2047, 255), (4095, 127)))
 
 
 def card_line() -> str:
@@ -78,9 +99,8 @@ def time_case(torch, rt, model, B, beta, mode, reps, threads=None):
     # kernels has none)
     kw.update(getattr(fam, "race_kw", lambda m: {})(model))
     rejfree = sys.modules["rrrmc_tpu_torch.ops.rejfree"]
-    rule = getattr(rejfree, "race_threads", None)
-    if threads is not None:
-        rejfree.race_threads = lambda B, n_sm, blocks: threads
+    pin = contextlib.nullcontext() if threads is None else \
+        rejfree.pinned_threads(threads)
 
     def run(target):
         a = {k: v.clone() for k, v in base.items()}
@@ -89,7 +109,7 @@ def time_case(torch, rt, model, B, beta, mode, reps, threads=None):
             *tables, target=target, **kw))
         return ms, a
 
-    try:
+    with pin:
         unreachable = 2 ** 30
         run(unreachable)                              # warm-up
         full = [run(unreachable)[0] for _ in range(reps)]
@@ -97,9 +117,6 @@ def time_case(torch, rt, model, B, beta, mode, reps, threads=None):
         target = max(int(probe["coord"].double().median().item()), 1) \
             if mode == "bkl" else MOVES // 2
         half = [run(target)[0] for _ in range(reps)]
-    finally:
-        if rule is not None:
-            rejfree.race_threads = rule
     return full, half
 
 
@@ -109,7 +126,10 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--rows", default="",
+                    help="comma-separated rows to time (default: all)")
     args = ap.parse_args()
+    rows = {int(r) for r in args.rows.split(",") if r}
     import torch
 
     if not torch.cuda.is_available():
@@ -123,12 +143,22 @@ def main() -> int:
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__
     cuda_build.library()
     card = card_line()
-    for row, label, build, B, beta in CASES:
+    rejfree = sys.modules["rrrmc_tpu_torch.ops.rejfree"]
+    if args.sweep and not hasattr(rejfree, "pinned_threads"):
+        print("torch_race_timing: --sweep needs ops/rejfree.py's "
+              "pinned_threads in the tree", file=sys.stderr)
+        return 1
+    cases = CASES + (tuple((None,) + c for c in CROSSOVER)
+                     if args.sweep else ())
+    for row, label, build, B, beta in cases:
+        if rows and row not in rows:
+            continue
         model = build(rt)
-        rejfree = sys.modules["rrrmc_tpu_torch.ops.rejfree"]
         sizes = [None] + (list(rejfree.FUSED_THREADS) if args.sweep else [])
         for mode in ("bkl", "rrr"):
             for threads in sizes:
+                # a kernel before the fused pass leaves no plan
+                getattr(rejfree, "LAST_PLAN", {}).clear()
                 full, half = time_case(torch, rt, model, B, beta, mode,
                                        args.reps, threads)
                 plan = getattr(rejfree, "LAST_PLAN", None)

@@ -192,8 +192,21 @@ H100 = {256: 5, 512: 2}
     (2, {256: 0, 512: 1}, 512)])
 def test_race_threads(chains, blocks, want):
     """The block size: 512 threads while the blocks of all the chains are
-    resident at once on 132 SMs, else 256 (or the only size that fits)."""
-    assert race_threads(chains, 132, blocks) == want
+    resident at once on 132 SMs, else 256 (or the only size that fits),
+    for chains of 10^4 sites (enough for 512 threads)."""
+    assert race_threads(chains, 132, blocks, 10_000) == want
+
+
+@pytest.mark.parametrize("chains,sites,want", [
+    (256, 1023, 256), (128, 1535, 256), (128, 1536, 512),
+    (128, 7500, 512), (300, 2047, 256), (256, 2047, 512)])
+def test_race_threads_sites(chains, sites, want):
+    """512 threads only where a chain has at least MIN_SITES_PER_THREAD
+    sites a thread (the perceptrons' 1023 sites take 256 at 256 chains;
+    2047 sites take 512; PSpin3's 7500 take 512 at 128), with the blocks
+    of all chains resident at once."""
+    assert rejfree.MIN_SITES_PER_THREAD == 3
+    assert race_threads(chains, 132, {256: 3, 512: 2}, sites) == want
 
 
 FAMILY_BOUNDS = {
@@ -221,3 +234,33 @@ def test_samplers_pass_family_bound(monkeypatch, name):
     monkeypatch.setattr(families, "FAMILIES", tuple(spied))
     pt.bklMC(m, 1.0, 600, step=100, chains=4, chunk_moves=64, **CPU)
     assert len(seen) >= 2 and set(seen) == {want}
+
+
+def _facts(blocks):
+    """fused_plan's info(T, need) for `blocks` {T: blocks per SM}: 48
+    registers, no local bytes, 200 000 dynamic shared bytes at most."""
+    return lambda t, need: [blocks[t], 48, 0, 0, 200_000]
+
+
+@pytest.mark.parametrize("threads", [256, 512])
+def test_pinned_threads(threads):
+    """Within pinned_threads every fused launch takes the pinned block size
+    whatever the rule would pick, and the rule is back after it."""
+    with rejfree.pinned_threads(threads):
+        got = rejfree.fused_plan("k", _facts({256: 5, 512: 2}), 128, 10_000,
+                                 1000, torch.int8, None, None)
+    assert got == threads and rejfree.LAST_PLAN["threads"] == threads
+    assert rejfree._PINNED is None
+
+
+def test_pinned_threads_refused():
+    """A pinned block size that is not built, or that does not fit, is
+    refused."""
+    with pytest.raises(ValueError, match="one of"):
+        with rejfree.pinned_threads(1024):
+            pass
+    with pytest.raises(ValueError, match="do not fit"):
+        with rejfree.pinned_threads(512):
+            rejfree.fused_plan("k", _facts({256: 5, 512: 0}), 128, 10_000,
+                               1000, torch.int8, None, None)
+    assert rejfree._PINNED is None

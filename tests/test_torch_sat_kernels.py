@@ -7,7 +7,11 @@ at 2m + 1). Energies and counts are integers, so spins, E, coordinates,
 accepted counts, both streams, Emin, sigma_min and itmin agree bit for bit;
 the wtm clock and z/N within rtol 1e-6 (XLA's and torch's float32 exp/log may
 differ in the last bit). The K = 4 case takes the TPU kernels' 3-bit count
-fields."""
+fields. The plain version sums z as a block of 256 threads does, and in
+one case per mode as a block of 512 does (the race kernel's other block
+size)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +21,9 @@ import torch
 
 import rrrmc_tpu as rt
 from rrrmc_tpu_torch.ops.eo_sat import eo_sat_chunk
-from rrrmc_tpu_torch.ops.sat import (rejfree_sat_chunk, sat_rejfree_ok,
-                                     sat_tables)
+from rrrmc_tpu_torch.ops.sat import (rejfree_sat_chunk,
+                                     rejfree_sat_chunk_reference,
+                                     sat_rejfree_ok, sat_tables)
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype
 from rrrmc_tpu_torch.samplers.eo import rank_table
 
@@ -52,14 +57,18 @@ def _start(jm):
     return sigma, E0
 
 
-def _port_race(pm, sigma, E0, mode, target, NP):
+def _port_race(pm, sigma, E0, mode, target, NP, threads=None):
+    """The wrapper (its plain version on the CPU), or the plain version
+    summing z as a block of `threads` threads does."""
+    chunk = rejfree_sat_chunk if threads is None else functools.partial(
+        rejfree_sat_chunk_reference, threads=threads)
     sig = torch.from_numpy(sigma.copy())
     sat = pm.init_aux(sig)
     E = torch.from_numpy(E0.copy())
     coord = torch.zeros(B, dtype=coord_dtype(mode))
     acc = torch.zeros(B, dtype=torch.int32)
     zacc = torch.zeros(B, dtype=torch.float32)
-    cs, es = rejfree_sat_chunk(
+    cs, es = chunk(
         sig, sat, E, coord, acc, zacc, *sat_tables(pm), mode=mode,
         n_moves=N_MOVES, beta_s=BETA * pm.scale, target=target, seed=SEED,
         bits=race_bits(SEED, B, pm.N, NP))
@@ -68,13 +77,17 @@ def _port_race(pm, sigma, E0, mode, target, NP):
         es=es).items()}
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_race_matches_jax_interpret(pallas, mode, name):
+@pytest.mark.parametrize("mode,name,threads", [
+    *(pytest.param(m, n, None, id=f"{m}-{n}")
+      for m in ("bkl", "wtm", "rrr") for n in MODELS),
+    *(pytest.param(m, "SAT(40, 3, 3.0)", 512,
+                   id=f"{m}-SAT(40, 3, 3.0)-512threads")
+      for m in ("bkl", "wtm", "rrr"))])
+def test_race_matches_jax_interpret(pallas, mode, name, threads):
     """One chunk of N_MOVES moves from the same spins and bits; the target
     (the median coordinate of an unbounded run, half the chunk for rrr)
     stops chains mid-chunk, so the masking of finished chains is compared
-    too."""
+    too. `threads`: the plain version at that block size's order of z."""
     rp, _ = pallas
     jm = MODELS[name]()
     pm = port_sat(jm)
@@ -83,7 +96,7 @@ def test_race_matches_jax_interpret(pallas, mode, name):
     rf = rp.PallasRejectionFree(jm, BETA, mode, chunk_moves=N_MOVES)
     assert rf.kind == "sat"
     free = _port_race(pm, sigma, E0, mode, 1e30 if mode == "wtm" else 2 ** 30,
-                      rf.NP)
+                      rf.NP, threads)
     target = {"wtm": float(np.median(free["coord"])),
               "bkl": int(np.median(free["coord"])),
               "rrr": N_MOVES // 2}[mode]
@@ -92,7 +105,7 @@ def test_race_matches_jax_interpret(pallas, mode, name):
                    seed=SEED, target=target)
     j = {k: np.asarray(v) for k, v in zip(
         ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
-    p = _port_race(pm, sigma, E0, mode, target, rf.NP)
+    p = _port_race(pm, sigma, E0, mode, target, rf.NP, threads)
     done = (j["coord"] >= target).sum()
     assert 0 < done < B or mode == "rrr", done
     for key in ("sigma", "E", "acc", "es"):
