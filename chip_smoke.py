@@ -123,7 +123,16 @@ then on its other code paths with 1024 chains (1 sweep each): GraphSK(1100)
 (N % 4 != 0, the scalar commit) and GraphSK(1024) with integer fields; and
 the dense race kernel on GraphSK(1024) with 1024 chains at beta=4 (one
 1024-move chunk per mode), densify(GraphRRG(10_000, 3)) with 1024 chains
-and GraphSKNormal(4096) with 128 chains (bkl), the main paths' shapes.
+and GraphSKNormal(4096) with 128 chains (bkl), the main paths' shapes;
+then (`dense_fused_cases`) at both block sizes (pinned) and in every
+resident type (int8 on the densified RRG, int16 on GraphSK(1024), int32
+on GraphSK(1100) with J scaled to +-127, whose rows are not all 16-byte
+aligned, float32 on GraphSKNormal(4096) and (1100)), bkl, wtm and rrr, the
+all-up densified ferromagnet (every flip raises E: z summed twice), and
+an SK model of DENSE_WIDE_N spins built on the card, the largest N of the
+earlier 5-bytes-a-site dense kernel, int32 fields, where rrr keeps the
+fields its tentative flip overwrites in global memory. Every dense case is
+held bit for bit, float J too.
 The EO phases of 2 are the sparse EO kernel on GraphRRG(10_000, 3,
 seed=7) and GraphRRGNormal(10_000, 3, seed=7) and on GraphEA(8, 3, seed=42)
 (the port of the lattice branch of `_eo_kernel`), and the dense EO kernel
@@ -221,6 +230,9 @@ HYPER_CHAINS, PS_BETA_BKL, PS_BETA_RRR, SAT_BETA = 128, 1.5, 1.0, 4.0
 #: the SAT race's largest N at alpha = 4.2 before its dE went to 16 bits
 #: (int32 dE: 4 N + N + 4.2 N bytes within 227 KB), held at a few chains
 SAT_WIDE_N, SAT_WIDE_CHAINS = 25_250, 8
+#: the dense race's largest N before its spins went to bits (5 bytes a site
+#: within the H100's 232 448 opt-in bytes less 64), held at a few chains
+DENSE_WIDE_N, DENSE_WIDE_CHAINS = 46_476, 8
 PS_ITERS_BKL, PS_ITERS_RRR, PS_WTM_SAMPLES = 2_000_000, 100_000, 200
 SAT_ITERS_BKL, SAT_ITERS_RRR, SAT_WTM_SAMPLES = 4_000_000, 50_000, 200
 SAT_EO_MOVES, SAT_EO_RTOL = 30_000, 0.05
@@ -553,14 +565,15 @@ def sweep_case(model, label, B, card):
 
 def _fused():
     """The wrappers of the fused race kernels (rejfree_sparse.cu with the
-    pairwise or the hypergraph flip, rejfree_replica.cu, rejfree_sat.cu,
-    rejfree_perc.cu), whose block size and resident type the launch rule
-    picks (ops/rejfree.py::fused_plan)."""
-    from rrrmc_tpu_torch.ops import perc, pspin, rejfree, replica, sat
+    pairwise or the hypergraph flip, rejfree_dense.cu, rejfree_replica.cu,
+    rejfree_sat.cu, rejfree_perc.cu), whose block size and resident type
+    the launch rule picks (ops/rejfree.py::fused_plan)."""
+    from rrrmc_tpu_torch.ops import (perc, pspin, rejfree, rejfree_dense,
+                                     replica, sat)
 
     return (rejfree.rejfree_sparse_chunk, pspin.rejfree_pspin_chunk,
-            replica.rejfree_replica_chunk, sat.rejfree_sat_chunk,
-            perc.rejfree_perc_chunk)
+            rejfree_dense.rejfree_dense_chunk, replica.rejfree_replica_chunk,
+            sat.rejfree_sat_chunk, perc.rejfree_perc_chunk)
 
 
 def plan_text(plan) -> str:
@@ -568,7 +581,9 @@ def plan_text(plan) -> str:
     if not plan:
         return ""
     where = (f", patterns in {plan['patterns']} memory"
-             if "patterns" in plan else "")
+             if "patterns" in plan else
+             f", rrr's saved fields: {plan['saved']}" if "saved" in plan
+             else "")
     return (f" [T={plan['threads']}, {plan['field']} fields{where}, "
             f"{plan['blocks_per_sm']} blocks/SM, {plan['smem']} shared "
             f"bytes, {plan['registers']} registers, {plan['spill_bytes']} "
@@ -577,7 +592,7 @@ def plan_text(plan) -> str:
 
 def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
                  B=CHAINS, beta=BETA, n_moves=RACE_MOVES, ops=None,
-                 sigma=None):
+                 sigma=None, exact=False):
     """A race kernel against its plain version for one chunk of n_moves
     moves of B chains: the kernel of the model's family
     (samplers/families.py). `ops(moves, applied)` gives the bound's
@@ -585,7 +600,8 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     kernel takes the family's `race_kw` (a fused kernel's bound on its
     resident fields), and a fused kernel's plain version the block size the
     kernel ran with (the launch's plan, printed). `sigma` [B, N] replaces
-    the random start."""
+    the random start. `exact`: float couplings are held bit for bit too,
+    as integer ones are (`_compare`)."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import rejfree
@@ -637,8 +653,8 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     p = fresh()
     plain_ms = _events_ms(lambda: run(ref, p, target, **ref_kw))
     integer = not st.E.dtype.is_floating_point
-    bad, err, errs = _compare(f"rejfree {mode} {label}", integer, k, p, B,
-                              model.N)
+    bad, err, errs = _compare(f"rejfree {mode} {label}", integer or exact, k,
+                              p, B, model.N)
     applied = float(k["acc"].double().sum())
     moves = float(k["coord"].double().sum()) if mode == "rrr" else applied
     bound_ms, bound_by = bound(
@@ -834,8 +850,9 @@ def fused_local_bytes() -> dict:
     from rrrmc_tpu_torch.ops.perc import FAMILY_CODES
 
     lib = cuda_build.library()
-    out = {"rejfree_sparse_kernel": 0, "rejfree_replica_kernel": 0,
-           "rejfree_sat_kernel": 0, "rejfree_perc_kernel": 0}
+    out = {"rejfree_sparse_kernel": 0, "rejfree_dense_kernel": 0,
+           "rejfree_replica_kernel": 0, "rejfree_sat_kernel": 0,
+           "rejfree_perc_kernel": 0}
     for t in rejfree.FUSED_THREADS:
         for wtm in (0, 1):
             heads = [("rejfree_sat_kernel", lib.rrrmc_rejfree_sat_info,
@@ -845,7 +862,9 @@ def fused_local_bytes() -> dict:
                       for sx in (0, 1)]
             for field in rejfree.FIELD_CODES.values():
                 heads += [("rejfree_sparse_kernel",
-                           lib.rrrmc_rejfree_sparse_info, (field, wtm))]
+                           lib.rrrmc_rejfree_sparse_info, (field, wtm)),
+                          ("rejfree_dense_kernel",
+                           lib.rrrmc_rejfree_dense_info, (field, wtm))]
                 heads += [("rejfree_replica_kernel",
                            lib.rrrmc_rejfree_replica_info, (field, star, wtm))
                           for star in (0, 1)]
@@ -928,6 +947,92 @@ def fused_cases(card):
             require(c["plan"]["field"] == want[key],
                     f"{key}: resident {c['plan']['field']}, not {want[key]}")
     return cases
+
+
+def dense_fused_cases(card, sk1, drrg, skn):
+    """The dense race kernel (rejfree_dense.cu) against its plain version,
+    bit for bit (float J too), where the main paths' cases do not reach:
+    every resident type at both block sizes (pinned) in rrr and in bkl or
+    wtm (int8 on the densified RRG, int16 on GraphSK(1024), int32 on
+    GraphSK(1100) with J scaled to +-127 (rows at 1100-byte strides, most
+    not 16-byte aligned), float32 on GraphSKNormal(4096) and (1100)), the
+    all-up densified ferromagnet at beta = 4 (every flip raises E: the
+    fused pass sums z twice, the z' pass too), and an SK model of
+    DENSE_WIDE_N spins (+-1 couplings drawn on the card, int32 fields: the
+    earlier kernel's largest N), where rrr's saved fields do not fit beside
+    the state and go to global memory. Appended after the main paths'
+    cases, so that rows 5 and 6 keep theirs."""
+    import dataclasses
+    import math
+
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.models.dense import FullyConnected
+    from rrrmc_tpu_torch.ops import rejfree
+    from rrrmc_tpu_torch.ops.rejfree import pinned_threads
+
+    B = HYPER_CHAINS
+    sk11 = rt.GraphSK(1100, seed=4, device=DEV)
+    wide_j = dataclasses.replace(sk11, J=sk11.J * 127)
+    skn11 = rt.GraphSKNormal(1100, seed=4, device=DEV)
+    ferro = rt.densify(rt.GraphRRG(2000, 3, (1,), seed=SEED, device=DEV))
+    up = torch.ones((B, ferro.N), dtype=torch.int8, device=DEV)
+    de = rejfree.pair_de(up.int(), ferro.init_aux(up))
+    least = float((4.0 * de.clamp(min=0).float()).min())
+    require(least > 0, f"dense ferro all up: the start's least bE is {least}")
+
+    def case(model, label, mode, threads, want, kernel="rejfree_dense",
+             **kw):
+        with pinned_threads(threads):
+            c = rejfree_case(model, label, mode, card, kernel=kernel,
+                             exact=True, **kw)
+        plan = c["plan"]
+        require((threads is None or plan["threads"] == threads)
+                and plan["field"] == want,
+                f"{kernel} {c['case']}: T={plan['threads']}, "
+                f"{plan['field']} fields, not {threads} and {want}")
+        return c
+
+    cases = []
+    for model, label, want, kernel, beta, runs in (
+            (sk1, "GraphSK(1024)", "int16", "rejfree_dense", 4.0,
+             ((512, "rrr"), (512, "wtm"))),
+            (drrg, "densify(GraphRRG(10^4))", "int8", "rejfree_stream", 4.0,
+             ((256, "rrr"), (512, "rrr"), (512, "wtm"))),
+            (skn, "GraphSKNormal(4096)", "float32", "rejfree_stream", 4.0,
+             ((256, "rrr"), (512, "rrr"), (256, "wtm"))),
+            (wide_j, "GraphSK(1100) J=+-127", "int32", "rejfree_dense",
+             4.0 / 127, ((256, "rrr"), (512, "rrr"), (256, "bkl"),
+                         (512, "wtm"))),
+            (skn11, "GraphSKNormal(1100)", "float32", "rejfree_dense", 4.0,
+             ((512, "rrr"), (256, "bkl")))):
+        cases += [case(model, label, mode, t, want, kernel, B=B, beta=beta,
+                       n_moves=CMP_MOVES) for t, mode in runs]
+    cases += [case(ferro, "densify(ferro RRG(2000)) all up", mode, None,
+                   "int8", B=B, beta=4.0, n_moves=CMP_MOVES, sigma=up)
+              for mode in ("rrr", "bkl")]
+    # J = triu(+-1, 1) + its transpose, drawn on the card in int8
+    n = DENSE_WIDE_N
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    J = torch.randint(0, 2, (n, n), dtype=torch.int8, device=DEV,
+                      generator=gen)
+    J = torch.triu(J * 2 - 1, 1)
+    wide = FullyConnected(J=J + J.t(), N=n, scale=1.0 / math.sqrt(n),
+                          h=torch.zeros(n, dtype=torch.int32, device=DEV))
+    del J
+    label = f"SK({n}) on the card"
+    wide_cases = [case(wide, label, "rrr", None, "int32",
+                       kernel="rejfree_stream", B=DENSE_WIDE_CHAINS,
+                       beta=4.0, n_moves=CMP_MOVES // 8),
+                  case(wide, label, "bkl", 256, "int32",
+                       kernel="rejfree_stream", B=DENSE_WIDE_CHAINS,
+                       beta=4.0, n_moves=CMP_MOVES // 8)]
+    require(wide_cases[0]["plan"]["saved"] == "global",
+            f"{label}: rrr's saved fields in "
+            f"{wide_cases[0]['plan']['saved']} memory")
+    del wide
+    torch.cuda.empty_cache()
+    return cases + wide_cases
 
 
 def sat_chain(n):
@@ -1988,7 +2093,7 @@ def main() -> int:
                               kernel="rejfree_stream", beta=4.0))
     cases.append(rejfree_case(skn, "GraphSKNormal(4096)", "bkl", card,
                               kernel="rejfree_stream", B=128, beta=4.0,
-                              n_moves=CMP_MOVES))
+                              n_moves=CMP_MOVES, exact=True))
 
     rrgn7 = rt.GraphRRGNormal(N_MAIN, 3, seed=7, device=DEV)
     ea8 = rt.GraphEA(8, 3, (-1, 1), seed=42, device=DEV)
@@ -2062,6 +2167,7 @@ def main() -> int:
                                     Q_BETA, card))
     replica_refusals(card)
     cases += fused_cases(card)
+    cases += dense_fused_cases(card, sk1, drrg, skn)
 
     # the perceptrons (scripts/bench_all.py's perc_comm_section), built with
     # no device given: the card is the default
@@ -2129,18 +2235,22 @@ def main() -> int:
         if c.get("plan"):
             seen.setdefault(c["kernel"], set()).add(
                 (c["plan"]["threads"], c["plan"]["field"],
-                 c["plan"].get("patterns", "-")))
+                 c["plan"].get("patterns", c["plan"].get("saved", "-"))))
     print(f"fused launches (T, field, patterns) held to their plain "
           f"versions: {json.dumps({k: sorted(v) for k, v in seen.items()})}"
           f"  [{card}]")
     # every block size the rule picks on the paths, every resident type of
-    # the sparse and replica kernels and both pattern memories of the
-    # perceptron kernel were held
+    # the sparse, dense and replica kernels (for the dense one at both
+    # block sizes), both memories of the dense kernel's rrr saved fields and
+    # both pattern memories of the perceptron kernel were held
     every = set(rejfree.FUSED_THREADS)
     for source, entries, fields, memories in (
             ("rejfree_sparse.cu", ("rejfree_sparse", "rejfree_lattice",
                                    "rejfree_pspin"),
              {"int8", "int16", "int32", "float32"}, {"-"}),
+            ("rejfree_dense.cu", ("rejfree_dense", "rejfree_stream"),
+             {"int8", "int16", "int32", "float32"},
+             {"none", "shared", "global"}),
             ("rejfree_replica.cu", ("rejfree_replica",
                                     "rejfree_replica_sparse"),
              {"int8", "int16", "int32", "float32"}, {"-"}),
@@ -2154,6 +2264,11 @@ def main() -> int:
                 ("pattern memories", memories, {m for _, _, m in got})):
             require(want <= have, f"{source}: {what} {sorted(have)} held, "
                                   f"not all of {sorted(want)}")
+        if source == "rejfree_dense.cu":
+            pairs = {(t, f) for t in every for f in fields}
+            require(pairs <= {(t, f) for t, f, _ in got},
+                    f"{source}: (T, field) {sorted(got)} held, not every "
+                    f"pair of {sorted(pairs)}")
         if source == "rejfree_perc.cu":
             for m in memories:
                 require(every <= {t for t, _, mm in got if mm == m},

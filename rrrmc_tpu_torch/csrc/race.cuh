@@ -1,8 +1,8 @@
-// Device code shared by the race kernels: one block per chain, block
-// reductions, the race over the sites and the shifted log-sum-exp of the
-// Boltzmann terms. `race` and `log_z` (one pass each, kRaceThreads threads)
-// serve rejfree_dense.cu; the fused pass below (`fused_pass`, `race_moves`,
-// T = 256 or 512 threads) serves rejfree_sparse.cu, rejfree_replica.cu,
+// Device code shared by the race kernels: one block of T = 256 or 512
+// threads per chain, its state resident in shared memory. The fused pass
+// (`fused_pass`) races the sites and sums the shifted log-sum-exp of their
+// Boltzmann terms in one walk; `race_moves` runs a chunk's moves on it.
+// They serve rejfree_sparse.cu, rejfree_dense.cu, rejfree_replica.cu,
 // rejfree_sat.cu and rejfree_perc.cu. The plain versions
 // (rrrmc_tpu_torch/ops/rejfree.py) add in the same order.
 #pragma once
@@ -14,101 +14,7 @@
 
 namespace rrrmc {
 
-constexpr int kRaceThreads = 256;
-constexpr int kRaceWarps = kRaceThreads / 32;
 constexpr int kBkl = 0, kWtm = 1, kRrr = 2;
-
-struct Reduce {
-  float f[kRaceWarps];
-  int i[kRaceWarps];
-};
-
-__device__ __forceinline__ float block_min(float v, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) r.f[w] = v;
-  __syncthreads();
-  v = r.f[0];
-  for (int k = 1; k < kRaceWarps; ++k) v = fminf(v, r.f[k]);
-  return v;
-}
-
-// the plain version (ops/rejfree.py::block_sum) adds in this same order
-__device__ __forceinline__ float block_sum(float v, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) r.f[w] = v;
-  __syncthreads();
-  v = r.f[0];
-  for (int k = 1; k < kRaceWarps; ++k) v += r.f[k];
-  return v;
-}
-
-// (score, index) minimum, lowest index among equal scores
-__device__ __forceinline__ void block_argmin(float& v, int& idx, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, idx, o);
-    if (v2 < v || (v2 == v && i2 < idx)) { v = v2; idx = i2; }
-  }
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) { r.f[w] = v; r.i[w] = idx; }
-  __syncthreads();
-  v = r.f[0];
-  idx = r.i[0];
-  for (int k = 1; k < kRaceWarps; ++k) {
-    if (r.f[k] < v || (r.f[k] == v && r.i[k] < idx)) { v = r.f[k]; idx = r.i[k]; }
-  }
-}
-
-// beta2s * max(s*lf, 0)
-template <typename T>
-__device__ __forceinline__ float boltz(int8_t s, T lf, float beta2s) {
-  const T half = T(s) * lf;
-  return beta2s * (float)(half > T(0) ? half : T(0));
-}
-
-// min bE and log z over the N sites, bz(i) the site's Boltzmann exponent bE
-template <typename BoltzAt>
-__device__ float log_z(int N, BoltzAt bz, Reduce& r) {
-  float mbe = INFINITY;
-  for (int i = threadIdx.x; i < N; i += kRaceThreads) mbe = fminf(mbe, bz(i));
-  mbe = block_min(mbe, r);
-  float zs = 0.0f;
-  for (int i = threadIdx.x; i < N; i += kRaceThreads) zs += expf(mbe - bz(i));
-  zs = block_sum(zs, r);
-  return logf(zs) - mbe;
-}
-
-// the race: score log(-log u_i) + bE_i over the N sites, u_i from the Philox
-// race word of site i at move mv (four sites per call); returns the block's
-// minimum score in `best` and its lowest winning index in `win`
-template <typename BoltzAt>
-__device__ __forceinline__ void race(int N, uint32_t seed, uint32_t chain,
-                                     uint32_t mv, BoltzAt bz, float& best,
-                                     int& win, Reduce& r) {
-  best = INFINITY;
-  win = 0x7fffffff;
-  for (int g = threadIdx.x; 4 * g < N; g += kRaceThreads) {
-    const uint4 w4 = philox4x32_10(make_uint4((uint32_t)g, mv, DRAW_RACE, 0u),
-                                   make_uint2(seed, chain));
-    const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = 4 * g + j;
-      if (i < N) {
-        const float u = to_uniform((int32_t)words[j]);
-        const float sc = logf(-logf(u)) + bz(i);
-        if (sc < best) { best = sc; win = i; }
-      }
-    }
-  }
-  block_argmin(best, win, r);
-}
 
 __device__ __forceinline__ int32_t geom_skip(float u2, float p) {
   // the TPU kernel's _geom_skip: floor(log(1-u)/log1p(-p)), capped at 1e9
@@ -118,28 +24,20 @@ __device__ __forceinline__ int32_t geom_skip(float u2, float p) {
   return p >= 1.0f ? 0 : skip;
 }
 
-// the most dynamic shared memory a block beside a static Reduce may opt in to
-inline int race_max_smem(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return optin - (int)sizeof(Reduce);
-}
-
-// ---- The fused pass (the sparse, replica, SAT and perceptron races) -------
+// ---- The fused pass --------------------------------------------------------
 //
-// One pass over a chain's N resident sites takes what `race` and `log_z`
-// took three: thread t of the T walks sites i = t + T r, r ascending
-// (log_z's assignment, so z keeps its order of additions), evaluates each
+// One pass over a chain's N resident sites: thread t of the T walks sites
+// i = t + T r, r ascending (ops/rejfree.py::block_sum's assignment, so z
+// keeps its order of additions), evaluates each
 // site's Boltzmann exponent bE once, and takes from it the race score, the
 // (score, lowest index) argmin, min bE and the speculative sum of
 // exp(0 - bE); one combined block reduction follows. bE >= 0, so when min
-// bE is 0 that sum is log_z's sum of exp(min bE - bE) bit for bit; when it
-// is not (every flip raises E) a second pass sums exp(min bE - bE). The
-// four lanes of a quad hold the four sites of one Philox group: lane j
-// draws the group of row r + j and a 4 x 4 transpose through shared memory
-// hands each lane its word, one Philox call per four sites as in `race`.
+// bE is 0 that sum is the plain versions' sum of exp(min bE - bE)
+// (ops/rejfree.py::_log_z) bit for bit; when it is not (every flip raises
+// E) a second pass sums exp(min bE - bE). The four lanes of a quad hold the
+// four sites of one Philox group (site i takes word i % 4 of group i / 4):
+// lane j draws the group of row r + j and a 4 x 4 transpose through shared
+// memory hands each lane its word, one Philox call per four sites.
 // The two IEEE logs of a score are taken only for a site that can still
 // win: a lower bound of its score (`fused_init`'s table of the least
 // logf(-logf(u)) over each bucket of u, plus bE) is compared with the best
@@ -223,19 +121,19 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// (score, index, pay) minimum with lane ^ o, lowest index among equal scores
-__device__ __forceinline__ void argmin_xor(float& v, int& idx, Pay& p,
-                                           int o) {
+// (score, index) minimum with lane ^ o, lowest index among equal scores
+__device__ __forceinline__ void argmin_xor(float& v, int& idx, int o) {
   const float v2 = __shfl_xor_sync(kFull, v, o);
   const int i2 = __shfl_xor_sync(kFull, idx, o);
-  const int32_t a2 = __shfl_xor_sync(kFull, p.a, o);
-  const int32_t b2 = __shfl_xor_sync(kFull, p.b, o);
   if (v2 < v || (v2 == v && i2 < idx)) {
     v = v2;
     idx = i2;
-    p.a = a2;
-    p.b = b2;
   }
+}
+
+// the Pay that lane `src` holds, in every lane
+__device__ __forceinline__ Pay pay_of(const Pay& p, int src) {
+  return Pay{__shfl_sync(kFull, p.a, src), __shfl_sync(kFull, p.b, src)};
 }
 
 // One fused pass of a block of T threads over the N sites. site(i, pay, e)
@@ -299,16 +197,19 @@ __device__ __forceinline__ void fused_pass(int N, uint32_t seed,
           }
         }
       }
-      if (RACE && j == 0 && r0 == 0) thr = warp_min(best);
+      if (RACE && j == 0 && r0 == 0 && rows > 1) thr = warp_min(best);
     }
-    if (RACE) thr = warp_min(best);
+    if (RACE && r0 + 4 < rows) thr = warp_min(best);
   }
-  // within the warp: z in block_sum's order, the others in any
+  // within the warp: z in block_sum's order, the others in any; the
+  // winner's Pay comes from the lane that raced it (site i's lane is
+  // i % 32)
   for (int o2 = 16; o2 > 0; o2 >>= 1) {
-    if (RACE) argmin_xor(best, win, pay, o2);
+    if (RACE) argmin_xor(best, win, o2);
     mn = fminf(mn, __shfl_xor_sync(kFull, mn, o2));
     zs += __shfl_xor_sync(kFull, zs, o2);
   }
+  if (RACE) pay = pay_of(pay, win & 31);
   if (lane == 0) {
     r.score[w] = best;
     r.idx[w] = win;
@@ -319,7 +220,8 @@ __device__ __forceinline__ void fused_pass(int N, uint32_t seed,
   }
   __syncthreads();
   // across the warps: lane l takes warp l's partials; z adds the warps in
-  // turn, as block_sum does
+  // turn, as block_sum does; the Pay comes from the lane of the winner's
+  // warp ((i % T) / 32)
   best = INFINITY;
   win = 0x7fffffff;
   mn = INFINITY;
@@ -330,14 +232,15 @@ __device__ __forceinline__ void fused_pass(int N, uint32_t seed,
     mn = r.mbe[lane];
   }
   for (int o2 = 16; o2 > 0; o2 >>= 1) {
-    if (RACE) argmin_xor(best, win, pay, o2);
+    if (RACE) argmin_xor(best, win, o2);
     mn = fminf(mn, __shfl_xor_sync(kFull, mn, o2));
   }
+  if (RACE) pay = pay_of(pay, (win & (T - 1)) >> 5);
   float z = r.z[0];
 #pragma unroll
   for (int k = 1; k < W; ++k) z += r.z[k];
   if (mn != 0.0f) {
-    // every flip raises E: sum exp(mn - bE) as log_z does
+    // every flip raises E: sum exp(mn - bE) as the plain _log_z does
     Site again = site0;
     zs = 0.0f;
     for (int rr = 0; rr < rows; ++rr) {

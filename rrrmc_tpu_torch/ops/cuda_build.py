@@ -48,10 +48,11 @@ _SIGNATURES = {
                             _P]),
     "rrrmc_sk_smem": (_Z, [_I]),
     "rrrmc_sk_max_smem": (_I, [_I]),
-    "rrrmc_rejfree_dense": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _U, _U, _U, _F, _I, _F, _I, _I, _P]),
-    "rrrmc_rejfree_dense_smem": (_Z, [_I]),
-    "rrrmc_rejfree_dense_max_smem": (_I, [_I]),
+    "rrrmc_rejfree_dense": (_I, [_P] * 10 + [_I, _I, _I, _U, _U, _U, _F,
+                                             _I, _F, _I, _I, _I, _I, _I,
+                                             _P]),
+    "rrrmc_rejfree_dense_smem": (_Z, [_I, _I, _I, _I]),
+    "rrrmc_rejfree_dense_info": (_I, [_I, _I, _I, _Z, _I, _P]),
     "rrrmc_eo_sparse": (_I, [_P] * 9 + [_I, _I, _I, _I, _U, _U, _U, _I, _I,
                                          _P]),
     "rrrmc_eo_sparse_smem": (_Z, [_I, _I]),

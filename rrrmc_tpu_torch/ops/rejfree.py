@@ -1,7 +1,8 @@
 """Rejection-free race moves (bkl / wtm / rrr) on sparse Pairwise models:
 the CUDA kernel (csrc/rejfree_sparse.cu), its plain torch version, the
 eligibility rule, and the launch rule of the fused race kernels
-(rejfree_sparse.cu, rejfree_replica.cu).
+(rejfree_sparse.cu, rejfree_dense.cu, rejfree_replica.cu, rejfree_sat.cu,
+rejfree_perc.cu).
 
 Source note. The kernel replaces
 rrrmc_tpu/ops/rejfree_pallas.py::_rejfree_sparse_kernel (called by
@@ -63,8 +64,8 @@ from ..core.dtypes import is_integer
 LAUNCHES = 0
 
 MODES = {"bkl": 0, "wtm": 1, "rrr": 2}
-#: threads of one block, one block per chain (kRaceThreads of race.cuh's
-#: `race` and `log_z`; the plain versions' default)
+#: the plain versions' default block size, whose order of additions they
+#: keep (the smaller of FUSED_THREADS)
 THREADS = 256
 #: the block sizes the fused race kernels are built for
 FUSED_THREADS = (256, 512)

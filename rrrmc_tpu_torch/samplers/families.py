@@ -8,12 +8,13 @@ place, and E in its dtype; the replica composites keep their base fields and
 float32 physical energies), `beta_s = beta * model.scale`, and the model's
 tables as `tables(model)` gives them; every EO wrapper takes the same state
 and tables and the rank table, plus `eo_kw(model)`. The race wrappers of
-the fused kernels (sparse, pspin, replica) also take `race_kw(model)`: the
-bound on their resident fields |lf| over every configuration, from which
-they pick the fields' resident type. A family without an EO
-kernel (the replica composites, in either package) has `eo` None. A family
-whose float32 running E drifts (the xentr perceptron) resyncs it from the
-resident state at every chunk boundary through `resync(model, state, E)`.
+the fused kernels (dense, sparse, pspin, replica) also take
+`race_kw(model)`: the bound on their resident fields |lf| over every
+configuration, from which they pick the fields' resident type. A family
+without an EO kernel (the replica composites, in either package) has `eo`
+None. A family whose float32 running E drifts (the xentr perceptron)
+resyncs it from the resident state at every chunk boundary through
+`resync(model, state, E)`.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def _replica_race_kw(model) -> dict:
 FAMILIES = (
     Family("dense", dense_rejfree_ok, rejfree_dense_chunk, eo_dense_chunk,
            lambda m: (kernel_couplings(m),), _pairwise_kw, half_bound,
-           lambda m: m.N),
+           lambda m: m.N, race_kw=lambda m: {"field_bound": half_bound(m)}),
     Family("sparse", sparse_rejfree_ok, rejfree_sparse_chunk,
            eo_sparse_chunk, lambda m: (m.neigh, m.J), _pairwise_kw,
            half_bound, lambda m: m.K,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the race kernels of the PyTorch + CUDA port on their kernel-table
-cases (PERF.md section 6, rows 2, 4, 7, 14, 16, 17 and 19; row 19 on step,
-its case, and on xentr), for the rrrmc_tpu_torch package under --root, so
-that two trees are timed in one call on one card:
+cases (PERF.md section 6, rows 2, 4, 5, 6, 7, 14, 16, 17 and 19; row 6 on
+its two cases, row 19 on step, its case, and on xentr), for the
+rrrmc_tpu_torch package under --root, so that two trees are timed in one
+call on one card:
 
     python3 scripts/torch_race_timing.py --root DIR [--sweep] [--reps 3]
         [--rows 17,19]
@@ -38,6 +39,12 @@ CASES = (
         10_000, 3, (-1, 1), seed=SEED, device="cuda"), 1024, 2.0),
     (4, "GraphEA(16, 3) +-J", lambda rt: rt.GraphEA(
         16, 3, (-1, 1), seed=42, device="cuda"), 1024, 2.0),
+    (5, "GraphSK(1024)", lambda rt: rt.GraphSK(
+        1024, seed=4, device="cuda"), 1024, 4.0),
+    (6, "densify(GraphRRG(10^4, 3))", lambda rt: rt.densify(rt.GraphRRG(
+        10_000, 3, (-1, 1), seed=7, device="cuda")), 1024, 4.0),
+    (6, "GraphSKNormal(4096)", lambda rt: rt.GraphSKNormal(
+        4096, seed=4, device="cuda"), 128, 4.0),
     (7, "GraphPSpin3(7500, 3)", lambda rt: rt.GraphPSpin3(
         7500, 3, seed=7, device="cuda"), 128, 1.5),
     (14, "GraphQSKT(1024, 16)", lambda rt: rt.GraphQSKT(

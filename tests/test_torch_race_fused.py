@@ -5,8 +5,9 @@ the pass's speculative sum of exp(0 - bE) equals race.cuh's two-pass log_z
 (`_log_z`) bit for bit wherever min bE is 0, and the all-up ferromagnets
 are the states whose min bE is above 0 (there the kernel sums again, as
 log_z does); the resident field type follows the family's bound on |lf|
-(int8 for the +-J RRG and EA-3D and PSpin3, int16 for the SK base of QSKT,
-int32 once a row's sum of |J| passes 32767, float32 for float couplings);
+(int8 for the +-J RRG and EA-3D and PSpin3 and a densified +-J RRG, int16
+for GraphSK(1024) and the SK base of QSKT, int32 once a row's sum of |J|
+passes 32767, or for the dense race 4095, float32 for float couplings);
 the block size follows the chains and the blocks that fit on an SM."""
 
 import dataclasses
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 import rrrmc_tpu_torch as pt
-from rrrmc_tpu_torch.ops import rejfree, replica
+from rrrmc_tpu_torch.ops import rejfree, rejfree_dense, replica
+from rrrmc_tpu_torch.ops.rejfree_dense import dense_field
 from rrrmc_tpu_torch.ops.rejfree import (_log_z, block_sum, race_threads,
                                          resident_dtype)
 from rrrmc_tpu_torch.core.dtypes import is_integer
@@ -160,6 +162,50 @@ def test_replica_resident_type(name):
     assert resident_dtype(is_integer(lf), bound) == want
 
 
+def _dense_family():
+    return next(f for f in families.FAMILIES if f.name == "dense")
+
+
+def _fc(j, n):
+    """A FullyConnected model of n spins, every coupling j."""
+    return pt.make_fully_connected(j * (1 - np.eye(n)), scale=1.0, **CPU)
+
+
+#: (builder, resident type, whether the dense race kernel takes the model)
+DENSE = {
+    "densify(RRG(64, 3) +-J)": (lambda: pt.densify(
+        pt.GraphRRG(64, 3, seed=1, **CPU)), torch.int8, True),
+    "GraphSK(1024)": (lambda: pt.GraphSK(1024, seed=4, **CPU), torch.int16,
+                      True),
+    "FullyConnected(300) J=14": (lambda: _fc(14, 300), torch.int32, True),
+    "FullyConnected(300) J=127": (lambda: _fc(127, 300), torch.int32, True),
+    "FullyConnected(8) J=20000": (lambda: _fc(20000, 8), torch.int32, False),
+    "GraphSKNormal(64)": (lambda: pt.GraphSKNormal(64, seed=1, **CPU),
+                          torch.float32, True),
+}
+
+
+@pytest.mark.parametrize("name", list(DENSE))
+def test_dense_resident_type(name):
+    """The dense family's bound on |lf| (half_bound: the largest row sum of
+    |J| plus |h|) holds every field of random states, and it picks the
+    resident type: int8 on a densified +-J RRG (bound 3), int16 on
+    GraphSK(1024) (1023), int32 where an int16 bound's exp table would pass
+    TABLE_MAX terms (14 x 299 = 4186) and above 32767 (127 x 299 = 37 973,
+    and 20 000 x 7, which the kernel refuses for |J| > 127), float32 for
+    float couplings."""
+    build, want, eligible = DENSE[name]
+    m = build()
+    dense = _dense_family()
+    assert (family_of(m) is dense) == eligible
+    bound = dense.race_kw(m)["field_bound"]
+    assert bound == half_bound(m)
+    if bound is not None:
+        assert int(m.local_fields(_random(m, 64)).abs().max()) <= bound
+    assert dense_field(is_integer(m.J), bound) == want
+    assert rejfree_dense.TABLE_MAX == 4096
+
+
 def test_pspin_resident_type():
     """A PSpin3 cavity sum adds K products of two spins: the family's bound
     is K, |c| <= K, int8."""
@@ -211,6 +257,9 @@ def test_race_threads_sites(chains, sites, want):
 
 FAMILY_BOUNDS = {
     "RRG +-J": (lambda: pt.GraphRRG(64, 3, seed=1, **CPU), 3),
+    "densify(RRG +-J)": (lambda: pt.densify(pt.GraphRRG(64, 3, seed=1,
+                                                         **CPU)), 3),
+    "GraphSK(64)": (lambda: pt.GraphSK(64, seed=4, **CPU), 63),
     "PSpin3(48, 3)": (lambda: pt.GraphPSpin3(48, 3, seed=3, **CPU), 3),
     "Quant(RRG(64, 3) J=+-100)": (lambda: pt.GraphQuant(
         64, 4, 1.0, 1.0, _scaled(pt.GraphRRG(64, 3, seed=11, **CPU), 100)),

@@ -219,8 +219,8 @@ def test_block_sum_follows_kernel_order(n, T):
     """The plain version's z sum adds in the CUDA kernels' order with T
     threads a block (strided per-thread sums, a pairwise fold within each
     warp, the warps in turn), spelled out here one float32 addition at a
-    time: T = 256 for race.cuh's log_z, 256, 512 or 1024 for its fused
-    pass."""
+    time: T = 256 (the plain versions' default), 512 or 1024, the sizes
+    race.cuh's fused pass has been built for."""
     rng = np.random.default_rng(n)
     x = rng.exponential(size=(3, n)).astype(np.float32)
     want = []

@@ -3,10 +3,13 @@ the JAX Pallas dense race kernels run in interpret mode, on identical
 couplings, spins and random bits, for bkl, wtm and rrr: the VMEM-resident
 kernel (`_rejfree_dense_kernel`) and the HBM-streamed one
 (`_rejfree_stream_kernel`, forced at small N with small windows), on
-GraphSK and a densified RRG; float couplings (GraphSKNormal); the dense race
-against the sparse one on the same graph; and the samplers' law."""
+GraphSK and a densified RRG, each also with z summed as a block of 512
+threads sums it (the kernel's other block size); float couplings
+(GraphSKNormal); the dense race against the sparse one on the same graph;
+and the samplers' law."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,8 +21,8 @@ import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import rejfree_dense
 from rrrmc_tpu_torch.ops.rejfree import coord_dtype, rejfree_sparse_chunk
-from rrrmc_tpu_torch.ops.rejfree_dense import (kernel_couplings,
-                                               rejfree_dense_chunk)
+from rrrmc_tpu_torch.ops.rejfree_dense import (
+    kernel_couplings, rejfree_dense_chunk, rejfree_dense_chunk_reference)
 
 from torch_port_helpers import (CPU, _salt0, dense_race_bits,
                                 jax_random_bits, pallas_interpret,
@@ -75,7 +78,17 @@ def _jax_chunk(rp, jm, beta, mode, sigma, E0, target):
         ("sigma", "E", "coord", "acc", "zacc", "cs", "es"), out)}
 
 
-def _port_chunk(pm, beta, mode, sigma, E0, target, bits=None, chain0=0):
+def _chunk(threads):
+    """The wrapper (its plain version on the CPU, 256 threads' order of
+    additions), or the plain version summing z as a block of `threads`
+    threads does."""
+    if threads is None:
+        return rejfree_dense_chunk
+    return functools.partial(rejfree_dense_chunk_reference, threads=threads)
+
+
+def _port_chunk(pm, beta, mode, sigma, E0, target, bits=None, chain0=0,
+                threads=None):
     sig = torch.from_numpy(sigma.copy())
     lf = pm.local_fields(sig)
     E = torch.from_numpy(np.asarray(E0).copy()).to(lf.dtype)
@@ -83,7 +96,7 @@ def _port_chunk(pm, beta, mode, sigma, E0, target, bits=None, chain0=0):
     coord = torch.zeros(n, dtype=coord_dtype(mode))
     acc = torch.zeros(n, dtype=torch.int32)
     zacc = torch.zeros(n, dtype=torch.float32)
-    cs, es = rejfree_dense_chunk(
+    cs, es = _chunk(threads)(
         sig, lf, E, coord, acc, zacc, kernel_couplings(pm), mode=mode,
         n_moves=N_MOVES, beta_s=beta * pm.scale, target=target,
         seed=SEED, chain0=chain0, bits=bits)
@@ -117,11 +130,21 @@ def _inputs(jm):
     return sigma, E0
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_chunk_matches_jax_dense_interpret(rejfree_pallas, mode, name):
+#: (mode, model, threads): every mode and model as the wrapper runs them
+#: (256 threads' order of additions), and again as a block of 512 does
+CASES = [
+    *(pytest.param(m, n, None, id=f"{m}-{n}") for m in ("bkl", "wtm", "rrr")
+      for n in MODELS),
+    *(pytest.param(m, n, 512, id=f"{m}-{n}-512threads")
+      for m in ("bkl", "wtm", "rrr") for n in MODELS)]
+
+
+@pytest.mark.parametrize("mode,name,threads", CASES)
+def test_chunk_matches_jax_dense_interpret(rejfree_pallas, mode, name,
+                                           threads):
     """The VMEM-resident TPU kernel (N padded to a lane multiple with frozen
-    spins masked out of the race and z), see `_compare`."""
+    spins masked out of the race and z), see `_compare`; z summed as a
+    block of `threads` threads sums it."""
     rp, _ = rejfree_pallas
     build, beta, targets = MODELS[name]
     jm = build()
@@ -130,17 +153,18 @@ def test_chunk_matches_jax_dense_interpret(rejfree_pallas, mode, name):
     assert rf.kind == "dense"
     pm = port_dense(jm)
     p = _port_chunk(pm, beta, mode, sigma, E0, targets[mode],
-                    bits=dense_race_bits(SEED, B, jm.N, rf.Jb.shape[0]))
+                    bits=dense_race_bits(SEED, B, jm.N, rf.Jb.shape[0]),
+                    threads=threads)
     _compare(p, j, mode, targets[mode])
     assert torch.equal(p["lf"], pm.local_fields(p["sigma"]))
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-@pytest.mark.parametrize("mode", ["bkl", "wtm", "rrr"])
-def test_chunk_matches_jax_stream_interpret(stream_small, mode, name):
+@pytest.mark.parametrize("mode,name,threads", CASES)
+def test_chunk_matches_jax_stream_interpret(stream_small, mode, name,
+                                            threads):
     """The HBM-streamed TPU kernel, several 32-row blocks per move, its race
     drawn per block and z reduced as a streamed log-sum-exp, see
-    `_compare`."""
+    `_compare`; z summed as a block of `threads` threads sums it."""
     rp = stream_small
     build, beta, targets = MODELS[name]
     jm = build()
@@ -149,17 +173,16 @@ def test_chunk_matches_jax_stream_interpret(stream_small, mode, name):
     assert rf.kind == "stream" and rf.Jhbm.shape[0] // rf.window > 1
     p = _port_chunk(port_dense(jm), beta, mode, sigma, E0, targets[mode],
                     bits=stream_race_bits(SEED, B, jm.N, rf.Jhbm.shape[0],
-                                          rf.window))
+                                          rf.window), threads=threads)
     _compare(p, j, mode, targets[mode])
 
 
-def test_float_chunk_matches_jax_stream(stream_small):
+def _float_stream_case(rp, threads):
     """GraphSKNormal rides the float32 streamed TPU kernel, which recomputes
     lf = J sigma every move; the port adds the winner's row of J instead.
     At most one chain of 128 may diverge (a last-bit difference can flip a
     borderline race); on the others E within 1e-4, the bkl coordinate
     equal and z/N within rtol 1e-5."""
-    rp = stream_small
     jm = rt.GraphSKNormal(96, seed=5)
     sigma = random_sigma(np.random.default_rng(8), B, jm.N)
     E0 = np.asarray(jax.vmap(jm.energy)(jnp.asarray(sigma)))
@@ -168,7 +191,7 @@ def test_float_chunk_matches_jax_stream(stream_small):
     pm = port_dense(jm)
     p = _port_chunk(pm, 1.0, "bkl", sigma, E0.astype(np.float32), 125,
                     bits=stream_race_bits(SEED, B, jm.N, rf.Jhbm.shape[0],
-                                          rf.window))
+                                          rf.window), threads=threads)
     p = {k: v.numpy() for k, v in p.items()}
     same = (p["sigma"] == j["sigma"]).all(axis=1) & (p["acc"] == j["acc"])
     assert (~same).sum() <= 1, (~same).sum()
@@ -177,6 +200,17 @@ def test_float_chunk_matches_jax_stream(stream_small):
     np.testing.assert_allclose(p["zacc"][same], j["zacc"][same], rtol=1e-5)
     lf_re = pm.local_fields(torch.from_numpy(p["sigma"])).numpy()
     np.testing.assert_allclose(p["lf"], lf_re, atol=1e-4)
+
+
+def test_float_chunk_matches_jax_stream(stream_small):
+    """`_float_stream_case` through the wrapper (256 threads' order)."""
+    _float_stream_case(stream_small, None)
+
+
+def test_float_chunk_matches_jax_stream_512threads(stream_small):
+    """`_float_stream_case` with z summed as a block of 512 threads sums
+    it."""
+    _float_stream_case(stream_small, 512)
 
 
 def test_stream_bits_helper_matches_interpret_bits(rejfree_pallas):
