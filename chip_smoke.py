@@ -90,7 +90,14 @@ The replica phases of 2 are the composite race kernel on GraphQSKT(1024,
 (bkl), the dense base, and on Quant and RE over GraphRRG(1000, 3) (bkl,
 wtm, rrr) and GraphQEAT(8, 3, M=8) (bkl), the sparse base, at the main
 paths' chains; and the composite sweep kernel, one sweep and a split pair,
-on GraphQSKT(1024, 16), GraphSKRE(1024, 5) and GraphQSKNormalT(1024, 16).
+on GraphQSKT(1024, 16), GraphSKRE(1024, 5) and GraphQSKNormalT(1024, 16),
+then on GraphQSKT(1024, 16) after 79 warm sweeps (one checkpoint of the
+path's sweepMC_quant: its equilibrium case), with REPLICA_RAGGED_B and
+with SMALL_B chains, on GraphQSKT(1100, 4) and GraphSKRE(1101, 3) (rows
+of 4-byte and of single-byte loads) with REPLICA_RAGGED_B chains, and on
+GraphSKRE(1024, 5) gamma=5 after the path's 100 sweeps (nearly frozen:
+the row-by-row commit). Every dense and composite sweep case
+prints its launch plan (chains a block, span, shared bytes, commit path).
 Integer bases must agree bit for bit, E and z/N included. Then the
 refusals: a composite above shared memory, a sparse base under
 sweepMC_quant and a Double under bklMC each raise.
@@ -120,7 +127,14 @@ stability update.
 The dense-model phases of 2 are the dense sweep kernel on GraphSK(1024)
 with 8192 chains (3 sweeps) and GraphSK(8192) with 2048 chains (1 sweep),
 then on its other code paths with 1024 chains (1 sweep each): GraphSK(1100)
-(N % 4 != 0, the scalar commit) and GraphSK(1024) with integer fields; and
+(N % 16 != 0: the commit's J loads of 4 bytes) and GraphSK(1024) with
+integer fields; each row's equilibrium case (its chains after one
+main-path checkpoint of warm sweeps of the kernel, 50 and 2, then the
+row's sweeps from there, at the main path's acceptance), a ragged B
+(SK_RAGGED_B chains: the last block has warps past B; SMALL_B chains,
+fewer than one block's tile of 8) and near-frozen
+chains (FROZEN_BETA after 50 sweeps, N = 1024 and 1101: the row-by-row
+commit of a span with few flips); and
 the dense race kernel on GraphSK(1024) with 1024 chains at beta=4 (one
 1024-move chunk per mode), densify(GraphRRG(10_000, 3)) with 1024 chains
 and GraphSKNormal(4096) with 128 chains (bkl), the main paths' shapes;
@@ -166,7 +180,13 @@ race move or an EO move.
 
 Each entry of the record also carries `registers`: the fewest and the most
 registers of its kernel function's instantiations, from the build's ptxas
-report (null when the library was already built).
+report (null when the library was already built); the sweep entries also
+their plan and their equilibrium case's time. `sweep_instantiations` prints
+every instantiation of the two sweep kernels with its registers and spill
+bytes (ptxas) and local bytes (the CUDA runtime), and fails on a spill or
+local byte, or on an integer instantiation whose SASS (cuobjdump -sass of
+the built library) holds neither IMMA nor IGMMA: the commit's int8
+tensor-core product.
 
 The last lines are the kernels' JSON record, the card line, and
 {"ok": true, "device": {...}}. It exits 1 without a result when no CUDA
@@ -176,6 +196,7 @@ device is visible.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -209,6 +230,17 @@ SKN_ITERS_BKL, DRRG_ITERS_BKL = 2_000_000, 10_000_000
 #: sweeps per dense-sweep comparison (the plain version takes ~1 ms per
 #: site at these shapes)
 SK_CMP_SWEEPS, SK8_CMP_SWEEPS = 3, 1
+#: chains of the sweep kernels' ragged cases: not a multiple of a block's
+#: 16 chains (the last block has warps past B), and fewer than 8 (one block
+#: whose second tile of 8 chains is all past B)
+SK_RAGGED_B, REPLICA_RAGGED_B, SMALL_B = 1003, 203, 5
+#: beta of the dense sweep's near-frozen cases
+FROZEN_BETA = 40.0
+#: the dense sweep kernels' __global__ functions whose integer
+#: instantiations must run their commit on the tensor cores (IMMA or IGMMA
+#: in their SASS); the float base's kernel commits on the CUDA cores
+SWEEP_FUNCTIONS = ("sk_sweep_kernel", "replica_sweep_kernel",
+                   "replica_sweep_float_kernel")
 #: tau-EO: tau, the moves of each kernel-versus-plain comparison, the main
 #: path's moves where no physics row sets them, and the moves of the physics
 #: rows of bench_all_results.json (scripts/bench_all.py: bench_eo_sparse,
@@ -672,27 +704,41 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
             "diverged": bad, "max_abs_err": err, "errs": errs, "plan": plan}
 
 
-def sk_case(model, label, B, n_sweeps, card, kernel):
+def sk_case(model, label, B, n_sweeps, card, kernel, warm=0, beta=BETA):
     """The dense sweep kernel against its plain version: n_sweeps sweeps of
-    B chains from one random start, one Philox seed; spins, local fields
-    and energies must be EQUAL (integer arithmetic, one threshold table)."""
+    B chains from one random start, or (warm > 0, an equilibrium case) from
+    the state that `warm` sweeps of the kernel reach from it, one Philox
+    seed; spins, local fields and energies must be EQUAL (integer
+    arithmetic, one threshold table)."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import sk
 
-    sw = sk.SKSweeper(model, BETA)
+    sw = sk.SKSweeper(model, beta)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
-    lf0 = model.local_fields(st.sigma)
+    sig0, lf0, E0 = st.sigma, model.local_fields(st.sigma), st.E
+    if warm:
+        sig0, lf0, E0 = sig0.clone(), lf0.clone(), E0.clone()
+        sk.sk_sweep_chunk(sig0, lf0, E0, sw.J8, sw.th, n_sweeps=warm,
+                          seed=SEED)
 
-    def run(fn, sweeps=n_sweeps, sigma=st.sigma, lf=lf0, E=st.E, sweep0=0):
+    def run(fn, sweeps=n_sweeps, sigma=sig0, lf=lf0, E=E0, sweep0=warm):
         sigma, lf, E = sigma.clone(), lf.clone(), E.clone()
         ms = _events_ms(lambda: fn(sigma, lf, E, sw.J8, sw.th,
                                    n_sweeps=sweeps, seed=SEED,
                                    sweep0=sweep0))
         return sigma, lf, E, ms
 
+    # the warm-up checks J's symmetry and the table in the wrapper; the
+    # timed launches skip it, as SKSweeper's do
     run(sk.sk_sweep_chunk)                                # warm-up
-    ks, klf, kE, ms = run(sk.sk_sweep_chunk)
+    kern = functools.partial(sk.sk_sweep_chunk, checked=True)
+    ks, klf, kE, ms = run(kern)
+    plan = dict(sk.LAST_PLAN)
+    from rrrmc_tpu_torch.ops.cuda_build import library
+    require(library().rrrmc_sk_smem(model.N, plan["hmax_bytes"])
+            == plan["smem"],
+            f"sk_sweep {label}: the plan's shared bytes are not the kernel's")
     ps, plf, pE, plain_ms = run(sk.sk_sweep_chunk_reference)
     same = torch.equal(ks, ps) and torch.equal(klf, plf) \
         and torch.equal(kE, pE)
@@ -703,9 +749,9 @@ def sk_case(model, label, B, n_sweeps, card, kernel):
             f"sk_sweep {label}: E or lf != recomputed")
     # accepted flips, one sweep at a time (a site flips at most once per
     # sweep): the commits' work depends on them
-    flips, sig, lf, E = 0, st.sigma, lf0, st.E
+    flips, sig, lf, E = 0, sig0, lf0, E0
     for s_ in range(n_sweeps):
-        s2, lf, E, _ = run(sk.sk_sweep_chunk, 1, sig, lf, E, s_)
+        s2, lf, E, _ = run(kern, 1, sig, lf, E, warm + s_)
         flips += int((s2 != sig).sum())
         sig = s2
     require(torch.equal(sig, ks), f"sk_sweep {label}: split launches differ")
@@ -714,17 +760,28 @@ def sk_case(model, label, B, n_sweeps, card, kernel):
     # product and an add each: the rank-W commit, the TPU kernel's int8 MXU
     # product, at the int8 tensor-core rate
     bound_ms, bound_by = bound(
-        2 * _nbytes(st.sigma, lf0, st.E) + _nbytes(sw.J8, sw.th),
+        2 * _nbytes(sig0, lf0, E0) + _nbytes(sw.J8, sw.th),
         B * model.N * n_sweeps * (PHILOX_OPS / 4 + 4),
         int8_ops=flips * 2 * model.N)
-    print(f"{kernel} {label} B={B} sweeps={n_sweeps}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
-          f"accepted {flips / (B * model.N * n_sweeps):.4f} of the attempts,"
-          f" equal [{card}]")
+    print(f"{kernel} {label} B={B} sweeps={n_sweeps}"
+          f"{f' after {warm} warm sweeps' if warm else ''}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
+          f"({bound_by}), accepted {flips / (B * model.N * n_sweeps):.4f} "
+          f"of the attempts, equal, split launches equal [{plan_line(plan)}]"
+          f" [{card}]")
     return {"kernel": kernel, "case": label, "B": B, "sweeps": n_sweeps,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "accepted": flips, "diverged": 0,
-            "max_abs_err": 0.0}
+            "warm": warm, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "accepted": flips,
+            "diverged": 0, "max_abs_err": 0.0, "sweep_plan": plan}
+
+
+def plan_line(plan) -> str:
+    """A dense or composite sweep's launch plan, for the case line."""
+    return (f"{plan['chains']} chains a block, span {plan['span']}, "
+            f"{plan['smem']} shared bytes, {plan['path']} commit, J loads "
+            f"of {plan['loads']} bytes"
+            + (f", hmax in {plan['hmax_bytes']} bytes"
+               if "hmax_bytes" in plan else ""))
 
 
 def eo_case(model, label, B, card, kernel, ops=None):
@@ -838,6 +895,111 @@ def spill_bytes(log: str) -> dict:
                     n = max(int(m.group(1)), int(m.group(2)))
                     out[name] = max(out.get(name, 0), n)
     return out
+
+
+def _cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (cuobjdump, cu++filt) beside nvcc."""
+    import os
+    import shutil
+
+    from rrrmc_tpu_torch.ops import cuda_build
+
+    cand = os.path.join(os.path.dirname(cuda_build._nvcc()), name)
+    found = cand if os.path.exists(cand) else shutil.which(name)
+    require(found is not None, f"{name} not found beside nvcc")
+    return found
+
+
+def _demangle(names) -> dict:
+    """{mangled: readable} through cu++filt (the mangled name where it
+    fails)."""
+    names = list(names)
+    try:
+        out = subprocess.run([_cuda_tool("cu++filt")], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (AssertionError, OSError, subprocess.SubprocessError):
+        out = []
+    if len(out) != len(names):
+        return {n: n for n in names}
+    return dict(zip(names, (o.split(">(")[0] + ">" for o in out)))
+
+
+def sweep_instantiations(log: str, card: str) -> None:
+    """Every instantiation of the dense sweep kernels: its registers and
+    spill bytes (ptxas, when this run built the library), its local bytes
+    a thread (the CUDA runtime's attributes), and for the integer ones
+    whether the built library's SASS (cuobjdump -sass) holds IMMA or IGMMA,
+    the commit's tensor-core product. Fails on a spill or local byte, or an
+    integer instantiation without a tensor-core instruction."""
+    import ctypes
+    import re
+
+    from rrrmc_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library()
+    ptx, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if any(f"{len(s)}{s}" in m.group(1)
+                                   for s in SWEEP_FUNCTIONS) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["spill"] = max(int(m.group(1)),
+                                                  int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["registers"] = int(m.group(1))
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                           cuda_build.build_info["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    tensor, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(f"{len(s)}{s}" in m.group(1)
+                                   for s in SWEEP_FUNCTIONS) else None
+            if fn is not None:
+                tensor[fn] = False
+            continue
+        if fn is not None and re.search(r"\b(IMMA|IGMMA)", line):
+            tensor[fn] = True
+    names = _demangle(set(tensor) | set(ptx))
+    for fn in sorted(set(tensor) | set(ptx), key=names.get):
+        integer = "float_kernel" not in fn
+        rec = ptx.get(fn, {})
+        print(f"sweep instantiation {names[fn]}: registers "
+              f"{rec.get('registers')}, spill bytes {rec.get('spill')}"
+              f" (ptxas; None: not built in this run), IMMA/IGMMA in its "
+              f"SASS {tensor.get(fn)}  [{card}]")
+        require(rec.get("spill", 0) == 0, f"{names[fn]} spills")
+        require(not integer or tensor.get(fn),
+                f"{names[fn]}: no IMMA or IGMMA in its SASS")
+    require(sum("float_kernel" not in f for f in tensor) == 12,
+            f"{len(tensor)} sweep instantiations in the SASS, expected the "
+            f"12 integer ones and the float ones")
+    out = (ctypes.c_int * 5)()
+    local = {}
+    for hb in (2, 4):
+        for vec in (16, 4, 1):
+            cuda_build.check(lib.rrrmc_sk_info(hb, vec, 0, out), "sk_info")
+            local[f"sk_sweep hmax {hb} bytes, loads {vec}"] = out[1]
+    for is_float in (0, 1):
+        for star in (0, 1):
+            for vec in ((16, 4, 1) if not is_float else (4,)):
+                cuda_build.check(lib.rrrmc_replica_sweep_info(
+                    is_float, star, vec, 0, out), "replica_sweep_info")
+                local[f"replica_sweep {'float' if is_float else 'int'} "
+                      f"{'star' if star else 'ring'}"
+                      f"{'' if is_float else f', loads {vec}'}"] = out[1]
+    print(f"sweep instantiations' local bytes a thread: "
+          f"{json.dumps(local)}  [{card}]")
+    require(not any(local.values()), f"sweep kernels use local memory: "
+                                     f"{local}")
 
 
 def fused_local_bytes() -> dict:
@@ -1218,12 +1380,13 @@ def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves,
             "diverged": bad, "max_abs_err": err, "errs": errs, "plan": plan}
 
 
-def replica_sweep_case(model, label, B, beta, card):
+def replica_sweep_case(model, label, B, beta, card, warm=0):
     """The composite sweep kernel against its plain version: REPLICA_CMP_
-    SWEEPS sweeps of B chains from one random start, one Philox seed. An
-    integer base must agree bit for bit (spins, fields, E, accepted
-    counts), a float base within `_compare`'s tolerances; the same sweeps
-    split over two launches equal one."""
+    SWEEPS sweeps of B chains from one random start, or (warm > 0, an
+    equilibrium case) from the state that `warm` sweeps of the kernel reach
+    from it, one Philox seed. An integer base must agree bit for bit
+    (spins, fields, E, accepted counts), a float base within `_compare`'s
+    tolerances; the same sweeps split over two launches equal one."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import replica, replica_sweep
@@ -1231,10 +1394,16 @@ def replica_sweep_case(model, label, B, beta, card):
     sw = replica_sweep.ReplicaSweeper(model, beta)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     lf0, E0 = replica.replica_state(model, st.sigma, st.E)
+    sig0 = st.sigma
+    if warm:
+        sig0 = sig0.clone()
+        replica_sweep.replica_sweep_chunk(
+            sig0, lf0, E0, torch.zeros(B, dtype=torch.int32, device=DEV),
+            sw.tab, beta=beta, n_sweeps=warm, seed=SEED)
     n = REPLICA_CMP_SWEEPS
 
-    def run(fn, sweeps=n, sweep0=0, a=None):
-        a = a or {"sigma": st.sigma.clone(), "lf": lf0.clone(),
+    def run(fn, sweeps=n, sweep0=warm, a=None):
+        a = a or {"sigma": sig0.clone(), "lf": lf0.clone(),
                   "E": E0.clone(),
                   "acc": torch.zeros(B, dtype=torch.int32, device=DEV)}
         ms = _events_ms(lambda: fn(a["sigma"], a["lf"], a["E"], a["acc"],
@@ -1242,15 +1411,24 @@ def replica_sweep_case(model, label, B, beta, card):
                                    seed=SEED, sweep0=sweep0))
         return a, ms
 
+    # the warm-up checks an integer base's symmetry in the wrapper; the
+    # timed launches skip it, as ReplicaSweeper's do
     run(replica_sweep.replica_sweep_chunk)                  # warm-up
-    k, ms = run(replica_sweep.replica_sweep_chunk)
+    kern = functools.partial(replica_sweep.replica_sweep_chunk, checked=True)
+    k, ms = run(kern)
+    plan = dict(replica_sweep.LAST_PLAN)
+    from rrrmc_tpu_torch.ops.cuda_build import library
+    require(library().rrrmc_replica_sweep_smem(
+        sw.tab.Nk, int(plan["path"] == "scalar")) == plan["smem"],
+        f"replica_sweep {label}: the plan's shared bytes are not the "
+        f"kernel's")
     p, plain_ms = run(replica_sweep.replica_sweep_chunk_reference)
     integer = not lf0.dtype.is_floating_point
     bad, err, errs = _compare(f"replica_sweep {label}", integer, k, p, B,
                               model.N)
-    s2, _ = run(replica_sweep.replica_sweep_chunk, sweeps=2)
-    s1, _ = run(replica_sweep.replica_sweep_chunk, sweeps=1)
-    s1, _ = run(replica_sweep.replica_sweep_chunk, sweeps=1, sweep0=1, a=s1)
+    s2, _ = run(kern, sweeps=2)
+    s1, _ = run(kern, sweeps=1)
+    s1, _ = run(kern, sweeps=1, sweep0=warm + 1, a=s1)
     require(all(torch.equal(s1[key], s2[key]) for key in s1),
             f"replica_sweep {label}: two launches differ from one")
     e_err = float((model.energy(k["sigma"]).double()
@@ -1265,18 +1443,21 @@ def replica_sweep_case(model, label, B, beta, card):
     # integer base, the float32 rate otherwise
     commit = flips * 2 * sw.tab.Nk
     bound_ms, bound_by = bound(
-        2 * _nbytes(st.sigma, lf0, E0, k["acc"])
+        2 * _nbytes(sig0, lf0, E0, k["acc"])
         + _nbytes(sw.tab.J, sw.tab.params),
         B * model.N * n * (PHILOX_OPS / 4 + 20) + (0 if integer else commit),
         int8_ops=commit if integer else 0.0)
-    print(f"replica_sweep {label} B={B} sweeps={n}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
-          f"accepted {flips / (B * model.N * n):.4f} of the attempts, "
-          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+    print(f"replica_sweep {label} B={B} sweeps={n}"
+          f"{f' after {warm} warm sweeps' if warm else ''}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
+          f"({bound_by}), accepted {flips / (B * model.N * n):.4f} of the "
+          f"attempts, diverged chains {bad}, max abs err {err:.3g}, split "
+          f"launches equal [{plan_line(plan)}] [{card}]")
     return {"kernel": "replica_sweep", "case": label, "B": B, "sweeps": n,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "accepted": flips, "diverged": bad,
-            "max_abs_err": err, "errs": errs}
+            "warm": warm, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "accepted": flips,
+            "diverged": bad, "max_abs_err": err, "errs": errs,
+            "sweep_plan": plan}
 
 
 def _drive(runs, card, mods):
@@ -2085,6 +2266,26 @@ def main() -> int:
         dtype=sk1.h.dtype, device=DEV))
     cases.append(sk_case(skf, "GraphSK(1024) fields", CHAINS, 1, card,
                          "sk_sweep"))
+    # each row's equilibrium case: its chains after one main-path
+    # checkpoint of warm sweeps (sweepMC's step), at the main path's
+    # acceptance; and a ragged B
+    cases.append(sk_case(sk1, "GraphSK(1024) equilibrium", 8192,
+                         SK_CMP_SWEEPS, card, "sk_sweep",
+                         warm=SK_SWEEPS // 10))
+    cases.append(sk_case(sk8, "GraphSK(8192) equilibrium", 2048,
+                         SK8_CMP_SWEEPS, card, "sk_sweep_hbm",
+                         warm=SK8_SWEEPS // 10))
+    cases.append(sk_case(sk1, "GraphSK(1024) ragged", SK_RAGGED_B, 1, card,
+                         "sk_sweep"))
+    cases.append(sk_case(sk1, "GraphSK(1024) small", SMALL_B, 1, card,
+                         "sk_sweep"))
+    # near-frozen chains (beta = 40 after 50 sweeps): spans with at most
+    # kRowFlips flips in a block take the row-by-row commit, with 4-field
+    # loads (N = 1024) and single ones (N = 1101)
+    for model, n in ((sk1, 1024), (rt.GraphSK(1101, seed=4, device=DEV),
+                                   1101)):
+        cases.append(sk_case(model, f"GraphSK({n}) frozen", CHAINS, 1, card,
+                             "sk_sweep", warm=50, beta=FROZEN_BETA))
     for mode in ("bkl", "wtm", "rrr"):
         cases.append(rejfree_case(sk1, "GraphSK(1024)", mode, card,
                                   kernel="rejfree_dense", beta=4.0,
@@ -2165,6 +2366,27 @@ def main() -> int:
                                     CHAINS, RE_BETA, card))
     cases.append(replica_sweep_case(qnt, "QSKNormalT(1024, 16)", SP_CHAINS,
                                     Q_BETA, card))
+    cases.append(replica_sweep_case(qskt, "QSKT(1024, 16) equilibrium",
+                                    CHAINS, Q_BETA, card,
+                                    warm=Q_SWEEPS // 5))
+    cases.append(replica_sweep_case(qskt, "QSKT(1024, 16) ragged",
+                                    REPLICA_RAGGED_B, Q_BETA, card))
+    cases.append(replica_sweep_case(qskt, "QSKT(1024, 16) small",
+                                    SMALL_B, Q_BETA, card))
+    # replica blocks whose rows are not 16-byte multiples: the ring with
+    # 4-byte J loads and 4-spin span loads (Nk = 1100), the star with
+    # single bytes (Nk = 1101)
+    cases.append(replica_sweep_case(
+        rt.GraphQSKT(1100, 4, Q_GAMMA, Q_BETA, seed=Q_SEED, device=DEV),
+        "QSKT(1100, 4)", REPLICA_RAGGED_B, Q_BETA, card))
+    cases.append(replica_sweep_case(
+        rt.GraphSKRE(1101, 3, 2.0, RE_BETA, seed=RE_SEED, device=DEV),
+        "SKRE(1101, 3) gamma=2", REPLICA_RAGGED_B, RE_BETA, card))
+    # the path's gamma = 5 sweeps after their 100: nearly frozen, the
+    # row-by-row commit
+    cases.append(replica_sweep_case(skre[5.0], "SKRE(1024, 5) gamma=5 frozen",
+                                    CHAINS, RE_BETA, card,
+                                    warm=RE_GRID_SWEEPS))
     replica_refusals(card)
     cases += fused_cases(card)
     cases += dense_fused_cases(card, sk1, drrg, skn)
@@ -2220,6 +2442,7 @@ def main() -> int:
                 **sk_launches, **eo_launches, **ps_counts, **sat_counts,
                 **rep_launches, **perc_counts}
     regs = registers(build_log)
+    sweep_instantiations(build_log, card)
     spills = spill_bytes(build_log)
     local = fused_local_bytes()
     for fn, n in local.items():
@@ -2287,7 +2510,11 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "registers": regs.get(function),
-            **({"plan": head["plan"]} if head.get("plan") else {})})
+            **({"plan": head["plan"]} if head.get("plan") else {}),
+            **({"sweep_plan": head["sweep_plan"],
+                "equilibrium_ms": next((c["ms"] for c in mine
+                                        if c.get("warm")), None)}
+               if "sweep_plan" in head else {})})
         require(launches[name] > 0, f"{name}: not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

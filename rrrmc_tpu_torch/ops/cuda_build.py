@@ -45,9 +45,10 @@ _SIGNATURES = {
     "rrrmc_sweep_smem": (_Z, [_I, _I]),
     "rrrmc_sweep_max_smem": (_I, [_I]),
     "rrrmc_sk_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _U,
-                            _P]),
-    "rrrmc_sk_smem": (_Z, [_I]),
+                            _I, _I, _P]),
+    "rrrmc_sk_smem": (_Z, [_I, _I]),
     "rrrmc_sk_max_smem": (_I, [_I]),
+    "rrrmc_sk_info": (_I, [_I, _I, _I, _P]),
     "rrrmc_rejfree_dense": (_I, [_P] * 10 + [_I, _I, _I, _U, _U, _U, _F,
                                              _I, _F, _I, _I, _I, _I, _I,
                                              _P]),
@@ -74,7 +75,10 @@ _SIGNATURES = {
     "rrrmc_rejfree_replica_smem": (_Z, [_I] * 6),
     "rrrmc_rejfree_replica_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
     "rrrmc_replica_sweep": (_I, [_P] * 6 + [_I] * 4 + [_F, _U, _U, _U, _I,
-                                                        _I, _P]),
+                                                        _I, _I, _P]),
+    "rrrmc_replica_sweep_smem": (_Z, [_I, _I]),
+    "rrrmc_replica_sweep_max_smem": (_I, [_I]),
+    "rrrmc_replica_sweep_info": (_I, [_I, _I, _I, _I, _P]),
     "rrrmc_rejfree_perc": (_I, [_P] * 9 + [_I] * 4 + [_U, _U, _U, _F, _I,
                                                       _F, _I, _I, _F, _I, _I,
                                                       _I, _P]),

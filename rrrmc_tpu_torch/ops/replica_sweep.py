@@ -7,15 +7,20 @@ Source note. The kernel replaces
 rrrmc_tpu/ops/quant_pallas.py::_ring_sweep_kernel (launched by
 `_pallas_ring_sweep`). The TPU kernel decided windows of 128 spins inside
 one replica block against f32 fields scaled by sb and committed each window
-with a rank-128 matmul. Here, as in the dense sweep (ops/sk.py), one warp
-owns a chain and decides 32 consecutive spins at once, resuming after the
-first accepting lane (exact sequential Metropolis, since every spin's bits
-are fixed by its counter); spans of up to 512 spins never cross a replica
-block, and at a span's end its accepted flips are committed to the mover's
-block of the base fields by a hand-written sparse rank update. An integer
-base keeps exact int32 fields (the TPU kept f32 ones); a float base keeps
-float32 fields. It is bound by the decisions and the commits
-(csrc/replica_sweep.cu says where).
+with a rank-128 matmul. Here spans never cross a replica block; a span's
+Philox words and extra terms are derived once a spin, and a warp decides 32
+consecutive spins of its chain at once, resuming after the first accepting
+lane (exact sequential Metropolis, since every spin's bits are fixed by its
+counter). An integer base keeps exact int32 fields (the TPU kept f32 ones)
+and runs the dense sweep's block-synchronous scheme (ops/sk.py): a block of
+BLOCK_CHAINS chains on the same span, corrections from the span's diagonal
+block of J in shared memory, and at the span's end one int8 tensor-core
+product commits the block's flips to the mover's block of the base fields
+(J symmetric).
+A float base keeps float32 fields and the plain version's sums: spans of
+SPAN spins, one warp a chain, its flips committed in site order on the
+CUDA cores. `sweep_plan` states the launch; csrc/replica_sweep.cu says
+what bounds it.
 
 Contract: sigma [B, N] int8 (N = Nk * M, replica-major), lf [B, N] the base
 fields (ops/replica.py::replica_state; int32 for an integer base, float32
@@ -36,12 +41,21 @@ import torch
 
 from . import check_args, prng
 from .replica import ReplicaTables, replica_base, replica_tables
+from .sk import (BLOCK_CHAINS, BLOCK_SPAN, check_symmetric, load_width,
+                 span_stride)
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
-#: spins decided between two commits of the fields (the kernel's kSpan)
+#: spins decided between two commits of a float base's fields (the
+#: plain version's span, and the float kernel's: its float32 sums follow it;
+#: an integer base's sums are exact, so its kernel's span, ops/sk.py's
+#: BLOCK_SPAN, gives the plain version's result too)
 SPAN = 512
+#: chains (warps) of a float base's block
+FLOAT_CHAINS = 8
+#: the plan of the last launch (`sweep_plan`'s dict)
+LAST_PLAN: dict = {}
 
 #: (sweep) -> [B, N] int32 bits of one sweep, replacing the generator
 SweepBitsFn = Callable[[int], torch.Tensor]
@@ -61,6 +75,33 @@ def replica_sweep_ok(model) -> bool:
     if is_integer(base.J):
         return sk_sweep_eligible(base) and base.half_max < (1 << 24)
     return bool(torch.isfinite(base.J).all() and torch.isfinite(base.h).all())
+
+
+def sweep_plan(Nk: int, B: int, integer: bool, *,
+               aligned16: bool = True) -> dict:
+    """The composite sweep kernel's launch plan (csrc/replica_sweep.cu,
+    which takes the chains and the span as constants). An integer base:
+    ops/sk.py's BLOCK_CHAINS chains a block, spans of BLOCK_SPAN spins (a
+    replica block's Nk below it), the span's diagonal block of J (span x
+    stride int8) and per chain 14 bytes a spin of the stride in shared
+    memory, J loads of 16, 4 or 1 bytes, the commit an int8 tensor-core
+    product ("mma"). A float base: FLOAT_CHAINS chains, spans of SPAN (the
+    plain version's, whose float32 sums the kernel repeats), 15 bytes a
+    spin of the stride a chain, rows in 16-byte loads where Nk % 4 == 0,
+    the commit on the CUDA cores ("scalar")."""
+    if integer:
+        span = min(Nk, BLOCK_SPAN)
+        sp = span_stride(span)
+        return {"chains": BLOCK_CHAINS, "span": span, "stride": sp,
+                "loads": load_width(Nk, aligned16),
+                "smem": span * sp + BLOCK_CHAINS * sp * 14,
+                "blocks": -(-B // BLOCK_CHAINS), "path": "mma"}
+    span = min(Nk, SPAN)
+    sp = span_stride(span)
+    return {"chains": FLOAT_CHAINS, "span": span, "stride": sp,
+            "loads": 4 if Nk % 4 == 0 and aligned16 else 1,
+            "smem": FLOAT_CHAINS * sp * 15,
+            "blocks": -(-B // FLOAT_CHAINS), "path": "scalar"}
 
 
 def _check_args(sigma, lf, E, acc, tab):
@@ -84,13 +125,18 @@ def _check_args(sigma, lf, E, acc, tab):
 def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
                         beta: float, n_sweeps: int, seed: int,
                         sweep0: int = 0, chain0: int = 0,
-                        bits: Optional[SweepBitsFn] = None) -> None:
+                        bits: Optional[SweepBitsFn] = None,
+                        checked: bool = False) -> None:
     """Advance every chain by `n_sweeps` composite sweeps, in place (the
     module docstring's contract); `tab` the dense `replica_tables`.
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (sweep) -> [B, N] int32 replaces the generator and
-    is taken by the plain version only."""
+    On a CUDA tensor this launches the kernel (`sweep_plan`). For an
+    integer base it needs a symmetric J, checked before the launch unless
+    `checked` says that the caller has checked it (as `ReplicaSweeper` does
+    once, when it is built); the float kernel reads J's rows as the plain
+    version does and needs no symmetry. On a CPU tensor it runs the plain
+    version. `bits` (sweep) -> [B, N] int32 replaces the generator and is
+    taken by the plain version only."""
     global LAUNCHES
     _check_args(sigma, lf, E, acc, tab)
     if sigma.device.type == "cpu":
@@ -103,16 +149,29 @@ def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
         raise ValueError(f"no replica sweep kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
+    integer = is_integer(lf)
+    if integer and not checked:
+        check_symmetric(tab.J, "replica sweep")
+    from . import require_smem
     from .cuda_build import check, library
-
     lib = library()
+    B = sigma.shape[0]
+    dev = sigma.device.index or 0
+    plan = sweep_plan(tab.Nk, B, integer,
+                      aligned16=tab.J.data_ptr() % 16 == 0
+                      and lf.data_ptr() % 16 == 0
+                      and sigma.data_ptr() % 4 == 0)
+    require_smem(plan["smem"], lib.rrrmc_replica_sweep_max_smem(dev), tab.Nk,
+                 "replica sweep")
+    LAST_PLAN.clear()
+    LAST_PLAN.update(plan)
     with torch.cuda.device(sigma.device):
         err = lib.rrrmc_replica_sweep(
             sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), acc.data_ptr(),
-            tab.J.data_ptr(), tab.params.data_ptr(), tab.Nk, tab.M,
-            sigma.shape[0], n_sweeps, float(beta), seed & 0xFFFFFFFF,
-            sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-            0 if is_integer(lf) else 1, int(tab.term == "star"),
+            tab.J.data_ptr(), tab.params.data_ptr(), tab.Nk, tab.M, B,
+            n_sweeps, float(beta), seed & 0xFFFFFFFF, sweep0 & 0xFFFFFFFF,
+            chain0 & 0xFFFFFFFF, 0 if integer else 1,
+            int(tab.term == "star"), plan["loads"],
             torch.cuda.current_stream().cuda_stream)
     check(err, "replica_sweep launch")
     LAUNCHES += 1
@@ -186,7 +245,9 @@ def replica_sweep_chunk_reference(sigma, lf, E, acc, tab: ReplicaTables, *,
 class ReplicaSweeper:
     """Reusable sweep runner for an eligible Quant / RE composite: the
     dense tables, built once on the model's device (the JAX package's
-    PallasRingSweeper)."""
+    PallasRingSweeper). Refuses an integer base whose couplings are not
+    symmetric: that kernel's commit reads J[span, n] as J[n, span]; its
+    launches then skip the wrapper's check."""
 
     def __init__(self, model, beta: float):
         if not replica_sweep_ok(model):
@@ -197,10 +258,12 @@ class ReplicaSweeper:
                 f"{type(model).__name__}")
         self.beta = float(beta)
         (self.tab,) = replica_tables(model)
+        if is_integer(self.tab.J):
+            check_symmetric(self.tab.J, "replica sweep")
 
     def __call__(self, sigma, lf, E, acc, *, seed: int, n_sweeps: int,
                  sweep0: int = 0, chain0: int = 0,
                  bits: Optional[SweepBitsFn] = None) -> None:
         replica_sweep_chunk(sigma, lf, E, acc, self.tab, beta=self.beta,
                             n_sweeps=n_sweeps, seed=seed, sweep0=sweep0,
-                            chain0=chain0, bits=bits)
+                            chain0=chain0, bits=bits, checked=True)

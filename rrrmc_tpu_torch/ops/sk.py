@@ -5,13 +5,19 @@ runner.
 Source note. The kernel replaces rrrmc_tpu/ops/sk_pallas.py::_sk_kernel and
 ::_sk_kernel_hbm (both launched by `_pallas_sk`). The TPU kept J in VMEM or
 streamed it from HBM by size; on the H100 J is read from device memory or L2
-in both cases, so one kernel serves both. It runs one warp per chain: 32
-consecutive sites are decided at once, the first accepting lane's flip
-corrects the later sites' fields and evaluation resumes after it (exact
-sequential Metropolis, since every site's bits are fixed by its counter);
-every 512 sites the accepted flips are committed to the chain's local-field
-row by a hand-written sparse rank-W update. It is bound by the decisions and
-the commits' reads of J and lf (csrc/sk_sweep.cu says where).
+in both cases, so one kernel serves both. A block of BLOCK_CHAINS chains
+(one warp each) walks the sweep in spans of BLOCK_SPAN sites (N below it),
+all its chains on the same span. A span's Philox words are drawn once a
+site and resolved against the threshold table at once (hmax(u), the number
+of entries above the word: the decision becomes one compare); a warp
+decides 32 consecutive sites at once, the first accepting
+lane's flip corrects the later sites' fields from the span's diagonal block
+of J in shared memory and evaluation resumes after it (exact sequential
+Metropolis, since every site's bits are fixed by its counter); at the
+span's end the block commits all its chains' flips with one int8
+tensor-core product, J being symmetric. `sweep_plan` states the launch:
+the block's chains, the span and the shared memory. What bounds it:
+csrc/sk_sweep.cu.
 
 Contract (the JAX kernels'): sigma [B, N] int8, lf [B, N] int32 and
 E [B] int32 advance in place by n_sweeps sweeps. A sweep visits sites
@@ -38,6 +44,16 @@ from ..core.dtypes import is_integer
 LAUNCHES = 0
 #: sites of one window (the TPU kernel's W): one Philox window step each
 WINDOW = 128
+#: the span of the integer sweep kernels, N (or a replica block's Nk)
+#: below it (csrc/sweep_block.cuh::kSpanMax)
+BLOCK_SPAN = 256
+#: chains (warps) of a block of the integer sweep kernels
+#: (csrc/sweep_block.cuh::kChains)
+BLOCK_CHAINS = 16
+#: sites of one K chunk of the commit's tensor-core product
+CHUNK = 64
+#: the plan of the last launch (`sweep_plan`'s dict)
+LAST_PLAN: dict = {}
 _INT32_MIN = -2 ** 31
 
 BitsFn = Callable[[int, int], torch.Tensor]
@@ -56,6 +72,60 @@ def accept_thresholds(beta_s: float, half_max: int) -> np.ndarray:
                  np.float32(2147483520.0)).astype(np.int32)
     ends = np.flatnonzero(th == _INT32_MIN)
     return th[:ends[0]] if ends.size else th
+
+
+def check_thresholds(th: np.ndarray) -> None:
+    """Raise unless the table does not increase (beta >= 0): what the
+    kernel's decision needs. With hmax(u) = #{v : th[v - 1] > u} over such
+    a table, u < th[half - 1] iff half <= hmax(u) for 1 <= half <= len(th);
+    a larger half is always rejected and a half <= 0 always accepted, so
+    the decision is the one compare half <= hmax(u)."""
+    if th.size and bool((np.diff(th.astype(np.int64)) > 0).any()):
+        raise ValueError("the dense sweep kernel needs thresholds that do not "
+                         "increase with half (beta >= 0)")
+
+
+def check_symmetric(J: torch.Tensor, what: str) -> None:
+    """Raise unless J [n, n] is symmetric: the kernels' commits read
+    J[span, n] as J[n, span], both operands along their rows."""
+    if J.dim() != 2 or J.shape[0] != J.shape[1] or not torch.equal(J, J.T):
+        raise ValueError(f"the {what} kernel needs symmetric couplings")
+
+
+def span_stride(span: int) -> int:
+    """The stride of a span's per-chain arrays: the span rounded up to a
+    commit chunk (csrc/sweep_block.cuh::span_stride)."""
+    return -(-span // CHUNK) * CHUNK
+
+
+def load_width(n: int, aligned16: bool = True) -> int:
+    """The commit's J loads: 16 bytes where rows of n int8 entries are
+    16-byte aligned, 4 where they are 4-byte aligned, else single bytes
+    (`aligned16`: J's and the fields' base pointers are 16-byte aligned and
+    the spins' 4-byte aligned; from 4 bytes the few-flip commit reads 4
+    fields at once and a span's spins and fields load 4 a lane)."""
+    if n % 16 == 0 and aligned16:
+        return 16
+    return 4 if n % 4 == 0 and aligned16 else 1
+
+
+def sweep_plan(N: int, B: int, n_th: int, *,
+               aligned16: bool = True) -> dict:
+    """The dense sweep kernel's launch plan (csrc/sk_sweep.cu, which
+    takes the chains and the span as constants): BLOCK_CHAINS chains a
+    block (warps past B stay for the block's barriers), the span (sites
+    between two commits: BLOCK_SPAN, or N below it), the block's dynamic
+    shared memory (the span's diagonal block of J, span x stride int8, and
+    per chain 6 + hmax bytes a site of the stride), hmax in 2 bytes where
+    the table fits 16 bits, the commit's J loads, and its path: the int8
+    tensor-core product ("mma")."""
+    span = min(N, BLOCK_SPAN)
+    hbytes = 2 if n_th <= 0xFFFF else 4
+    sp = span_stride(span)
+    return {"chains": BLOCK_CHAINS, "span": span, "stride": sp,
+            "hmax_bytes": hbytes, "loads": load_width(N, aligned16),
+            "smem": span * sp + BLOCK_CHAINS * sp * (6 + hbytes),
+            "blocks": -(-B // BLOCK_CHAINS), "path": "mma"}
 
 
 def sk_sweep_eligible(model) -> bool:
@@ -79,14 +149,18 @@ def _check_args(sigma, lf, E, J8, th):
 
 def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
                    sweep0: int = 0, chain0: int = 0,
-                   bits: Optional[BitsFn] = None) -> None:
+                   bits: Optional[BitsFn] = None,
+                   checked: bool = False) -> None:
     """Advance every chain by `n_sweeps` dense sweeps, in place on sigma
     [B, N] int8, lf [B, N] int32 and E [B] int32. J8 [N, N] int8 holds the
     couplings, th the `accept_thresholds`.
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (sweep, window) -> [B, W] int32 replaces the
-    generator and is taken by the plain version only."""
+    On a CUDA tensor this launches the kernel (`sweep_plan`), which needs a
+    symmetric J8 and a th that does not increase: both are checked before
+    the launch unless `checked` says that the caller has checked them (as
+    `SKSweeper` does once, when it is built). On a CPU tensor it runs the
+    plain version, which needs neither. `bits` (sweep, window) -> [B, W]
+    int32 replaces the generator and is taken by the plain version only."""
     global LAUNCHES
     _check_args(sigma, lf, E, J8, th)
     if sigma.device.type == "cpu":
@@ -98,22 +172,28 @@ def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
         raise ValueError(f"no dense sweep kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
+    if not checked:
+        check_symmetric(J8, "dense sweep")
+        check_thresholds(th.cpu().numpy())
+    from . import require_smem
     from .cuda_build import check, library
 
     lib = library()
     B, N = sigma.shape
-    smem = lib.rrrmc_sk_smem(N)
-    cap = lib.rrrmc_sk_max_smem(sigma.device.index or 0)
-    if smem > cap:
-        raise NotImplementedError(
-            f"the dense sweep kernel needs {smem} bytes of shared memory per "
-            f"block, a block may have {cap}")
+    dev = sigma.device.index or 0
+    plan = sweep_plan(N, B, th.shape[0],
+                      aligned16=J8.data_ptr() % 16 == 0
+                      and lf.data_ptr() % 16 == 0
+                      and sigma.data_ptr() % 4 == 0)
+    require_smem(plan["smem"], lib.rrrmc_sk_max_smem(dev), N, "dense sweep")
+    LAST_PLAN.clear()
+    LAST_PLAN.update(plan)
     with torch.cuda.device(sigma.device):
         err = lib.rrrmc_sk_sweep(
             sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), J8.data_ptr(),
             th.data_ptr(), th.shape[0], N, B, n_sweeps, seed & 0xFFFFFFFF,
-            sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-            torch.cuda.current_stream().cuda_stream)
+            sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, plan["hmax_bytes"],
+            plan["loads"], torch.cuda.current_stream().cuda_stream)
     check(err, "sk_sweep launch")
     LAUNCHES += 1
 
@@ -163,7 +243,9 @@ class SKSweeper:
     """Reusable dense-sweep runner for an eligible FullyConnected model
     (fields allowed: they ride the lf seed): the int8 couplings and the
     threshold table, built once on the model's device (the JAX package's
-    PallasSKSweeper)."""
+    PallasSKSweeper). Refuses couplings that are not symmetric and a
+    table that increases, on which the kernel would be wrong; its launches
+    then skip the wrapper's checks."""
 
     def __init__(self, model, beta: float):
         if not sk_sweep_eligible(model):
@@ -173,9 +255,10 @@ class SKSweeper:
                 f"{type(model).__name__}")
         self.beta_s = float(beta) * model.scale
         self.J8 = model.J.to(torch.int8).contiguous()
-        self.th = torch.as_tensor(
-            accept_thresholds(self.beta_s, int(model.half_max)),
-            device=model.device)
+        check_symmetric(self.J8, "dense sweep")
+        th = accept_thresholds(self.beta_s, int(model.half_max))
+        check_thresholds(th)
+        self.th = torch.as_tensor(th, device=model.device)
 
     def __call__(self, sigma, lf, E, *, seed: int, n_sweeps: int,
                  sweep0: int = 0, chain0: int = 0,
@@ -184,4 +267,5 @@ class SKSweeper:
         n_sweeps sweeps in place (sweeps numbered from sweep0 in the Philox
         stream)."""
         sk_sweep_chunk(sigma, lf, E, self.J8, self.th, n_sweeps=n_sweeps,
-                       seed=seed, sweep0=sweep0, chain0=chain0, bits=bits)
+                       seed=seed, sweep0=sweep0, chain0=chain0, bits=bits,
+                       checked=True)

@@ -16,7 +16,8 @@ from rrrmc_tpu_torch.ops.replica import (rejfree_replica_chunk,
 from rrrmc_tpu_torch.ops.replica_sweep import (ReplicaSweeper,
                                                replica_sweep_chunk)
 
-from torch_port_helpers import (CPU, _salt0, interpret_bits, pallas_interpret,
+from torch_port_helpers import (CPU, _salt0, blocked_commit_reference,
+                                interpret_bits, pallas_interpret,
                                 port_composite, random_sigma)
 
 torch.set_num_threads(1)
@@ -176,3 +177,100 @@ def test_sweep_law_exact(term):
     assert torch.equal(lf, replica_state(m, sig, E)[0])
 
 
+
+
+# --- the redesigned kernel's launch plan and commit -------------------------
+
+from rrrmc_tpu_torch.ops import replica_sweep, sk  # noqa: E402
+
+OPTIN = 232_448
+
+
+@pytest.mark.parametrize("B", [1, 9, 203, 1024, 1584, 2048])
+def test_sweep_plan_every_nk(B):
+    """The composite sweep's plan for every Nk from 1 to 2048 at ragged B:
+    an integer base takes ops/sk.py's blocks of 16 chains, spans of
+    BLOCK_SPAN or Nk, 14 bytes a spin of the stride a chain beside the span's
+    diagonal block of J, and the tensor-core commit; a float base 8 chains,
+    the plain version's SPAN (its float32 sums follow it) and the commit on
+    the CUDA cores. Both fit the card's shared memory."""
+    chains = sk.BLOCK_CHAINS
+    for nk in range(1, 2049):
+        p = replica_sweep.sweep_plan(nk, B, True)
+        assert p["path"] == "mma" and p["chains"] == chains
+        assert p["span"] == min(nk, sk.BLOCK_SPAN)
+        assert p["stride"] == sk.span_stride(p["span"])
+        assert p["smem"] == (p["span"] * p["stride"]
+                             + chains * p["stride"] * 14) <= OPTIN
+        assert p["blocks"] * chains >= B > (p["blocks"] - 1) * chains
+        assert p["loads"] == (16 if nk % 16 == 0 else 4 if nk % 4 == 0
+                              else 1)
+        f = replica_sweep.sweep_plan(nk, B, False)
+        assert f["path"] == "scalar" and f["chains"] == 8
+        assert f["span"] == min(nk, replica_sweep.SPAN)
+        assert f["smem"] == 8 * f["stride"] * 15 <= OPTIN
+        assert f["loads"] == (4 if nk % 4 == 0 else 1)
+
+
+#: (B, Nk, M, k, i0, length): the mover's replica block k of M, at ragged
+#: B and Nk
+BLOCK_COMMITS = [(21, 100, 3, 1, 64, 36), (37, 72, 5, 4, 0, 72),
+                 (9, 48, 3, 0, 0, 48)]
+
+
+@pytest.mark.parametrize("case", BLOCK_COMMITS,
+                         ids=[f"B{c[0]}-Nk{c[1]}-k{c[3]}" for c in
+                              BLOCK_COMMITS])
+def test_blocked_commit_into_replica_block(case):
+    """The kernel's commit into the mover's block of the base fields
+    (`blocked_commit_reference` at offset k Nk of rows of Nk M
+    fields) equals the sequential commit, and leaves the other blocks."""
+    B, nk, M, k, i0, length = case
+    rng = np.random.default_rng(nk + k)
+    a = rng.integers(-127, 128, size=(nk, nk))
+    J = torch.from_numpy((np.triu(a, 1) + np.triu(a, 1).T).astype(np.int8))
+    dlt = torch.zeros((B, sk.span_stride(length)), dtype=torch.int8)
+    dlt[:, :length] = torch.from_numpy(
+        rng.choice(np.array([-2, 0, 2], np.int8), size=(B, length)))
+    lf = torch.from_numpy(rng.integers(-900, 900, size=(B, nk * M)).astype(
+        np.int32))
+    want = lf.clone()
+    want[:, k * nk:(k + 1) * nk] += (dlt[:, :length].double()
+                                     @ J[i0:i0 + length].double()).to(
+        torch.int32)
+    got = lf.clone()
+    blocked_commit_reference(got, dlt, J, i0, length, off=k * nk)
+    assert torch.equal(got, want)
+
+
+def test_refuses_asymmetric_base():
+    """A base whose couplings are not symmetric is refused when the sweeper
+    is built (the kernel's commit reads J[span, n] as J[n, span])."""
+    base = pt.GraphSK(8, seed=3, **CPU)
+    J = base.J.clone()
+    J[1, 4] += 1
+    asym = pt.fully_connected_from_arrays(J.numpy(), base.h.numpy(),
+                                          scale=base.scale, **CPU)
+    for model in (pt.GraphQuant(8, 3, 0.5, 1.0, asym),
+                  pt.GraphRobustEnsemble(8, 3, 0.5, 1.0, asym)):
+        assert replica_sweep.replica_sweep_ok(model)
+        with pytest.raises(ValueError, match="symmetric"):
+            ReplicaSweeper(model, 1.0)
+    ReplicaSweeper(pt.GraphQuant(8, 3, 0.5, 1.0, base), 1.0)
+
+
+def test_float_base_takes_asymmetric_couplings():
+    """The float kernel reads the flipped spins' rows of J, as the plain
+    version does, and needs no symmetry: a float base whose couplings are
+    not symmetric is taken by the sweeper (its launches skip the check)."""
+    base = pt.GraphSKNormal(8, seed=3, **CPU)
+    J = base.J.clone()
+    J[1, 4] += 0.5
+    asym = pt.fully_connected_from_arrays(J.numpy(), base.h.numpy(),
+                                          scale=base.scale, **CPU)
+    for model in (pt.GraphQuant(8, 3, 0.5, 1.0, asym),
+                  pt.GraphRobustEnsemble(8, 3, 0.5, 1.0, asym)):
+        assert replica_sweep.replica_sweep_ok(model)
+        sw = ReplicaSweeper(model, 1.0)
+        assert sw.tab.J.dtype == torch.float32
+        assert not torch.equal(sw.tab.J, sw.tab.J.T)

@@ -17,7 +17,8 @@ import rrrmc_tpu_torch as pt
 from rrrmc_tpu_torch.ops import sk
 from rrrmc_tpu_torch.ops.sk import SKSweeper, sk_sweep_chunk
 
-from torch_port_helpers import (CPU, _salt0, jax_random_bits,
+from torch_port_helpers import (CPU, _salt0, blocked_commit_reference,
+                                hmax_table, jax_random_bits,
                                 pallas_interpret, random_sigma, sk_bits)
 
 torch.set_num_threads(1)
@@ -218,3 +219,153 @@ def test_sweepmc_dense_remainder_and_zero_sweeps():
     assert Es.shape == (8, 2) and torch.equal(m.energy(st.sigma), st.E)
     with pytest.raises(ValueError, match="FullyConnected"):
         pt.sweepMC_dense(pt.GraphRRG(16, 3, **CPU), 1.0, 2, **CPU)
+
+
+# --- the redesigned kernel's arithmetic: hmax, the launch plan, the commit --
+
+#: (beta_s, half_max): tables that end at INT32_MIN (cut before it) and at
+#: half_max (beta_s small enough that no threshold reaches INT32_MIN), and
+#: beta = 0 (every threshold clipped to its largest value)
+HMAX_TABLES = {"ends-int32-min": (2.0 / 32, 4000),
+               "ends-int32-min-steep": (0.5, 500),
+               "ends-at-half-max": (0.004, 300),
+               "beta-zero": (0.0, 40)}
+
+
+@pytest.mark.parametrize("table", list(HMAX_TABLES))
+def test_hmax_matches_table_comparison(table):
+    """half <= hmax(u) is the kernel's whole decision: it must equal
+    half <= 0 or (half <= n_th and u < th[half - 1]) for every half from
+    -2 to n_th + 2 and words at, just above and just below each
+    threshold (and the int32 extremes)."""
+    beta_s, half_max = HMAX_TABLES[table]
+    th = sk.accept_thresholds(beta_s, half_max)
+    sk.check_thresholds(th)
+    n_th = th.shape[0]
+    if table == "ends-at-half-max":
+        assert n_th == half_max and th[-1] > -2 ** 31
+    elif table != "beta-zero":
+        assert 0 < n_th < half_max
+    t64 = th.astype(np.int64)
+    u = np.unique(np.clip(np.concatenate(
+        [t64 - 1, t64, t64 + 1, [-2 ** 31, -2 ** 31 + 1, 2 ** 31 - 1, 0]]),
+        -2 ** 31, 2 ** 31 - 1)).astype(np.int32)
+    tt = torch.from_numpy(th)
+    hm = hmax_table(torch.from_numpy(u), tt).numpy()
+    halves = np.arange(-2, n_th + 3)
+    want = (halves[None, :] <= 0) | (
+        (halves[None, :] <= n_th)
+        & (u[:, None].astype(np.int64)
+           < np.concatenate([t64, [-2 ** 31]])[np.clip(halves - 1, 0, n_th)]
+           [None, :]))
+    got = halves[None, :] <= hm[:, None]
+    np.testing.assert_array_equal(got, want)
+    assert hm.min() >= 0 and hm.max() <= n_th
+    if n_th:
+        assert hm.max() == n_th     # the smallest word passes every entry
+
+
+def test_check_thresholds_refuses_an_increasing_table():
+    """hmax equals the table comparison only on a table that does not
+    increase: another is refused. accept_thresholds gives one for every
+    beta (beta < 0 clips every entry to the largest threshold)."""
+    with pytest.raises(ValueError, match="increase"):
+        sk.check_thresholds(np.array([5, 7, 2], np.int32))
+    sk.check_thresholds(np.array([7, 7, 2, -2 ** 31 + 1], np.int32))
+    for beta_s in (-0.1, 0.0, 0.05, 3.0):
+        sk.check_thresholds(sk.accept_thresholds(beta_s, 300))
+    assert (sk.accept_thresholds(-0.1, 20) == 2147483520).all()
+
+
+#: the shared memory an H100 block may opt in to
+OPTIN = 232_448
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 1003, 1583, 1584, 2048, 8191])
+def test_sweep_plan_every_n(B):
+    """The launch plan for every N from 1 to 4096 and a few large N, at
+    ragged B: the span is BLOCK_SPAN or N, its stride a whole number of
+    64-site chunks, blocks of 16 chains cover B with a last block that may
+    be ragged (B <= 8 included), the block's shared memory (the span's diagonal block of J and
+    6 + hmax bytes a site a chain) fits the card, hmax takes 16 bits where
+    the table fits, the J loads follow N's alignment, and the commit is the
+    tensor-core product."""
+    chains = sk.BLOCK_CHAINS
+    assert chains == 16
+    for N in list(range(1, 4097)) + [8192, 8193, 46_476, 100_000]:
+        for n_th in (0, 65_535, 65_536):
+            p = sk.sweep_plan(N, B, n_th)
+            assert p["span"] == min(N, sk.BLOCK_SPAN) and p["path"] == "mma"
+            assert p["stride"] % sk.CHUNK == 0
+            assert p["span"] <= p["stride"] < p["span"] + sk.CHUNK
+            assert p["chains"] == chains
+            assert p["blocks"] * chains >= B > (p["blocks"] - 1) * chains
+            hb = 2 if n_th < 65_536 else 4
+            assert p["hmax_bytes"] == hb
+            assert p["smem"] == (p["span"] * p["stride"]
+                                 + chains * p["stride"] * (6 + hb))
+            assert p["smem"] <= OPTIN
+            assert p["loads"] == (16 if N % 16 == 0 else
+                                  4 if N % 4 == 0 else 1)
+    assert sk.sweep_plan(1024, B, 10, aligned16=False)["loads"] == 1
+
+
+def _sym_int8(n, rng):
+    a = rng.integers(-127, 128, size=(n, n))
+    J = np.triu(a, 1)
+    return torch.from_numpy((J + J.T).astype(np.int8))
+
+
+#: (B, N, col0, length): ragged B (not a multiple of the block's 16
+#: chains, fewer than 8 included), N not a multiple of the 16-row tile or of
+#: 16 bytes, spans that end before a whole chunk, and the last span of a
+#: model
+COMMITS = [(19, 45, 0, 45), (19, 45, 13, 32), (37, 100, 64, 36),
+           (37, 130, 0, 128), (5, 70, 64, 6), (24, 64, 0, 64)]
+
+
+@pytest.mark.parametrize("case", COMMITS,
+                         ids=[f"B{c[0]}-N{c[1]}-k{c[2]}+{c[3]}"
+                              for c in COMMITS])
+def test_blocked_commit_equals_sequential(case):
+    """The kernel's commit, tile by tile through mma.m16n8k32's fragment
+    layouts in the symmetric-J operand layout (`blocked_commit_reference`),
+    equals the sequential commit lf += dlt J[span, :] on ragged B and N;
+    the same tiles on an asymmetric J would not."""
+    B, N, col0, length = case
+    rng = np.random.default_rng(B * N + col0)
+    J = _sym_int8(N, rng)
+    sp = sk.span_stride(length)
+    dlt = torch.from_numpy(rng.choice(np.array([-2, 0, 2], np.int8),
+                                      size=(B, sp)))
+    dlt[:, length:] = 0
+    lf = torch.from_numpy(rng.integers(-5000, 5000, size=(B, N)).astype(
+        np.int32))
+    want = lf + (dlt[:, :length].double()
+                 @ J[col0:col0 + length].double()).to(torch.int32)
+    got = lf.clone()
+    blocked_commit_reference(got, dlt, J, col0, length)
+    assert torch.equal(got, want)
+    Ja = J.clone()
+    Ja[(col0 + 1) % N, col0] += 1   # off the diagonal: asymmetric
+    seq = lf + (dlt[:, :length].double()
+                @ Ja[col0:col0 + length].double()).to(torch.int32)
+    bad = lf.clone()
+    blocked_commit_reference(bad, dlt, Ja, col0, length)
+    assert bool((dlt[:, 0] != 0).any()) and not torch.equal(bad, seq)
+
+
+def test_refuses_asymmetric_couplings():
+    """The commit reads J[span, n] as J[n, span]: an asymmetric J is refused
+    when the sweeper is built."""
+    rng = np.random.default_rng(3)
+    J = _sym_int8(12, rng).numpy().astype(np.int32)
+    J[2, 5] += 1
+    m = pt.fully_connected_from_arrays(J, np.zeros(12, np.int32), scale=1.0,
+                                       **CPU)
+    assert sk.sk_sweep_eligible(m)
+    with pytest.raises(ValueError, match="symmetric"):
+        SKSweeper(m, 1.0)
+    with pytest.raises(ValueError, match="symmetric"):
+        sk.check_symmetric(torch.zeros((3, 4), dtype=torch.int8), "dense")
+    sk.check_symmetric(_sym_int8(12, rng), "dense sweep")

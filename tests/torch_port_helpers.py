@@ -240,3 +240,88 @@ def pallas_interpret(*modules):
             os.environ["RRRMC_PALLAS_INTERPRET"] = old
         for m in modules:
             importlib.reload(importlib.import_module(m))
+
+
+# --- plain models of the dense sweep kernels' parts (csrc/sk_sweep.cu,
+# csrc/replica_sweep.cu, csrc/sweep_block.cuh) -------------------------------
+
+
+def hmax_table(u: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """hmax(u) = #{v : th[v - 1] > u} of each word u (int64, u's shape),
+    over a table that does not increase (the kernel's binary search)."""
+    neg = -th.to(torch.int64)
+    return torch.searchsorted(neg, -u.to(torch.int64).contiguous(),
+                              right=False)
+
+
+def _bytes16(row: torch.Tensor, c: int) -> torch.Tensor:
+    """row[c .. c + 15], zero past its end (the kernel's load16)."""
+    out = torch.zeros(16, dtype=torch.int64)
+    part = row[c:c + 16]
+    out[:part.shape[0]] = part
+    return out
+
+
+def blocked_commit_reference(lf, dlt, J, col0: int, length: int, *,
+                             off: int = 0) -> None:
+    """A plain model of the kernel's commit (csrc/sweep_block.cuh), tile by
+    tile, in place on lf [B, L] int32: lf[b, off + n] += sum_k dlt[b, k]
+    J[n, col0 + k] for the n rows of J [n, ld] int8, k < length, through
+    mma.m16n8k32's fragment layouts. Blocks of sk.BLOCK_CHAINS chains (the
+    last one ragged), two 8-chain tiles each; a warp's 16-row tile of n;
+    lane (g, t) loads sites 16t..16t+15 of each 64-site chunk from rows
+    n0 + g and n0 + g + 8 and the same 16 of its chain's row of dlt
+    [B, stride] int8 (0 past `length`), which become its k = 4t..4t+3 and
+    16+4t..16+4t+3 of two products. For a symmetric J this is
+    lf += dlt[:, :length] J[col0:col0 + length, :]."""
+    from rrrmc_tpu_torch.ops.sk import BLOCK_CHAINS as chains, CHUNK
+
+    B, sp = dlt.shape
+    nrows, ld = J.shape
+    Jn = J.to(torch.int64)
+    out = lf.to(torch.int64)
+    nchunks = -(-length // CHUNK)
+    for cb in range(0, B, chains):
+        dl = torch.zeros((chains, sp), dtype=torch.int64)
+        nb = min(chains, B - cb)
+        dl[:nb] = dlt[cb:cb + nb].to(torch.int64)
+        dl[:, length:] = 0
+        for n0 in range(0, nrows, 16):
+            for tile in range(chains // 8):
+                D = torch.zeros((16, 8), dtype=torch.int64)
+                for kc in range(nchunks):
+                    for prod in range(2):
+                        A = torch.zeros((16, 32), dtype=torch.int64)
+                        Bm = torch.zeros((32, 8), dtype=torch.int64)
+                        for lane in range(32):
+                            g, t = lane >> 2, lane & 3
+                            c = CHUNK * kc + 16 * t
+                            ra = Jn[min(n0 + g, nrows - 1)]
+                            rb = Jn[min(n0 + g + 8, nrows - 1)]
+                            a16 = _bytes16(ra[:ld], col0 + c)
+                            h16 = _bytes16(rb[:ld], col0 + c)
+                            d16 = dl[8 * tile + g, c:c + 16]
+                            p = 8 * prod
+                            regs = (a16[p:p + 4], h16[p:p + 4],
+                                    a16[p + 4:p + 8], h16[p + 4:p + 8])
+                            # a_i: row g (i < 4, 8 <= i < 12) or g + 8;
+                            # column 4t + i % 4, plus 16 from i = 8
+                            for i in range(16):
+                                row = g + (8 if (i // 4) % 2 else 0)
+                                col = 4 * t + (i & 3) + (16 if i >= 8 else 0)
+                                A[row, col] = regs[i // 4][i % 4]
+                            # b_i: row 4t + i % 4, plus 16 from i = 4;
+                            # column g
+                            for i in range(8):
+                                Bm[4 * t + (i & 3) + (16 if i >= 4 else 0),
+                                   g] = d16[p + i]
+                        D += A @ Bm
+                # c_i: row g (i < 2) or g + 8, column 2t + i % 2
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for i in range(4):
+                        r = g + (8 if i >= 2 else 0)
+                        ch = cb + 8 * tile + 2 * t + (i & 1)
+                        if ch < B and n0 + r < nrows:
+                            out[ch, off + n0 + r] += D[r, 2 * t + (i & 1)]
+    lf.copy_(out.to(lf.dtype))
