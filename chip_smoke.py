@@ -85,6 +85,31 @@ Phases, any failure exits non-zero:
    integer couplings, within 1e-4 * N for float ones, 1e-4 * max(1, |E|)
    for xentr) and itmin lies in [0, moves].
 
+The site and checkerboard phases of 2 hold the redesigned kernels on
+their other routes and shapes too. The site kernel (`site_cases`): the
+row's GraphRRG(10^4, 3) +-J case and GraphRRGNormal (float32 fields, held
+bit for bit: the groups keep the serial order of every field's adds and E
+is summed in schedule order), a conflict-heavy GraphRRG(64, 3) and a
+schedule of repeated sites, a graph with padded neighbour rows and fields
+(`padded_graph`, K = 6), EA-4D L=6 (K = 8), a ragged batch (SITE_RAGGED_B
+chains), int16 fields (couplings -70 and 30, bound 210) and int32 fields
+(fixed-point couplings, bound 450 000), and GraphRRG(SITE_GLOBAL_N, 3) and
+GraphRRGNormal(SITE_GLOBAL_N, 3), above the resident route's shared
+memory, which take the global route (int32 and float32); each prints its
+plan (route, field type, chains a block, warps, shared bytes, blocks a SM,
+registers). Then the
+device's groups (`site.group_lengths` on the card) must equal
+`site.site_groups` on the path's schedules (a standardMC launch's 300 000
+random sites and the site-sweep route's permutations), with the mean
+group length printed. The checkerboard kernel (`sweep_case`): the bench's
+B=8192 row, the field column, the exp path, a ragged batch, an EA-2D
+lattice, EA-4D and EA-1D lattices (the kernel's run-time-D instantiation),
+one chain a lane on +-J couplings and four chains a lane on the exp path;
+each prints its plan (chains a block, threads, lanes, shared
+bytes, blocks a SM, registers). `site_sweep_instantiations` prints every
+instantiation of both kernels with its registers and spill bytes (ptxas)
+and local bytes (the CUDA runtime) and fails on a spill or a local byte.
+
 The replica phases of 2 are the composite race kernel on GraphQSKT(1024,
 16) (bkl, wtm, rrr), GraphSKRE(1024, 5) (rrr) and GraphQSKNormalT(1024, 16)
 (bkl), the dense base, and on Quant and RE over GraphRRG(1000, 3) (bkl,
@@ -218,6 +243,13 @@ RRG_SWEEPS = 100
 #: takes ~0.3 ms per move); the sweep kernel 100 sweeps (its plain version
 #: takes ~20 ms per sweep at 8192 chains)
 SITE_MOVES, RACE_MOVES, SWEEPS = 10_000, 1024, 100
+#: the site kernel's other cases: a ragged batch, the moves of the cases
+#: beside the row, a graph above the resident route's shared memory (int8
+#: fields: N > 116 224) and its chains, and the moves of one standardMC
+#: launch on the path (its schedule's groups are checked)
+SITE_RAGGED_B, SITE_CMP_MOVES, SITE_GLOBAL_N, SITE_GLOBAL_B = 1003, 2000, \
+    120_000, 64
+SITE_PATH_MOVES = ITERS_MET // 10
 #: moves of every race comparison but the one that gives its kernel's row
 #: (the first, bkl, case at RACE_MOVES): the other modes and the other
 #: models of a kernel, whose plain versions take 2-10 s at RACE_MOVES
@@ -309,7 +341,7 @@ DEV = "cuda"
 #: counts the ptxas report of the build gives
 ENTRIES = {
     "site_metropolis": ("rrrmc_tpu/ops/site_pallas.py:47", "site.cu",
-                        "site_metropolis_kernel"),
+                        "site_resident_kernel"),
     "rejfree_sparse": ("rrrmc_tpu/ops/rejfree_pallas.py:870",
                        "rejfree_sparse.cu", "rejfree_sparse_kernel"),
     "rejfree_lattice": ("rrrmc_tpu/ops/rejfree_pallas.py:118",
@@ -504,17 +536,58 @@ def _compare(name, integer, kern: dict, plain: dict, B: int, N: int):
     return bad, max(errs["E"], errs["lf"]), errs
 
 
-def site_case(model, label, card, n_moves=SITE_MOVES):
+def padded_graph(N, seed):
+    """A sparse +-J graph with integer fields in -2..2 whose degrees run
+    from 1 to 6: its neighbour rows are padded with N (K = 6, beyond the
+    site kernel's 4 neighbours read ahead of the acceptance)."""
+    import numpy as np
+    import rrrmc_tpu_torch as rt
+
+    rng = np.random.default_rng(seed)
+    adj = [set() for _ in range(N)]
+    for i in range(N):
+        for j in rng.choice(N, size=rng.integers(1, 4), replace=False):
+            if j != i and len(adj[i]) < 6 and len(adj[j]) < 6:
+                adj[i].add(int(j))
+                adj[j].add(i)
+    for i in range(N):
+        if not adj[i]:
+            j = (i + 1) % N
+            adj[i].add(j)
+            adj[j].add(i)
+    adj = [sorted(a) for a in adj]
+    J = [[1.0 if (i + j) % 3 else -1.0 for j in a] for i, a in enumerate(adj)]
+    return rt.make_pairwise(adj, J, N, h=rng.integers(-2, 3, N).astype(float),
+                            integer_scale=1.0, device=DEV)
+
+
+def plan_of_site(plan) -> str:
+    """The site kernel's launch plan (ops/site.py's LAST_PLAN) as printed."""
+    return (f"[route {plan['route']}, {plan['field']} fields, "
+            f"{plan['chains']} chains a block, {plan['warps']} warps, "
+            f"{plan['smem']} shared bytes, {plan['blocks_per_sm']} blocks/SM, "
+            f"{plan['registers']} registers, {plan['spill_bytes']} local "
+            f"bytes]")
+
+
+def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None):
+    """The site kernel against its plain version: n_moves moves of B chains
+    from one random start on one schedule (uniform random sites unless
+    `sites` is given), one Philox seed; integer couplings EQUAL, float ones
+    under `_compare`'s float rule. The kernel gets the family's bound on
+    |lf| (its resident field type), as SiteSampler gives it."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import site
     from rrrmc_tpu_torch.samplers.common import init_lfT
+    from rrrmc_tpu_torch.samplers.families import half_bound
 
-    B = CHAINS
     st = rt.init_state(model, B, seed=SEED, device=DEV)
-    g = torch.Generator(device=DEV).manual_seed(SEED)
-    sites = torch.randint(0, model.N, (n_moves,), generator=g, device=DEV,
-                          dtype=torch.int32)
+    if sites is None:
+        g = torch.Generator(device=DEV).manual_seed(SEED)
+        sites = torch.randint(0, model.N, (n_moves,), generator=g,
+                              device=DEV, dtype=torch.int32)
+    n_moves = sites.shape[0]
     base = dict(sigT=st.sigma.t().contiguous(), lfT=init_lfT(model, st.sigma),
                 E=st.E.clone(), acc=torch.zeros(B, dtype=torch.int32,
                                                 device=DEV))
@@ -523,13 +596,15 @@ def site_case(model, label, card, n_moves=SITE_MOVES):
     def fresh():
         return {k: v.clone() for k, v in base.items()}
 
-    def run(fn, a):
+    def run(fn, a, **extra):
         fn(a["sigT"], a["lfT"], a["E"], a["acc"], sites, model.neigh,
-           model.J, **kw)
+           model.J, **kw, **extra)
 
-    run(site.site_chunk, fresh())                       # warm-up
+    bound_kw = {"field_bound": half_bound(model)}
+    run(site.site_chunk, fresh(), **bound_kw)           # warm-up
     k = fresh()
-    ms = _events_ms(lambda: run(site.site_chunk, k))
+    ms = _events_ms(lambda: run(site.site_chunk, k, **bound_kw))
+    plan = dict(site.LAST_PLAN)
     p = fresh()
     plain_ms = _events_ms(lambda: run(site.site_chunk_reference, p))
     kern = {"sigma": k["sigT"].t(), "lf": k["lfT"].t(), "E": k["E"],
@@ -547,34 +622,138 @@ def site_case(model, label, card, n_moves=SITE_MOVES):
         B * n_moves * (PHILOX_OPS + 4) + applied * 2 * model.K)
     print(f"site_metropolis {label} B={B} moves={n_moves}: kernel {ms:.3f} ms"
           f", plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms ({bound_by}), "
-          f"diverged chains {bad}, max abs err {err:.3g} [{card}]")
+          f"diverged chains {bad}, max abs err {err:.3g} "
+          f"{plan_of_site(plan)} [{card}]")
     return {"kernel": "site_metropolis", "case": label, "B": B,
             "moves": n_moves, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "diverged": bad, "max_abs_err": err, "errs": errs}
+            "diverged": bad, "max_abs_err": err, "errs": errs,
+            "site_plan": plan}
 
 
-def sweep_case(model, label, B, card):
+def site_cases(card):
+    """The site kernel beside its row (`site_case`): a conflict-heavy
+    graph and a schedule of repeated sites (groups of 1-4 moves), padded
+    rows with fields, K = 8 (EA-4D), a ragged batch, int16 and int32
+    resident fields, and the global route above shared memory (integer
+    and float32); each must take its route and field type. Then
+    `site_groups_case`."""
+    import numpy as np
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    small = rt.GraphRRG(64, 3, (-1, 1), seed=3, device=DEV)
+    repeats = torch.as_tensor(np.repeat(np.random.default_rng(SEED).integers(
+        0, 8, SITE_CMP_MOVES // 4), 4).astype(np.int32), device=DEV)
+    wide = rt.GraphRRG(SITE_GLOBAL_N, 3, (-1, 1), seed=5, device=DEV)
+    wide_f = rt.GraphRRGNormal(SITE_GLOBAL_N, 3, seed=5, device=DEV)
+    # (case, route and field type it must take)
+    cases = [
+        (site_case(small, "GraphRRG(64, 3) conflict-heavy", card,
+                   SITE_CMP_MOVES), "resident", "int8"),
+        (site_case(small, "GraphRRG(64, 3) repeated sites", card,
+                   sites=repeats, B=37), "resident", "int8"),
+        (site_case(padded_graph(2000, SEED), "padded rows, fields", card,
+                   SITE_CMP_MOVES), "resident", "int8"),
+        # K = 8: past the neighbours read ahead and the cut's registers
+        (site_case(rt.GraphEA(6, 4, (-1, 1), seed=SEED, device=DEV),
+                   "EA-4D L=6 (K=8)", card, SITE_CMP_MOVES), "resident",
+         "int8"),
+        (site_case(m, "RRG+-J ragged", card, SITE_CMP_MOVES,
+                   B=SITE_RAGGED_B), "resident", "int8"),
+        (site_case(rt.GraphRRG(N_MAIN, 3, (-70, 30), seed=SEED, device=DEV),
+                   "RRG J in {-70, 30} (bound 210)", card, SITE_CMP_MOVES),
+         "resident", "int16"),
+        (site_case(rt.GraphRRG(N_MAIN, 3, (-1.5, 0.5), seed=SEED,
+                               device=DEV),
+                   "RRG (-1.5, 0.5) fixed point", card, SITE_CMP_MOVES),
+         "resident", "int32"),
+        (site_case(wide, f"GraphRRG({SITE_GLOBAL_N}, 3) global", card,
+                   SITE_CMP_MOVES // 2, B=SITE_GLOBAL_B), "global", "int8"),
+        (site_case(wide_f, f"GraphRRGNormal({SITE_GLOBAL_N}, 3) global",
+                   card, SITE_CMP_MOVES // 2, B=SITE_GLOBAL_B), "global",
+         "float32")]
+    for c, route, field in cases:
+        got = (c["site_plan"]["route"], c["site_plan"]["field"])
+        require(got == (route, field), f"site {c['case']}: plan {got}, "
+                                       f"expected {(route, field)}")
+    return [c for c, _, _ in cases] + [site_groups_case(m, card)]
+
+
+def site_groups_case(model, card):
+    """The cut of the path's schedules on the card (`site.group_lengths`,
+    walked from move 0) against the plain `site.site_groups`: the random
+    sites of one standardMC launch (drawn as SiteSampler draws them) and
+    the site-sweep route's permutations of the same length; and random
+    sites on EA-4D L=6, whose K + 1 = 9 neighbourhood members pass the
+    cut kernel's registers."""
+    import numpy as np
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import site
+    from rrrmc_tpu_torch.ops.site import _perm_of
+
+    g = torch.Generator(device=DEV).manual_seed(1)
+    random = torch.randint(0, model.N, (SITE_PATH_MOVES,), generator=g,
+                           device=DEV, dtype=torch.int32)
+    perm = torch.as_tensor(np.concatenate(
+        [_perm_of(15, s, model.N)
+         for s in range(-(-SITE_PATH_MOVES // model.N))])[:SITE_PATH_MOVES]
+        .astype(np.int32), device=DEV)
+    ea4 = rt.GraphEA(6, 4, (-1, 1), seed=SEED, device=DEV)
+    out = {}
+    for name, m, sites in (("random", model, random),
+                           ("permutations", model, perm),
+                           ("EA-4D L=6 (K=8), random", ea4,
+                            random[:SITE_CMP_MOVES] % ea4.N)):
+        dev_groups = site.walk_groups(site.group_lengths(sites, m.neigh,
+                                                         m.N))
+        want = site.site_groups(sites, m.neigh, m.N)
+        require(np.array_equal(dev_groups, want),
+                f"site groups ({name}): the card's cut differs from "
+                f"site_groups")
+        out[name] = sites.shape[0] / len(want)
+    print(f"site groups on the path's schedules ({SITE_PATH_MOVES} moves, "
+          f"GraphRRG(10^4, 3)): the card's cut equals site_groups; mean "
+          f"group {out['random']:.2f} moves (random sites), "
+          f"{out['permutations']:.2f} (permutations); EA-4D L=6 (K=8) "
+          f"{out['EA-4D L=6 (K=8), random']:.2f}  [{card}]")
+    return {"kernel": "site_groups", "mean_group": out}
+
+
+def plan_of_sweep(plan) -> str:
+    """The checkerboard kernel's launch plan (ops/sweep.py's LAST_PLAN)."""
+    return (f"[{plan['chains']} chains a block, {plan['threads']} threads, "
+            f"{plan['lanes']} a lane, {plan['smem']} shared bytes, "
+            f"{plan['blocks_per_sm']} blocks/SM, {plan['registers']} "
+            f"registers, {plan['spill_bytes']} local bytes]")
+
+
+def sweep_case(model, label, B, card, one_lane=False):
     """The checkerboard kernel against its plain version: SWEEPS sweeps of B
     chains from one random start, one Philox seed; spins and energies must
     be EQUAL (integer arithmetic; the exp path's float32 exp and threshold
-    round alike under -fmad=false)."""
+    round alike under -fmad=false). one_lane: the kernel gets rows of one
+    chain a lane where the Sweeper's rows take four."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import sweep
 
     sw = sweep.Sweeper(model, BETA)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
+    rows = {} if one_lane else {"rows": sw.rows}
 
-    def run(fn):
+    def run(fn, **extra):
         sigma, E = st.sigma.clone(), st.E.clone()
         ms = _events_ms(lambda: fn(
             sigma, E, sw.Jp, sw.Jm, sw.th, L=sw.L, D=sw.D, n_sweeps=SWEEPS,
-            beta2s=sw.beta2s, seed=SEED))
+            beta2s=sw.beta2s, seed=SEED, **extra))
         return sigma, E, ms
 
-    run(sweep.sweep_chunk)                                # warm-up
-    ks, kE, ms = run(sweep.sweep_chunk)
+    run(sweep.sweep_chunk, **rows)                        # warm-up
+    ks, kE, ms = run(sweep.sweep_chunk, **rows)
+    plan = dict(sweep.LAST_PLAN)
     ps, pE, plain_ms = run(sweep.sweep_chunk_reference)
     require(torch.equal(ks, ps) and torch.equal(kE, pE),
             f"sweep {label}: kernel and plain differ "
@@ -588,11 +767,68 @@ def sweep_case(model, label, B, card):
         B * model.N * SWEEPS * (PHILOX_OPS / 4 + 4 * model.D + 3))
     print(f"sweep_checkerboard {label} B={B} sweeps={SWEEPS} table="
           f"{sw.table}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.3g} ms ({bound_by}), equal [{card}]")
+          f"{bound_ms:.3g} ms ({bound_by}), equal {plan_of_sweep(plan)} "
+          f"[{card}]")
     return {"kernel": "sweep_checkerboard", "case": label, "B": B,
             "sweeps": SWEEPS, "table": sw.table, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "diverged": 0, "max_abs_err": 0.0}
+            "diverged": 0, "max_abs_err": 0.0, "sweep_plan": plan}
+
+
+def site_sweep_instantiations(log: str, card: str) -> None:
+    """Every instantiation of the site kernels (resident, global, cut) and
+    of the checkerboard kernel: registers and spill bytes from the ptxas
+    report (when this run built the library) and local bytes a thread from
+    the CUDA runtime's attributes. Fails on a spill or a local byte."""
+    import ctypes
+    import re
+
+    from rrrmc_tpu_torch.ops import cuda_build
+
+    names = ("site_resident_kernel", "site_global_kernel", "site_cut_kernel",
+             "sweep_kernel")
+    ptx, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if any(f"{len(n)}{n}" in m.group(1)
+                                   for n in names) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["spill"] = max(int(m.group(1)),
+                                                  int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["registers"] = int(m.group(1))
+    demangled = _demangle(set(ptx))
+    for f in sorted(ptx, key=demangled.get):
+        rec = ptx[f]
+        print(f"site/sweep instantiation {demangled[f]}: registers "
+              f"{rec.get('registers')}, spill bytes {rec.get('spill')} "
+              f"(ptxas)  [{card}]")
+        require(rec.get("spill", 0) == 0, f"{demangled[f]} spills")
+    lib = cuda_build.library()
+    out = (ctypes.c_int * 5)()
+    local = {}
+    for field, name in enumerate(("int8", "int16", "int32", "float32")):
+        for chains in (0, 1, 2, 4, 8):
+            cuda_build.check(lib.rrrmc_site_info(chains, field, 0, 0, out),
+                             "site_info")
+            local[f"site {'global' if chains == 0 else 'resident'} "
+                  f"{name} W={chains}"] = out[2]
+    for D in (2, 3, 4):   # D = 4: the run-time-D instantiation
+        for table in (0, 1):
+            for swar in (0, 1):
+                cuda_build.check(lib.rrrmc_sweep_info(
+                    1024, D, table, swar, 0, 0, out), "sweep_info")
+                local[f"sweep D={D if D < 4 else 'any'} table={table} "
+                      f"swar={swar}"] = out[2]
+    print(f"site and sweep instantiations' local bytes a thread: "
+          f"{json.dumps(local)}  [{card}]")
+    require(not any(local.values()), f"site/sweep kernels use local "
+                                     f"memory: {local}")
 
 
 def _fused():
@@ -2222,6 +2458,7 @@ def main() -> int:
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
     cases = [site_case(m, "RRG+-J", card),
              site_case(mn, "RRGNormal", card, n_moves=SITE_MOVES // 4)]
+    cases += site_cases(card)
 
     def moves(mode):
         return RACE_MOVES if mode == "bkl" else CMP_MOVES
@@ -2239,6 +2476,25 @@ def main() -> int:
     cases.append(sweep_case(lat, "EA3D-L16+-J", 8192, card))
     cases.append(sweep_case(field, "EA3D-L16+-J fields", CHAINS, card))
     cases.append(sweep_case(fixed, "EA3D-L16 (-1.5,0.5) exp", CHAINS, card))
+    # the kernel's other shapes and lane layouts: a ragged batch, an EA-2D
+    # lattice, one chain a lane on +-J couplings, four chains a lane on the
+    # exp path (every site's |J| sum 120 <= 127, max |half| 120 > 64)
+    cases.append(sweep_case(lat, "EA3D-L16+-J ragged", SITE_RAGGED_B, card))
+    cases.append(sweep_case(rt.GraphEA(64, 2, (-1, 1), seed=42, device=DEV),
+                            "EA2D-L64+-J", CHAINS, card))
+    # D = 4 and 1: the kernel's run-time-D instantiation
+    cases.append(sweep_case(rt.GraphEA(8, 4, (-1, 1), seed=42, device=DEV),
+                            "EA4D-L8+-J", CHAINS, card))
+    cases.append(sweep_case(rt.GraphEA(4096, 1, (-1, 1), seed=42,
+                                       device=DEV),
+                            "EA1D-L4096+-J", CHAINS, card))
+    cases.append(sweep_case(lat, "EA3D-L16+-J one chain a lane", CHAINS, card,
+                            one_lane=True))
+    cases.append(sweep_case(rt.GraphEA(16, 3, (-20, 20), seed=42, device=DEV),
+                            "EA3D-L16 (-20,20) exp", CHAINS, card))
+    lanes = {c["sweep_plan"]["lanes"] for c in cases
+             if c["kernel"] == "sweep_checkerboard"}
+    require(lanes == {"1 chain", "4 chains"}, f"sweep lanes held: {lanes}")
     for mode in ("bkl", "wtm", "rrr"):
         cases.append(rejfree_case(lat, "EA3D-L16+-J", mode, card,
                                   kernel="rejfree_lattice",
@@ -2443,6 +2699,7 @@ def main() -> int:
                 **rep_launches, **perc_counts}
     regs = registers(build_log)
     sweep_instantiations(build_log, card)
+    site_sweep_instantiations(build_log, card)
     spills = spill_bytes(build_log)
     local = fused_local_bytes()
     for fn, n in local.items():
@@ -2511,6 +2768,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "registers": regs.get(function),
             **({"plan": head["plan"]} if head.get("plan") else {}),
+            **({"site_plan": head["site_plan"]} if "site_plan" in head
+               else {}),
             **({"sweep_plan": head["sweep_plan"],
                 "equilibrium_ms": next((c["ms"] for c in mine
                                         if c.get("warm")), None)}

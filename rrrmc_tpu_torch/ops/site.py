@@ -1,15 +1,24 @@
 """Single-site Metropolis on sparse Pairwise models: the CUDA kernel
-(csrc/site.cu), its plain torch version, and the `SiteSampler` runner.
+(csrc/site.cu), its launch plan, its plain torch version, and the
+`SiteSampler` runner.
 
 Source note. The kernel replaces rrrmc_tpu/ops/site_pallas.py::_site_kernel
 (called by `_pallas_site`). On the H100 it is bound by latency, not by bytes
-or operations: a move is a chain of dependent steps (read the site, read
-sigma and lf, exp, Philox, read-modify-write K neighbour rows), and only B
-threads exist. The design keeps every access coalesced instead: the layout is
-site-major [N, B] and the site schedule is shared by the batch, so a warp's
-32 threads touch one contiguous row segment per access, and blocks are one
-warp wide so that a batch of B chains spreads over B/32 SMs. Later work
-(ROADMAP.md) may give each chain its own schedule.
+or operations: a move is a chain of dependent steps (the site, its spin and
+field, exp and Philox, the K neighbour fields). The design takes them off
+the card's memory and runs many of them side by side. `site_plan` picks the
+route by size alone: where a chain's state fits in shared memory
+("resident"), a block of W chains keeps its spins and its fields, in the
+narrowest type that holds the model's bound on |lf| (`field_type`), resident
+for the whole launch, one warp per chain. The schedule, shared by the batch,
+is cut once a launch into groups of at most GROUP_MAX consecutive moves
+whose closed neighbourhoods are pairwise disjoint (`site_groups`); such
+moves commute exactly, so lane l of a chain's warp runs move l of a group
+and the result equals the serial run bit for bit, float32 fields and E
+included. What bounds it then is the groups a chain times a group's latency.
+Where the state does not fit ("global"), one thread per chain keeps it in
+global memory, the moves in order (the site-major [N, B] layout makes each
+access one coalesced row segment).
 
 Semantics (as the TPU kernel): each chain is an exact Metropolis chain; the
 site schedule is shared across the chain batch, so chains are not mutually
@@ -25,12 +34,127 @@ import numpy as np
 import torch
 
 from . import check_args, prng
+from .rejfree import FIELD_CODES, info_fn, resident_dtype
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: the most moves of a group (one a lane of a warp; csrc/site.cu kGroupMax)
+GROUP_MAX = 32
+#: chains a block the resident route may take (one warp each)
+CHAIN_CHOICES = (8, 4, 2, 1)
+#: the last launch's plan: route, field type, chains a block, warps, shared
+#: bytes, blocks per SM, registers and local bytes a thread (spills)
+LAST_PLAN: dict = {}
 
 BitsFn = Callable[[int, int], torch.Tensor]
+
+
+def field_type(J: torch.Tensor, bound: Optional[int]) -> torch.dtype:
+    """The resident type of the fields: float32 for float couplings, else
+    the narrowest of int8 / int16 / int32 that holds every |lf| <= `bound`
+    (None: int32)."""
+    return resident_dtype(is_integer(J), bound)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def chain_bytes(N: int, field: torch.dtype) -> int:
+    """Shared bytes of one chain on the resident route: N int8 spins, then
+    N fields, each part 16-byte aligned (csrc/site.cu chain_bytes)."""
+    return _align16(N) + _align16(N * field.itemsize)
+
+
+def site_plan(N: int, B: int, field: torch.dtype, n_sm: int,
+              info: Callable) -> dict:
+    """The launch plan of B chains of N sites with resident fields of type
+    `field`, by size alone. info(W, need) gives the resident kernel's
+    [blocks per SM, registers, local bytes, static shared bytes, most
+    dynamic shared bytes] at W warps and `need` dynamic bytes; info(0, 0)
+    the global kernel's. Route "resident" when W = 1 chain fits in a
+    block's shared memory: W the largest of CHAIN_CHOICES whose blocks all
+    fit on the n_sm SMs at once and still occupy every SM; with too few
+    chains to occupy them all, the smallest that fits at once (one chain an
+    SM where it can); where no W fits at once, the W that holds the most
+    chains at once. Else route "global", one thread per chain."""
+    cb = chain_bytes(N, field)
+    facts = {w: info(w, w * cb) for w in CHAIN_CHOICES}
+    fits = [w for w in CHAIN_CHOICES
+            if w * cb <= facts[w][4] and facts[w][0] > 0]
+    if not fits:
+        f = info(0, 0)
+        return {"route": "global", "field": str(field).replace("torch.", ""),
+                "chains": 32, "warps": 1, "smem": 0, "blocks_per_sm": f[0],
+                "registers": f[1], "spill_bytes": f[2],
+                "blocks": -(-B // 32)}
+
+    def blocks(w):
+        return -(-B // w)
+
+    once = [w for w in fits if n_sm * facts[w][0] >= blocks(w)]
+    if once:
+        full = [w for w in once if blocks(w) >= n_sm]
+        w = max(full) if full else min(once)
+    else:
+        w = max(fits, key=lambda w: (n_sm * facts[w][0] * w, w))
+    f = facts[w]
+    return {"route": "resident", "field": str(field).replace("torch.", ""),
+            "chains": w, "warps": w, "smem": w * cb, "blocks_per_sm": f[0],
+            "registers": f[1], "spill_bytes": f[2], "blocks": blocks(w)}
+
+
+def site_groups(sites, neigh, N: int, cap: int = GROUP_MAX) -> np.ndarray:
+    """The lengths of the schedule's groups, in order: walking the moves
+    `sites` [n_moves], a group takes the next move unless it holds `cap`
+    moves already or the move's closed neighbourhood {i} + neigh[i]
+    (padding == N left out) meets the union of the group's. Moves of one
+    group touch disjoint spins and fields, so they commute exactly."""
+    rows = np.asarray(neigh.cpu() if torch.is_tensor(neigh) else neigh)
+    out, group, n = [], set(), 0
+    for i in np.asarray(sites.cpu() if torch.is_tensor(sites) else sites):
+        closed = {int(i)} | {int(x) for x in rows[i] if x != N}
+        if n == cap or group & closed:
+            out.append(n)
+            group, n = set(), 0
+        group |= closed
+        n += 1
+    if n:
+        out.append(n)
+    return np.asarray(out, dtype=np.int64)
+
+
+def walk_groups(glen) -> np.ndarray:
+    """The group lengths from move 0 of a group-length table glen [n_moves]
+    (glen[m]: the length of the group that starts at move m), as the
+    kernel's warps walk it."""
+    glen = np.asarray(glen.cpu() if torch.is_tensor(glen) else glen)
+    out, m = [], 0
+    while m < glen.shape[0]:
+        out.append(int(glen[m]))
+        m += int(glen[m])
+    return np.asarray(out, dtype=np.int64)
+
+
+def group_lengths(sites, neigh, N: int, cap: int = GROUP_MAX):
+    """glen [n_moves] int32: the length of the greedy group of `site_groups`
+    that would start at each move, as the kernel's cut finds it: move m's
+    group ends before the first later move m + l (l < cap) whose closed
+    neighbourhood meets that of a move in [m, m + l). Launches the cut
+    kernel alone (not counted in LAUNCHES) on CUDA tensors."""
+    if sites.device.type != "cuda":
+        raise ValueError(f"no cut kernel for device {sites.device}")
+    from .cuda_build import check, library
+
+    glen = torch.empty_like(sites)
+    with torch.cuda.device(sites.device):
+        err = library().rrrmc_site_cut(
+            sites.data_ptr(), sites.shape[0], neigh.data_ptr(), N,
+            neigh.shape[1], cap, glen.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(err, "site_cut launch")
+    return glen
 
 
 def _check_args(sigT, lfT, E, acc, sites, neigh, J):
@@ -46,7 +170,8 @@ def _check_args(sigT, lfT, E, acc, sites, neigh, J):
 
 def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
                beta_s: float, move0: int = 0, chain0: int = 0,
-               bits: Optional[BitsFn] = None) -> None:
+               bits: Optional[BitsFn] = None,
+               field_bound: Optional[int] = None) -> None:
     """Run the moves `sites` [n_moves] int32 on every chain, in place.
 
     sigT [N, B] int8 and lfT [N, B] (int32 for integer J, else float32) are
@@ -54,10 +179,13 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
     accepted count. neigh/J are the model's [N, K] tables (padding == N).
     beta_s = beta * model.scale. Move m's acceptance bits are Philox word 0
     of counter (0, move0 + m, DRAW_SITE, 0) under key (seed, chain0 + b).
+    `field_bound` bounds |lf| over every configuration (the family's
+    half_bound; None: int32 resident fields for integer J).
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (move, draw) -> [B] int32 replaces the generator
-    and is taken by the plain version only."""
+    On a CUDA tensor this launches the kernel on `site_plan`'s route
+    (LAST_PLAN); on a CPU tensor it runs the plain version. `bits`
+    (move, draw) -> [B] int32 replaces the generator and is taken by the
+    plain version only."""
     global LAUNCHES
     _check_args(sigT, lfT, E, acc, sites, neigh, J)
     if sigT.device.type == "cpu":
@@ -73,13 +201,24 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
 
     lib = library()
     N, B = sigT.shape
-    with torch.cuda.device(sigT.device):
+    dev = sigT.device
+    field = field_type(J, field_bound)
+    code = FIELD_CODES[field]
+    plan = site_plan(
+        N, B, field,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        info_fn(lib.rrrmc_site_info, code, device=dev.index or 0))
+    LAST_PLAN.clear()
+    LAST_PLAN.update(plan)
+    resident = plan["route"] == "resident"
+    glen = torch.empty_like(sites) if resident else sites
+    with torch.cuda.device(dev):
         err = lib.rrrmc_site_metropolis(
             sites.data_ptr(), sites.shape[0], neigh.data_ptr(), J.data_ptr(),
             N, neigh.shape[1], B, sigT.data_ptr(), lfT.data_ptr(),
             E.data_ptr(), acc.data_ptr(), seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, beta_s,
-            0 if is_integer(J) else 1,
+            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, beta_s, code,
+            plan["chains"] if resident else 0, glen.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(err, "site_metropolis launch")
     LAUNCHES += 1
@@ -141,6 +280,11 @@ class SiteSampler:
         self.neigh = model.neigh.contiguous()
         self.J = model.J.contiguous()
         self.beta_s = float(beta) * model.scale
+        # the bound on |lf| (samplers/families.py::half_bound's rule): the
+        # largest row sum of |J| plus |h|; None for float couplings
+        self.field_bound = (int((self.J.abs().to(torch.int64).sum(1)
+                                 + model.h.abs().to(torch.int64)).max())
+                            if is_integer(self.J) else None)
 
     def __call__(self, sigT, lfT, E, acc, *, generator: torch.Generator,
                  seed: int, n_moves: int, move0: int = 0,
@@ -173,7 +317,8 @@ class SiteSampler:
                 sites = torch.randint(0, N, (m,), generator=generator,
                                       device=dev, dtype=torch.int32)
             site_chunk(sigT, lfT, E, acc, sites, self.neigh, self.J,
-                       seed=seed, beta_s=self.beta_s, move0=move0 + done)
+                       seed=seed, beta_s=self.beta_s, move0=move0 + done,
+                       field_bound=self.field_bound)
             done += m
 
 

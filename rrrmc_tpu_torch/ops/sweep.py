@@ -1,15 +1,23 @@
 """Checkerboard Metropolis sweeps on an even-L integer LatticeEA: the CUDA
-kernel (csrc/sweep.cu), its plain torch version, and the `Sweeper` runner.
+kernel (csrc/sweep.cu), its launch plan, its plain torch version, and the
+`Sweeper` runner.
 
 Source note. The kernel replaces rrrmc_tpu/ops/sweep_pallas.py::_sweep_kernel
-(called by `_pallas_sweep`). On the H100 it is bound by ALU work, not bytes:
-per attempted flip a few integer divisions for the periodic neighbour
-indices, a quarter of a Philox call and six coupling reads that hit L1/L2.
-The design keeps each chain's spins resident in shared memory for all
-n_sweeps (one thread block per chain; N bytes, 4 KB at L=16, D=3), so global
-memory sees one read and one write of sigma per launch, and draws its bits
-from a counter-based Philox in place of the TPU's hardware generator. It does
-not copy the TPU layout (chains on lanes, sublane rolls with wrap masks):
+(called by `_pallas_sweep`). On the H100 it is bound by operations, not
+bytes: per attempted flip a quarter of a Philox call, the 2D neighbour
+products, the threshold and the compare. The design keeps the spins of a
+block of C chains resident in shared memory for all n_sweeps, interleaved
+by chain ([N][C] bytes), and runs the C chains in step: the lanes of a site
+take its C chains, four a lane where the couplings allow it (`swar_ok`:
+one 4-byte load of a neighbour's spins and one product-add serve four
+chains) or one, so each load of the site's row (its neighbours, couplings
+and field, `site_rows`, built once a launch with no division left for the
+sweep loop) serves all of them. D = 2 and 3 take the row into registers
+with D a constant; any other D reads it entry by entry. `sweep_plan`
+picks C and the lane layout from the chains and the card; global memory
+sees one read and one write of sigma per launch. Random bits come from a
+counter-based Philox in place of the TPU's hardware generator. It does not
+copy the TPU layout (chains on lanes, sublane rolls with wrap masks):
 neighbours are addressed directly.
 
 Contract (the JAX kernel's): sigma [B, N] int8 and E [B] int32 advance by
@@ -24,7 +32,8 @@ bits of one launch of all its sweeps.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +46,19 @@ from ..models.lattice import LatticeEA, parity
 LAUNCHES = 0
 #: the threshold table is used when every |half| is at most this
 TABLE_MAX = 64
+#: the largest sum of |J| around a site that the four-chains-a-lane kernel
+#: takes (csrc/sweep.cu kSwar)
+SWAR_MAX = 127
+#: chains a block the plan may take (lanes per site: a power of two)
+CHAIN_CHOICES = (32, 16, 8, 4, 2, 1)
+#: the plan takes the largest C whose busiest SM holds at most this many
+#: times the fewest chains any C gives it
+LOAD_SLACK = 1.1
+#: threads a block (at most csrc/sweep.cu kMaxThreads)
+THREADS = 1024
+#: the last launch's plan: chains a block, threads, shared bytes, blocks,
+#: blocks per SM, registers and local bytes a thread (spills)
+LAST_PLAN: dict = {}
 
 BitsFn = Callable[[int, int], torch.Tensor]
 
@@ -75,6 +97,122 @@ def accept_thresholds(beta2s: float, n: int) -> np.ndarray:
                    -2147483648.0, 2147483520.0).astype(np.int32)
 
 
+def row_len(D: int) -> int:
+    """Ints of a row of `site_rows` (csrc/sweep.cu row_len): the site, 2D
+    neighbours, their 2D couplings and two constants, padded to 16
+    bytes."""
+    return -(-(4 * D + 3) // 4) * 4
+
+
+@functools.lru_cache(maxsize=8)
+def neighbour_table(L: int, D: int) -> np.ndarray:
+    """[2, N/2, 1 + 2D] int32: for colour c and pair k (sites 2k and 2k + 1,
+    one of each colour on an even-L lattice), the site i of colour c and
+    its periodic neighbours i + e_0, i - e_0, i + e_1, ... (row-major sites,
+    e_d along array axis d, the last axis of stride 1)."""
+    n = L ** D
+    idx = np.arange(n).reshape((L,) * D)
+    nb = [np.roll(idx, -sh, axis=d).reshape(n)
+          for d in range(D) for sh in (1, -1)]
+    even = 2 * np.arange(n // 2)
+    par = parity(L, D)
+    out = np.empty((2, n // 2, 1 + 2 * D), dtype=np.int32)
+    for c in (0, 1):
+        site = even + (par[even] != c)
+        out[c, :, 0] = site
+        for j, t in enumerate(nb):
+            out[c, :, 1 + j] = t[site]
+    return out
+
+
+class SiteRows(NamedTuple):
+    """The kernel's rows (`site_rows`) and the lane layout they are built
+    for: `swar` True for four chains a lane, False for one."""
+    data: torch.Tensor
+    swar: bool
+
+
+def site_rows(Jp: torch.Tensor, Jm: torch.Tensor, L: int, D: int,
+              swar: bool = False) -> SiteRows:
+    """The kernel's rows, data [2, N/2, row_len(D)] int32 on Jp's device:
+    per colour and pair the `neighbour_table` row, then the couplings of
+    the 2D edges in its order (Jp[i, d] toward i + e_d, Jm[i, d] from
+    i - e_d), then two constants, then zeros: h (Jp's column D, 0 without
+    one) and 0; or, for the four-chains-a-lane kernel (`swar`, where
+    `swar_ok`), A = h + sum J + 2K and K * 0x01010101 with K = sum |J|."""
+    tab = torch.as_tensor(neighbour_table(L, D), device=Jp.device)
+    site = tab[..., 0].long()
+    J = torch.stack([Jp[site, d] if sh == 0 else Jm[site, d]
+                     for d in range(D) for sh in (0, 1)], dim=-1)
+    h = (Jp[site, D] if Jp.shape[1] == D + 1 else
+         torch.zeros_like(site, dtype=torch.int32))
+    last = torch.zeros_like(h)
+    if swar:
+        K = J.abs().sum(-1, dtype=torch.int32)
+        h = h + J.sum(-1, dtype=torch.int32) + 2 * K
+        last = K * 0x01010101
+    pad = torch.zeros(site.shape + (row_len(D) - 3 - 4 * D,),
+                      dtype=torch.int32, device=Jp.device)
+    return SiteRows(torch.cat([tab, J, h[..., None], last[..., None], pad],
+                              dim=-1).contiguous(), swar)
+
+
+def swar_ok(Jp: np.ndarray, Jm: np.ndarray, D: int) -> bool:
+    """Whether the four-chains-a-lane kernel takes these direction tables:
+    every site's sum of |J| over its 2D edges at most SWAR_MAX, so that
+    each chain's byte of the packed sum stays in [0, 255]."""
+    K = np.abs(Jp[:, :D]).sum(axis=1) + np.abs(Jm).sum(axis=1)
+    return int(K.max(initial=0)) <= SWAR_MAX
+
+
+def _chain_load(B: int, C: int, n_sm: int) -> int:
+    """The most chains one SM holds over the launch: the blocks a SM, at
+    most, times the chains of a block."""
+    return -(-(-(-B // C)) // n_sm) * min(C, B)
+
+
+def site_bytes(C: int) -> int:
+    """Shared bytes a site of a block of C chains: the C spins, and from 4
+    chains 4 spare bytes that spread a warp's sites over the banks
+    (csrc/sweep.cu)."""
+    return C + 4 if C >= 4 else C
+
+
+def sweep_plan(N: int, B: int, n_th: int, n_sm: int, info: Callable,
+               swar: bool = False) -> dict:
+    """The launch plan of B chains of N sites with an n_th-entry threshold
+    table. info(T, smem, swar) gives the instantiation's [blocks per SM,
+    registers, local bytes, static shared bytes, most dynamic shared bytes]
+    at T threads and `smem` dynamic bytes. With `swar` (couplings that
+    allow it, `swar_ok`) the lanes take four chains each where a block of
+    at least 4 chains fits, else one. C, the chains a block, is the
+    largest of CHAIN_CHOICES (each site's row then serves the most chains)
+    whose blocks leave at most LOAD_SLACK times the fewest chains any C
+    leaves on the busiest SM. A block holds n_th int32 thresholds and
+    N * site_bytes(C) spin bytes."""
+    T = THREADS
+    for four in ((True, False) if swar else (False,)):
+        choices = [c for c in CHAIN_CHOICES if c >= 4 or not four]
+        need = {c: n_th * 4 + N * site_bytes(c) for c in choices}
+        facts = {c: info(T, need[c], four) for c in choices}
+        fits = [c for c in choices
+                if need[c] <= facts[c][4] and facts[c][0] > 0]
+        if fits:
+            break
+    else:
+        raise NotImplementedError(
+            f"the sweep kernel keeps a chain's spins in shared memory: N={N}"
+            f" needs {min(need.values())} bytes, a block may have "
+            f"{facts[choices[-1]][4]}")
+    least = min(_chain_load(B, c, n_sm) for c in fits)
+    C = max(c for c in fits if _chain_load(B, c, n_sm) <= LOAD_SLACK * least)
+    f = facts[C]
+    return {"chains": C, "threads": T, "smem": need[C],
+            "lanes": "4 chains" if four else "1 chain", "swar": four,
+            "blocks": -(-B // C), "blocks_per_sm": f[0], "registers": f[1],
+            "spill_bytes": f[2]}
+
+
 def _check_args(sigma, E, Jp, Jm, th, L, D):
     B, N = sigma.shape
     if L % 2 or L <= 2 or N != L ** D:
@@ -92,16 +230,19 @@ def _check_args(sigma, E, Jp, Jm, th, L, D):
 
 def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
                 beta2s: float, seed: int, sweep0: int = 0, chain0: int = 0,
-                bits: Optional[BitsFn] = None) -> None:
+                bits: Optional[BitsFn] = None,
+                rows: Optional[SiteRows] = None) -> None:
     """Advance every chain by `n_sweeps` checkerboard sweeps, in place on
     sigma [B, N] int8 and E [B] int32. Jp / Jm are the `dir_tables` (a field
     column in Jp when it has D + 1 columns); th [max_half] int32 holds the
     `accept_thresholds`, and an empty th selects the exp path.
     beta2s = 2 * beta * model.scale.
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (sweep, colour) -> [B, N] int32 replaces the
-    generator and is taken by the plain version only."""
+    On a CUDA tensor this launches the kernel (`sweep_plan`, LAST_PLAN)
+    on `rows`, these tables' `site_rows` in either lane layout (built
+    here, for one chain a lane, when not given); on a CPU tensor it runs
+    the plain version. `bits` (sweep, colour) -> [B, N]
+    int32 replaces the generator and is taken by the plain version only."""
     global LAUNCHES
     _check_args(sigma, E, Jp, Jm, th, L, D)
     if sigma.device.type == "cpu":
@@ -114,23 +255,39 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
     from .cuda_build import check, library
+    import ctypes
 
     lib = library()
     B, N = sigma.shape
+    dev = sigma.device
     n_th = th.shape[0]
-    smem = lib.rrrmc_sweep_smem(N, n_th)
-    cap = lib.rrrmc_sweep_max_smem(sigma.device.index or 0)
-    if smem > cap:
-        raise NotImplementedError(
-            f"the sweep kernel keeps a chain's spins in shared memory: "
-            f"N={N} needs {smem} bytes, a block may have {cap}")
-    with torch.cuda.device(sigma.device):
+    if rows is None:
+        rows = site_rows(Jp, Jm, L, D)
+    check_args({"rows": (rows.data, (2, N // 2, row_len(D)), torch.int32)},
+               dev)
+
+    def info(T, smem, four):
+        out = (ctypes.c_int * 5)()
+        check(lib.rrrmc_sweep_info(T, D, int(n_th > 0), int(four), smem,
+                                   dev.index or 0, out), "sweep_info")
+        return list(out)
+
+    plan = sweep_plan(
+        N, B, n_th,
+        torch.cuda.get_device_properties(dev).multi_processor_count, info,
+        rows.swar)
+    if plan["swar"] != rows.swar:  # four chains a lane do not fit
+        rows = site_rows(Jp, Jm, L, D)
+    LAST_PLAN.clear()
+    LAST_PLAN.update(plan)
+    with torch.cuda.device(dev):
         err = lib.rrrmc_sweep(
-            sigma.data_ptr(), E.data_ptr(), Jp.data_ptr(), Jm.data_ptr(),
-            th.data_ptr(), L, D, B, n_th, int(Jp.shape[1] == D + 1),
-            n_sweeps, seed & 0xFFFFFFFF, sweep0 & 0xFFFFFFFF,
-            chain0 & 0xFFFFFFFF, beta2s,
-            torch.cuda.current_stream().cuda_stream)
+            sigma.data_ptr(), E.data_ptr(), rows.data.data_ptr(),
+            th.data_ptr(),
+            L, D, B, n_th, int(plan["swar"]), plan["chains"].bit_length() - 1,
+            plan["threads"], n_sweeps,
+            seed & 0xFFFFFFFF, sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
+            beta2s, torch.cuda.current_stream().cuda_stream)
     check(err, "sweep launch")
     LAUNCHES += 1
 
@@ -182,8 +339,9 @@ def sweep_chunk_reference(sigma, E, Jp, Jm, th, *, L: int, D: int,
 
 class Sweeper:
     """Reusable checkerboard runner for an even-L integer LatticeEA (fields
-    allowed): builds the direction tables and the threshold table once on
-    the model's device (the JAX package's PallasSweeper)."""
+    allowed): builds the direction tables, the threshold table and the
+    kernel's rows once on the model's device (the JAX package's
+    PallasSweeper)."""
 
     def __init__(self, model, beta: float):
         if not sweep_eligible(model):
@@ -203,6 +361,8 @@ class Sweeper:
             accept_thresholds(self.beta2s, mh if self.table else 0),
             device=dev)
         self.L, self.D = model.L, model.D
+        self.rows = site_rows(self.Jp, self.Jm, self.L, self.D,
+                              swar_ok(Jp, Jm, self.D))
 
     def __call__(self, sigma, E, *, seed: int, n_sweeps: int,
                  sweep0: int = 0, chain0: int = 0,
@@ -211,7 +371,7 @@ class Sweeper:
         place (sweeps numbered from sweep0 in the Philox stream)."""
         sweep_chunk(sigma, E, self.Jp, self.Jm, self.th, L=self.L, D=self.D,
                     n_sweeps=n_sweeps, beta2s=self.beta2s, seed=seed,
-                    sweep0=sweep0, chain0=chain0, bits=bits)
+                    sweep0=sweep0, chain0=chain0, bits=bits, rows=self.rows)
 
 
 def sweep_eligible(model) -> bool:

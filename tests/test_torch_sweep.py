@@ -14,7 +14,7 @@ import torch
 
 import rrrmc_tpu as rt
 import rrrmc_tpu_torch as pt
-from rrrmc_tpu_torch.ops import sweep
+from rrrmc_tpu_torch.ops import prng, sweep
 from rrrmc_tpu_torch.ops.sweep import Sweeper, sweep_chunk
 
 from torch_port_helpers import (CPU, host, pallas_interpret, port_lattice,
@@ -249,3 +249,228 @@ def test_sweepmc_matches_jax_xla():
 
     (a, sa), (b, sb) = tail(Ep.numpy()), tail(Ej)
     assert abs(a - b) < max(5 * np.hypot(sa, sb), 0.02), (a, b)
+
+
+# ---- the redesigned kernel's rows and launch plan (ops/sweep.py) ----
+
+
+def _coords_table(L, D):
+    """neighbour_table from coordinates: site of colour c in pair k, then
+    x + e_d and x - e_d (periodic) for d = 0..D-1, row-major sites."""
+    n = L ** D
+    out = np.empty((2, n // 2, 1 + 2 * D), dtype=np.int64)
+    for c in (0, 1):
+        for k in range(n // 2):
+            i = next(j for j in (2 * k, 2 * k + 1)
+                     if sum(np.unravel_index(j, (L,) * D)) % 2 == c)
+            x = np.array(np.unravel_index(i, (L,) * D))
+            row = [i]
+            for d in range(D):
+                for sh in (1, -1):
+                    y = x.copy()
+                    y[d] = (y[d] + sh) % L
+                    row.append(int(np.ravel_multi_index(tuple(y), (L,) * D)))
+            out[c, k] = row
+    return out
+
+
+@pytest.mark.parametrize("L,D", [(L, D) for D in (2, 3) for L in (4, 6, 16)]
+                         + [(4, 1), (16, 1), (4, 4), (6, 4)])
+def test_neighbour_table_is_periodic(L, D):
+    """The precomputed rows' sites and neighbours equal the periodic
+    indexing of the lattice (coordinates mod L), each site once."""
+    tab = sweep.neighbour_table(L, D)
+    np.testing.assert_array_equal(tab, _coords_table(L, D))
+    np.testing.assert_array_equal(np.sort(tab[:, :, 0].reshape(-1)),
+                                  np.arange(L ** D))
+
+
+def _fields_lattice(L, D, seed):
+    m = pt.GraphEA(L, D, (-1, 1), seed=seed, **CPU)
+    h = np.random.default_rng(seed).integers(-2, 3, m.N)
+    return dataclasses.replace(m, h=torch.as_tensor(h, dtype=m.h.dtype))
+
+
+def _row_fields(rows, D, s, swar):
+    """The kernel's field of each row's site for spins s [B, N] (+-1 int8),
+    as it computes it: h + sum J s, or from the packed sum of four chains'
+    bits, A - 2 * byte_c(K * 0x01010101 + sum J * word) (mod 2^32)."""
+    r = rows.long()    # rows [..., row_len(D)] of a SiteRows' data
+    site, nb = r[..., 0], r[..., 1:1 + 2 * D]
+    J, A, K4 = r[..., 1 + 2 * D:1 + 4 * D], r[..., 1 + 4 * D], r[..., 2 + 4 * D]
+    if not swar:
+        return (A[None] + (J[None] * s.long()[:, nb]).sum(-1)), site
+    B = s.shape[0]
+    b = torch.cat([(s < 0).long(), torch.zeros((-B % 4, s.shape[1]),
+                                               dtype=torch.long)])
+    word = sum(b[c::4] << (8 * c) for c in range(4))        # [B/4, N]
+    acc = ((K4 & 0xFFFFFFFF)[None] + (J[None] * word[:, nb]).sum(-1)) \
+        % 2 ** 32
+    lf = torch.stack([A[None] - 2 * ((acc >> (8 * c)) & 0xFF)
+                      for c in range(4)], dim=1).reshape(-1, *site.shape)
+    return lf[:B], site
+
+
+@pytest.mark.parametrize("L,D", [(4, 2), (6, 2), (6, 3), (16, 3), (8, 1),
+                                 (4, 4)])
+@pytest.mark.parametrize("swar", [False, True])
+def test_site_rows_give_local_fields(L, D, swar):
+    """site_rows (one chain a lane, and the packed sum of four chains a
+    lane) give every site's local field, integer fields included."""
+    m = _fields_lattice(L, D, 3)
+    Jp, Jm = sweep.dir_tables(m)
+    assert sweep.swar_ok(Jp, Jm, D)
+    rows = sweep.site_rows(torch.as_tensor(Jp), torch.as_tensor(Jm), L, D,
+                           swar)
+    assert rows.swar == swar
+    assert rows.data.shape == (2, m.N // 2, sweep.row_len(D))
+    s = torch.as_tensor(random_sigma(np.random.default_rng(L + D), 11, m.N))
+    lf, site = _row_fields(rows.data, D, s, swar)
+    want = m.local_fields(s)
+    for c in (0, 1):
+        assert torch.equal(lf[:, c], want[:, site[c]].long())
+
+
+def _emulate(rows, D, swar, sigma, E, th, n_sweeps, beta2s, seed):
+    """The kernel's loop in torch: per colour every row's site at once,
+    its field from the rows (`_row_fields`), its bits the word of its pair,
+    the acceptance of the table or exp path."""
+    s = sigma.clone()
+    dE = torch.zeros(s.shape[0], dtype=torch.int64)
+    n_th = th.shape[0]
+    beta = torch.tensor(beta2s, dtype=torch.float32)
+    for sw in range(n_sweeps):
+        for c in (0, 1):
+            lf, site = _row_fields(rows[c:c + 1], D, s, swar)
+            site = site[0]
+            half = s[:, site].long() * lf[:, 0]
+            if n_th:
+                thr = th[(half.clamp(1, n_th) - 1)].long()
+            else:
+                p = torch.exp(-beta * half.float())
+                thr = (p * 4294967296.0 - 2147483648.0).clamp(
+                    -2147483648.0, 2147483520.0).to(torch.int32).long()
+            bits = prng.sweep_bits(seed, 0, s.shape[0], s.shape[1], sw, c,
+                                   "cpu")[:, site].long()
+            acc = (half <= 0) | (bits < thr)
+            s[:, site] = torch.where(acc, -s[:, site], s[:, site])
+            dE += torch.where(acc, half, 0).sum(1)
+    return s, (E.long() + 2 * dE).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["table-3d", "field-2d", "exp-3d",
+                                  "table-4d", "field-1d", "exp-4d"])
+def test_kernel_loop_equals_plain(case):
+    """The kernel's arithmetic, emulated from its rows on both lane layouts
+    where the couplings allow four chains a lane, gives the plain version's
+    spins and energies bit for bit over 6 sweeps (5 chains: a ragged group
+    of four); D = 1 and 4 take the kernel's run-time-D instantiation."""
+    m = {"table-3d": lambda: pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU),
+         "field-2d": lambda: _fields_lattice(6, 2, 4),
+         "exp-3d": lambda: pt.GraphEA(4, 3, (-1.5, 0.5), seed=6, **CPU),
+         "table-4d": lambda: pt.GraphEA(4, 4, (-1, 1), seed=5, **CPU),
+         "field-1d": lambda: _fields_lattice(16, 1, 4),
+         "exp-4d": lambda: pt.GraphEA(4, 4, (-1.5, 0.5), seed=6, **CPU)}[
+             case]()
+    sw = Sweeper(m, 1.5)
+    exp = case.startswith("exp")
+    assert sw.table == (not exp) and sw.rows.swar == (not exp)
+    st = pt.init_state(m, 5, seed=2, **CPU)
+    s, E = st.sigma.clone(), st.E.clone()
+    sweep.sweep_chunk_reference(s, E, sw.Jp, sw.Jm, sw.th, L=sw.L, D=sw.D,
+                                n_sweeps=6, beta2s=sw.beta2s, seed=SEED)
+    for swar in ({False, sw.rows.swar}):
+        rows = sweep.site_rows(sw.Jp, sw.Jm, sw.L, sw.D, swar).data
+        es, eE = _emulate(rows, sw.D, swar, st.sigma, st.E, sw.th, 6,
+                          sw.beta2s, SEED)
+        assert torch.equal(es, s) and torch.equal(eE, E)
+    assert not torch.equal(s, st.sigma)
+
+
+def test_swar_bound():
+    """Four chains a lane only where every site's sum of |J| is at most
+    127: +-J lattices yes, the fixed-point couplings (scale 1e-5) no."""
+    for m, want in ((pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU), True),
+                    (pt.GraphEA(4, 3, (-1.5, 0.5), seed=6, **CPU), False)):
+        Jp, Jm = sweep.dir_tables(m)
+        assert sweep.swar_ok(Jp, Jm, m.D) == want
+    Jp = np.full((8, 2), 32, dtype=np.int32)
+    assert sweep.swar_ok(Jp, -np.full((8, 2), 31, dtype=np.int32), 2)
+    assert not sweep.swar_ok(Jp, np.full((8, 2), 32, dtype=np.int32), 2)
+
+
+#: the H100's shared memory a SM and a block may have (opt-in), its SMs
+SM_SMEM, BLOCK_SMEM, N_SM = 233472, 232448, 132
+
+
+def _sweep_info(T, smem, swar):
+    """sweep_plan's info(T, smem) of a card like the H100: blocks per SM
+    by threads and shared memory (4 KB static, 1 KB reserved a block)."""
+    dyn = BLOCK_SMEM - 4096
+    fits = smem <= dyn
+    return [min(2048 // T, SM_SMEM // (smem + 4096 + 1024)) if fits else 0,
+            64, 0, 4096, dyn]
+
+
+@pytest.mark.parametrize("N,B,swar,chains", [
+    (4096, 8192, True, 32),    # the bench: 256 blocks, 2 a SM at most
+    (4096, 8192, False, 32),
+    (4096, 1024, True, 8),     # 128 blocks: one a SM
+    (4096, 1003, True, 8),     # ragged: the last block has 3 chains
+    (4096, 5, True, 4),        # four chains a lane: at least 4 a block
+    (4096, 5, False, 1),
+    (1024, 2048, True, 16),    # EA-2D L=32
+    (25_000, 8192, True, 4),   # N * (C + 4) caps C
+    (50_000, 8192, True, 2)])  # no block of 4 fits: one chain a lane
+def test_sweep_plan(N, B, swar, chains):
+    p = sweep.sweep_plan(N, B, 6, N_SM, _sweep_info, swar)
+    assert p["chains"] == chains and p["threads"] == sweep.THREADS
+    assert p["blocks"] == -(-B // chains)
+    four = swar and N <= 28_000
+    assert p["smem"] == 6 * 4 + N * sweep.site_bytes(chains)
+    assert p["swar"] == four
+    assert p["lanes"] == ("4 chains" if four else "1 chain")
+
+
+def test_sweep_plan_refuses():
+    """Above a block's shared memory at one chain (the kernel's limit, as
+    before the redesign) the plan refuses."""
+    for swar in (False, True):
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            sweep.sweep_plan(BLOCK_SMEM - 4096, 64, 6, N_SM, _sweep_info,
+                             swar)
+        p = sweep.sweep_plan(200_000, 64, 6, N_SM, _sweep_info, swar)
+        assert p["chains"] == 1 and not p["swar"]
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_other_dimensions_take_the_kernel(D):
+    """Even-L integer lattices of every D take the checkerboard kernel, as
+    in the JAX package: D = 1 and 4 run its run-time-D instantiation."""
+    m = pt.GraphEA(8 if D == 1 else 4, D, (-1, 1), seed=2, **CPU)
+    assert isinstance(m, pt.LatticeEA) and sweep.sweep_eligible(m)
+    Es, st = pt.sweepMC(m, 1.0, 3, chains=4, seed=1, **CPU)
+    assert pt.LAST_ROUTE["backend"] == "kernel-sweep"
+    assert torch.equal(m.energy(st.sigma), st.E)
+
+
+@pytest.mark.parametrize("L,D", [(16, 1), (4, 4)])
+def test_other_dimensions_match_jax_interpret(sweep_pallas, L, D):
+    """On EA-1D and EA-4D the port's sweep equals the JAX Pallas kernel in
+    interpret mode bit for bit (spins and energies after 10 sweeps on
+    identical bits)."""
+    jm = rt.GraphEA(L, D, (-1, 1), seed=5)
+    sigma = random_sigma(np.random.default_rng(4), B, jm.N)
+    sig_j = jnp.asarray(sigma)
+    E0 = np.asarray(jax.vmap(jm.energy)(sig_j)).astype(np.int32)
+    jsw = sweep_pallas.PallasSweeper(jm, 1.5, block_chains=B)
+    sig_o, E_o = jsw(sig_j, jnp.asarray(E0), seed=SEED, n_sweeps=10)
+    pm = port_lattice(jm)
+    psw = Sweeper(pm, 1.5)
+    assert psw.D == D and psw.rows.swar
+    sig = torch.from_numpy(sigma.copy())
+    E = torch.from_numpy(E0.copy())
+    psw(sig, E, seed=SEED, n_sweeps=10, bits=sweep_bits(SEED, B, pm.N))
+    np.testing.assert_array_equal(sig.numpy(), np.asarray(sig_o))
+    np.testing.assert_array_equal(E.numpy(), np.asarray(E_o))
+    assert not torch.equal(sig, torch.from_numpy(sigma))

@@ -325,3 +325,30 @@ def blocked_commit_reference(lf, dlt, J, col0: int, length: int, *,
                         if ch < B and n0 + r < nrows:
                             out[ch, off + n0 + r] += D[r, 2 * t + (i & 1)]
     lf.copy_(out.to(lf.dtype))
+
+
+def group_lengths_reference(sites, neigh, N: int, cap: int = 32):
+    """Plain version of the site kernel's cut (ops/site.py::group_lengths,
+    same arguments and result, its groups at most 32 moves): prev[p], the
+    latest of the 31 moves before p whose closed neighbourhood meets p's,
+    then each glen from it."""
+    s = sites.cpu().numpy().astype(np.int64)
+    rows = neigh.cpu().numpy()
+    n = s.shape[0]
+    closed = np.concatenate([s[:, None], rows[s]], axis=1)   # [n, K + 1]
+    prev = np.full(n, -1, dtype=np.int64)
+    for off in range(1, min(32, n)):
+        a, b = closed[off:], closed[:-off]
+        meet = ((a[:, :, None] == b[:, None, :])
+                & (b != N)[:, None, :]).any(axis=(1, 2))
+        p = np.arange(off, n)
+        new = meet & (prev[off:] < 0)
+        prev[p[new]] = p[new] - off
+    m = np.arange(n)
+    glen = np.minimum(cap, n - m)
+    for ell in range(cap - 1, 0, -1):
+        inside = m + ell < n
+        hit = np.zeros(n, dtype=bool)
+        hit[inside] = prev[m[inside] + ell] >= m[inside]
+        glen = np.where(hit, np.minimum(glen, ell), glen)
+    return torch.as_tensor(glen.astype(np.int32))
