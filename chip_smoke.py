@@ -183,6 +183,20 @@ TPU kernels that the VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`,
 branch / `_eo_stream_kernel`) is one CUDA kernel here; the record lists
 each TPU kernel with the cases and main-path runs of the regime the TPU
 would have sent to it (J within VMEM: the N=1024 models; else streamed).
+The redesigned sparse and perceptron EO kernels print their launch plans
+(ops/eo.py::eo_plan, ops/eo_perc.py::eo_perc_plan) beside each case, and
+`eo_route_cases` holds every route of the sparse one (one warp a chain,
+blocks of 4, 8 and 32 warps, each at a shape for which the plan picks it),
+every key type (int8, int16, int32 and float32, the last two with the
+coarse select, float keys with -0.0 and crowded bins) and PSpin3 on each
+block size, EO_ROUTE_MOVES moves each, bit for bit; the
+perceptron EO kernel also with its pattern bits in global memory.
+`eo_instantiations` prints every EO instantiation's registers, spills
+(ptxas) and local bytes (the CUDA runtime) and fails on a spill or a
+local byte. Every EO case's two-launch check splits at a move0 off the
+kernels' batch of 32 rank draws, and its bound counts the tie race's
+member groups of that run (the plain version's ops/eo.py::TIE_GROUPS),
+with the earlier count, two Philox calls a move, printed beside it.
 
 The hypergraph phases of 2 are the PSpin3 race kernel (the sparse race
 kernel with the hypergraph flip) in bkl, wtm and rrr mode for one 1024-move
@@ -278,6 +292,9 @@ SWEEP_FUNCTIONS = ("sk_sweep_kernel", "replica_sweep_kernel",
 #: rows of bench_all_results.json (scripts/bench_all.py: bench_eo_sparse,
 #: bench_eo), whose chains and best E/N the file holds
 EO_TAU, EO_CMP_MOVES, EO_MOVES = 1.4, 300, 20_000
+#: moves of the EO comparisons beside the rows' cases (the redesigned
+#: kernels' other routes and key types)
+EO_ROUTE_MOVES = 100
 EO_ROW_MOVES = {"eo_rrg1e4_sparse": 200_000, "eo_ea3d": 400_000,
                 "eo_dense_sk": 100_000, "eo_pspin7500": 100_000}
 #: the spread of a best E/N over 128-1024 chains: the physics rows' tolerance
@@ -416,19 +433,27 @@ def _ops_race(N, moves, applied, mode, flip_sites):
     return moves * N * per_site + applied * 2 * flip_sites
 
 
-def _ops_eo(N, moves, flip_sites, bins):
-    """A tau-EO move over N sites: two Philox calls (the rank draw and at
-    least the winner's tie group), the key and the class compare per site
-    in the tie race (3), the select (a scan over the histogram's `bins`,
-    or for bins == 0 four radix passes of 4 per site) and the flip, which
-    updates `flip_sites` fields (a product and an add each, and two bin
-    moves each with a histogram)."""
-    select = bins if bins else 4 * 4 * N
-    flip = flip_sites * (4 if bins else 2)
-    return moves * (2 * PHILOX_OPS + 3 * N + select + flip)
+def _ops_eo(N, moves, flip_sites, bins, tie_groups=None):
+    """Tau-EO moves over N sites: a Philox call for each rank draw and one
+    for each group of four sites that holds a member of the selected class
+    where it holds more than one (`tie_groups`, summed over the chain-moves
+    as the plain version counts them, ops/eo.py::TIE_GROUPS; None: one a
+    move, the count before the law's groups were counted), the key and the
+    class compare per site in the tie race (3), the select (a scan over the
+    histogram's `bins`; for keys without exact bins, bins == 0, a pass over
+    the N keys for their coarse bins and a scan of COARSE_BINS, as the
+    sparse kernel's coarse select needs it) and the flip, which updates
+    `flip_sites` fields (a product and an add each, and two bin moves
+    each)."""
+    from rrrmc_tpu_torch.ops.eo import COARSE_BINS
+
+    select = bins if bins else N + COARSE_BINS
+    flip = flip_sites * 4
+    calls = moves + (moves if tie_groups is None else tie_groups)
+    return calls * PHILOX_OPS + moves * (3 * N + select + flip)
 
 
-def _ops_perc(N, P, moves, mode, xentr, bins=0):
+def _ops_perc(N, P, moves, mode, xentr, bins=0, tie_groups=None):
     """(ops, int8_ops) of perceptron moves, per chain and move: the g pass
     over the P patterns (4 operations each; xentr 22: three softplus of 6
     and 4 more), the full product xi^T g, 2 N P, and dE from it (2 per
@@ -436,14 +461,16 @@ def _ops_perc(N, P, moves, mode, xentr, bins=0):
     the P-entry stability update (2 each); then the race's pass over the N
     sites as `_ops_race` counts it, or for mode "eo" the EO select and tie
     race as `_ops_eo` counts them (`bins` of the histogram, refilled every
-    move: a pass over the N keys besides; 0 for the radix select). The TPU
+    move: a pass over the N keys besides; 0 for keys without exact bins,
+    whose coarse bins `_ops_eo` counts; the tie race's member groups
+    `tie_groups`). The TPU
     kernel ran the product on its MXU; for step and linear (xi = +-1, g in
     [-2, 2]) it goes in `int8_ops`, xentr's float32 product in `ops`."""
     evals = 2 if mode == "rrr" else 1
     product = moves * evals * 2 * N * P
     per = evals * ((22 if xentr else 4) * P + 2 * N) + 2 * P
     if mode == "eo":
-        ops = _ops_eo(N, moves, 0, bins) + moves * (
+        ops = _ops_eo(N, moves, 0, bins, tie_groups) + moves * (
             per + (N + bins if bins else 0))
     else:
         ops = _ops_race(N, moves, 0, mode, 0) + moves * per
@@ -1020,14 +1047,36 @@ def plan_line(plan) -> str:
                if "hmax_bytes" in plan else ""))
 
 
-def eo_case(model, label, B, card, kernel, ops=None):
-    """An EO kernel against its plain version: EO_CMP_MOVES tau-EO moves of
-    B chains from one random start, one Philox seed, the sampler's select
-    (the histogram for integer keys, the radix select for float ones).
-    Spins and best spins, itmin, E and Emin and the local fields are held
-    to `_compare`'s rule; the same moves split over two launches (move0)
-    must equal the one launch. `ops(moves, bins)` gives the bound's
-    operations as `bound`'s (ops, int8_ops) (`_ops_eo` by default)."""
+def plan_of_eo(plan) -> str:
+    """An EO launch plan, for the case line."""
+    if "route" in plan:
+        return (f"{plan['route']} route, {plan['warps']} warps a chain, "
+                f"{plan['chains']} chains a block, {plan['key']} keys, "
+                f"{plan['select']} select of {plan['bins']} bins, "
+                f"{plan['smem']} shared bytes, {plan['blocks_per_sm']} "
+                f"blocks/SM, {plan['registers']} registers, "
+                f"{plan['spill_bytes']} local bytes")
+    return (f"{plan['threads']} threads, patterns in {plan['patterns']} "
+            f"memory, {plan['select']} select of {plan['bins']} bins, "
+            f"{plan['smem']} shared bytes, {plan['blocks_per_sm']} "
+            f"blocks/SM, {plan['registers']} registers, "
+            f"{plan['spill_bytes']} local bytes")
+
+
+def eo_case(model, label, B, card, kernel, ops=None, warps=None,
+            n_moves=EO_CMP_MOVES):
+    """An EO kernel against its plain version: n_moves tau-EO moves of B
+    chains from one random start, one Philox seed, the sampler's select
+    (the histogram for integer keys, the radix select for float ones; the
+    sparse kernel's plan, which must give `warps` a chain where that is
+    given). Spins and best spins, itmin, E and Emin and
+    the local fields are held to `_compare`'s rule; the same moves split
+    over two launches (move0, off the kernels' batch of 32 rank draws) must
+    equal the one launch. `ops(moves, bins, tie_groups)` gives the bound's
+    operations as `bound`'s (ops, int8_ops) (`_ops_eo` by default); the
+    bound counts the tie race's member groups of this run (the plain
+    version's ops/eo.py::TIE_GROUPS), and `bound_two_calls_ms` the earlier
+    count of two Philox calls a move."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import eo
@@ -1036,6 +1085,9 @@ def eo_case(model, label, B, card, kernel, ops=None):
 
     fam = family_of(model)
     chunk, ref, tables = fam.eo, _reference(fam.eo), fam.tables(model)
+    # the redesigned kernels record their plans
+    plans = {"eo_perc": sys.modules[chunk.__module__], "eo_sparse": eo,
+             "eo_lattice": eo, "eo_pspin": eo}.get(kernel)
     kw = fam.eo_kw(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     integer = not st.E.dtype.is_floating_point
@@ -1047,47 +1099,174 @@ def eo_case(model, label, B, card, kernel, ops=None):
                 st.sigma.clone(), torch.zeros(B, dtype=torch.int32,
                                               device=DEV)]
 
-    def run(fn, a):
-        fn(*a, *tables, cdf, n_moves=EO_CMP_MOVES, seed=SEED, **kw)
-
-    def outs(a):
-        return {"sigma": torch.cat([a[0], a[4]], dim=1), "acc": a[5],
-                "E": torch.stack([a[2], a[3]], dim=1), "lf": a[1]}
+    def run(fn, a, n=n_moves, move0=0):
+        fn(*a, *tables, cdf, n_moves=n, seed=SEED, move0=move0, **kw)
 
     run(chunk, fresh())                                   # warm-up
     k = fresh()
     ms = _events_ms(lambda: run(chunk, k))
-    p = fresh()
-    plain_ms = _events_ms(lambda: run(ref, p))
-    bad, err, errs = _compare(f"{kernel} {label}", integer, outs(k),
-                              outs(p), B, model.N)
+    plan = dict(plans.LAST_PLAN) if plans else None
+    if warps is not None:
+        require(plan["warps"] == warps, f"{kernel} {label}: the plan gives "
+                f"{plan['warps']} warps a chain, not {warps}")
     # the same moves in two launches, the second from move0
     s = fresh()
-    third = EO_CMP_MOVES // 3
-    chunk(*s, *tables, cdf, n_moves=third, seed=SEED, **kw)
-    chunk(*s, *tables, cdf, n_moves=EO_CMP_MOVES - third, seed=SEED,
-          move0=third, **kw)
-    require(all(torch.equal(a, b) for a, b in zip(s, k)),
+    third = n_moves // 3
+    run(chunk, s, third)
+    run(chunk, s, n_moves - third, third)
+    p = fresh()
+    plain_ms = _events_ms(lambda: run(ref, p))
+    groups = eo.TIE_GROUPS["groups"]
+    bad, err, errs = _compare(f"{kernel} {label}", integer, outs_eo(k),
+                              outs_eo(p), B, model.N)
+    require(third % 32 and all(torch.equal(a, b) for a, b in zip(s, k)),
             f"{kernel} {label}: two launches differ from one")
     e_err = max(float((model.energy(k[i]).double() - k[j].double()).abs()
                       .max()) for i, j in ((0, 2), (4, 3)))
     require(e_err <= (1e-4 * model.N if not integer else 0.0),
             f"{kernel} {label}: E or Emin != energy, by {e_err}")
     bins = eo.hist_bins(integer, fam.key_max(model))
-    bound_ms, bound_by = bound(
-        2 * _nbytes(*fresh()) + _nbytes(*tables, cdf),
-        *(ops(B * EO_CMP_MOVES, bins) if ops else
-          (_ops_eo(model.N, B * EO_CMP_MOVES, fam.flip_sites(model),
-                   bins),)))
-    print(f"{kernel} {label} B={B} moves={EO_CMP_MOVES} select="
+    moves = B * n_moves
+    nbytes = 2 * _nbytes(*fresh()) + _nbytes(*tables, cdf)
+
+    def ops_of(g):
+        return (ops(moves, bins, g) if ops else
+                (_ops_eo(model.N, moves, fam.flip_sites(model), bins, g),))
+
+    bound_ms, bound_by = bound(nbytes, *ops_of(groups))
+    two_calls_ms, _ = bound(nbytes, *ops_of(None))
+    print(f"{kernel} {label} B={B} moves={n_moves} select="
           f"{f'histogram of {bins} bins' if bins else 'radix'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
-          f"({bound_by}), diverged chains {bad}, max abs err {err:.3g} "
-          f"[{card}]")
-    return {"kernel": kernel, "case": label, "B": B, "moves": EO_CMP_MOVES,
+          f"({bound_by}; {groups / moves:.1f} tie groups a move; two "
+          f"Philox calls a move: {two_calls_ms:.3g} ms), diverged chains "
+          f"{bad}, max abs err {err:.3g}"
+          f"{f' [{plan_of_eo(plan)}]' if plan else ''} [{card}]")
+    return {"kernel": kernel, "case": label, "B": B, "moves": n_moves,
             "bins": bins, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "diverged": bad,
-            "max_abs_err": err, "errs": errs}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_two_calls_ms": two_calls_ms,
+            "tie_groups_a_move": groups / moves, "diverged": bad,
+            "max_abs_err": err, "errs": errs, "eo_plan": plan}
+
+
+def outs_eo(a):
+    """An EO case's outputs as `_compare` reads them."""
+    import torch
+
+    return {"sigma": torch.cat([a[0], a[4]], dim=1), "acc": a[5],
+            "E": torch.stack([a[2], a[3]], dim=1), "lf": a[1]}
+
+
+def eo_route_cases(card, rrg, rrgn, ps):
+    """The redesigned sparse EO kernel on the plan routes and key types the
+    main paths' cases above do not reach, each held bit for bit to its plain
+    version (`eo_case`, which prints the plan), each at a shape for which
+    the plan (ops/eo.py::eo_plan) picks the warps a chain that the case
+    names, and fails where it picks others: EA-3D L=2, whose rows list each
+    neighbour twice (the flip's repeated-site path; one warp a chain);
+    GraphRRG(10^4) +-J with 128 chains (32 warps) and 256 (8);
+    GraphRRGNormal(10^4) with 128 chains (32) and GraphRRGNormal(600) with
+    256 (one warp, the coarse select); PSpin3 on 8 warps (256 chains), 4
+    (528) and, GraphPSpin3(600, 3), one; int16 keys (+-70 couplings, 421
+    bins), int32 keys with the coarse select (+-1000 couplings, bound 3000)
+    and float keys on {-1, 0, 1} couplings (halves -0.0 and +0.0, and
+    crowded coarse bins: the radix select over the selected bin) on 8 warps
+    (256 chains), the last also on one warp (600 sites)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    def zero(m):
+        return dataclasses.replace(m, J=torch.where(
+            m.J > 0.5, 1.0, torch.where(m.J < -0.5, -1.0, 0.0)))
+
+    rrgn600 = rt.GraphRRGNormal(600, 3, seed=7, device=DEV)
+    wide = dataclasses.replace(rrg, J=rrg.J * 70)
+    huge = dataclasses.replace(rrg, J=rrg.J * 1000)
+    crowded = "J in {-1, 0, 1} float (crowded bins)"
+    out = []
+    for model, label, B, kernel, warps in (
+            (rt.GraphEA(2, 3, (-1, 1), seed=42, device=DEV),
+             "GraphEA(2, 3) (each row lists its sites twice)", 64,
+             "eo_lattice", 1),
+            (rrg, "GraphRRG(10^4) 128 chains", HYPER_CHAINS, "eo_sparse", 32),
+            (rrg, "GraphRRG(10^4) 256 chains", 256, "eo_sparse", 8),
+            (rrgn, "GraphRRGNormal(10^4) 128 chains", HYPER_CHAINS,
+             "eo_sparse", 32),
+            (rrgn600, "GraphRRGNormal(600)", 256, "eo_sparse", 1),
+            (ps, "GraphPSpin3(7500, 3) 256 chains", 256, "eo_pspin", 8),
+            (ps, "GraphPSpin3(7500, 3) 528 chains", 528, "eo_pspin", 4),
+            (rt.GraphPSpin3(600, 3, seed=7, device=DEV),
+             "GraphPSpin3(600, 3)", 256, "eo_pspin", 1),
+            (wide, "GraphRRG(10^4) J*70 (int16 keys)", 256, "eo_sparse", 8),
+            (huge, "GraphRRG(10^4) J*1000 (int32 keys, coarse)", 256,
+             "eo_sparse", 8),
+            (zero(rrgn), f"GraphRRG(10^4) {crowded}", 256, "eo_sparse", 8),
+            (zero(rrgn600), f"GraphRRG(600) {crowded}", 256, "eo_sparse",
+             1)):
+        out.append(eo_case(model, label, B, card, kernel, warps=warps,
+                           n_moves=EO_ROUTE_MOVES))
+    return out
+
+
+def eo_instantiations(log: str, card: str) -> None:
+    """Every instantiation of the redesigned EO kernels (eo_sparse.cu: warps
+    a chain, key type, hypergraph flip; eo_perc.cu: family, select, pattern
+    memory): its registers and
+    spill bytes (ptxas, when this run built the library) and its local
+    bytes a thread (the CUDA runtime). Fails on a spill or a local byte."""
+    import ctypes
+    import re
+
+    from rrrmc_tpu_torch.ops import cuda_build, eo
+
+    names = ("eo_sparse_kernel", "eo_perc_kernel")
+    ptx, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if any(f"{len(n)}{n}" in m.group(1)
+                                   for n in names) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["spill"] = max(int(m.group(1)),
+                                                  int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            ptx.setdefault(fn, {})["registers"] = int(m.group(1))
+    readable = _demangle(ptx)
+    for fn in sorted(ptx, key=readable.get):
+        rec = ptx[fn]
+        print(f"EO instantiation {readable[fn]}: registers "
+              f"{rec.get('registers')}, spill bytes {rec.get('spill')} "
+              f"(ptxas)  [{card}]")
+        require(rec.get("spill", 0) == 0, f"{readable[fn]} spills")
+    require(not log or len(ptx) == 24 + 10,
+            f"{len(ptx)} EO instantiations in the ptxas report, expected 24 "
+            f"sparse and 10 perceptron ones")
+    lib = cuda_build.library()
+    out = (ctypes.c_int * 5)()
+    local = {}
+    for w in eo.EO_WARPS:
+        for key, code in eo.KEY_CODES.items():
+            for pspin in ((0, 1) if code < 2 else (0,)):
+                cuda_build.check(lib.rrrmc_eo_sparse_info(
+                    w, code, pspin, 0, 0, out), "eo_sparse_info")
+                local[f"eo_sparse {w} warps {str(key)[6:]}"
+                      f"{' pspin' if pspin else ''}"] = out[1], out[2]
+    for fam in (0, 1, 2):
+        for hist in ((1, 0) if fam < 2 else (0,)):
+            for sx in (1, 0):
+                cuda_build.check(lib.rrrmc_eo_perc_info(
+                    256, fam, hist, sx, 0, 0, out), "eo_perc_info")
+                local[f"eo_perc fam {fam} {'hist' if hist else 'radix'} "
+                      f"{'shared' if sx else 'global'}"] = out[1], out[2]
+    print(f"EO instantiations' (registers, local bytes a thread): "
+          f"{json.dumps(local)}  [{card}]")
+    require(not any(v[1] for v in local.values()),
+            f"EO kernels use local memory: {local}")
 
 
 def registers(log: str) -> dict:
@@ -2554,10 +2733,12 @@ def main() -> int:
 
     rrgn7 = rt.GraphRRGNormal(N_MAIN, 3, seed=7, device=DEV)
     ea8 = rt.GraphEA(8, 3, (-1, 1), seed=42, device=DEV)
-    cases.append(eo_case(rrg7, "GraphRRG(10^4)", CHAINS, card, "eo_sparse"))
+    cases.append(eo_case(rrg7, "GraphRRG(10^4)", CHAINS, card, "eo_sparse",
+                         warps=4))
     cases.append(eo_case(rrgn7, "GraphRRGNormal(10^4)", CHAINS, card,
-                         "eo_sparse"))
-    cases.append(eo_case(ea8, "GraphEA(8, 3)", CHAINS, card, "eo_lattice"))
+                         "eo_sparse", warps=4))
+    cases.append(eo_case(ea8, "GraphEA(8, 3)", CHAINS, card, "eo_lattice",
+                         warps=1))
     cases.append(eo_case(sk1, "GraphSK(1024)", CHAINS, card, "eo_dense"))
     cases.append(eo_case(drrg, "densify(GraphRRG(10^4))", CHAINS, card,
                          "eo_stream"))
@@ -2580,7 +2761,9 @@ def main() -> int:
                                       kernel=f"rejfree_{kind}",
                                       B=HYPER_CHAINS, beta=beta,
                                       n_moves=moves(mode)))
-        cases.append(eo_case(model, label, HYPER_CHAINS, card, f"eo_{kind}"))
+        cases.append(eo_case(model, label, HYPER_CHAINS, card, f"eo_{kind}",
+                             warps=32 if model is ps else None))
+    cases += eo_route_cases(card, rrg7, rrgn7, ps)
 
     # the replica composites, built with no device given: the card is the
     # default
@@ -2668,8 +2851,15 @@ def main() -> int:
                     PERC_N, PERC_P, moves, mode, xentr)))
         cases.append(eo_case(
             model, label, PERC_CHAINS, card, "eo_perc",
-            ops=lambda moves, bins, xentr=xentr: _ops_perc(
-                PERC_N, PERC_P, moves, "eo", xentr, bins)))
+            ops=lambda moves, bins, groups, xentr=xentr: _ops_perc(
+                PERC_N, PERC_P, moves, "eo", xentr, bins, groups)))
+    # the perceptron EO kernel with its pattern bits in global memory
+    wide = rt.GraphPercStep(PERC_N, 4 * PERC_P + 3, seed=PERC_SEED)
+    cases.append(eo_case(
+        wide, f"GraphPercStep({PERC_N}, {wide.P})", 64, card, "eo_perc",
+        ops=lambda moves, bins, groups: _ops_perc(
+            PERC_N, wide.P, moves, "eo", False, bins, groups),
+        n_moves=EO_ROUTE_MOVES))
     cases += hyper_fused_cases(card)
 
     rrg_records, rrg_counts = rrg_path(card)
@@ -2700,6 +2890,7 @@ def main() -> int:
     regs = registers(build_log)
     sweep_instantiations(build_log, card)
     site_sweep_instantiations(build_log, card)
+    eo_instantiations(build_log, card)
     spills = spill_bytes(build_log)
     local = fused_local_bytes()
     for fn, n in local.items():
@@ -2755,6 +2946,25 @@ def main() -> int:
                         f"{source}: patterns in {m} memory not held at "
                         f"every block size")
 
+    # every route, key type and pattern memory of the redesigned EO
+    # kernels was held to its plain version
+    eo_seen = {(c["eo_plan"].get("warps"), c["eo_plan"].get("key"),
+                c["eo_plan"].get("patterns"), c["kernel"])
+               for c in cases if c.get("eo_plan")}
+    from rrrmc_tpu_torch.ops import eo as eo_ops
+    for what, want, have in (
+            ("eo_sparse.cu warps a chain", set(eo_ops.EO_WARPS),
+             {w for w, _, _, k in eo_seen if k != "eo_perc"}),
+            ("eo_sparse.cu key types", {"int8", "int16", "int32", "float32"},
+             {t for _, t, _, k in eo_seen if k != "eo_perc"}),
+            ("eo_sparse.cu PSpin3 warps", set(eo_ops.EO_WARPS),
+             {w for w, _, _, k in eo_seen if k == "eo_pspin"}),
+            ("eo_perc.cu pattern memories", {"shared", "global"},
+             {m for _, _, m, k in eo_seen if k == "eo_perc"})):
+        print(f"{what} held to the plain version: {sorted(have)}  [{card}]")
+        require(want <= have, f"{what}: {sorted(have)} held, not all of "
+                              f"{sorted(want)}")
+
     kernels = []
     for name, (replaces, source, function) in ENTRIES.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -2768,6 +2978,10 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "registers": regs.get(function),
             **({"plan": head["plan"]} if head.get("plan") else {}),
+            **({"eo_plan": head["eo_plan"],
+                "bound_two_calls_ms": head["bound_two_calls_ms"],
+                "tie_groups_a_move": head["tie_groups_a_move"]}
+               if "bound_two_calls_ms" in head else {}),
             **({"site_plan": head["site_plan"]} if "site_plan" in head
                else {}),
             **({"sweep_plan": head["sweep_plan"],

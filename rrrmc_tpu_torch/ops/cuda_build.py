@@ -54,14 +54,13 @@ _SIGNATURES = {
                                              _P]),
     "rrrmc_rejfree_dense_smem": (_Z, [_I, _I, _I, _I]),
     "rrrmc_rejfree_dense_info": (_I, [_I, _I, _I, _Z, _I, _P]),
-    "rrrmc_eo_sparse": (_I, [_P] * 9 + [_I, _I, _I, _I, _U, _U, _U, _I, _I,
-                                         _P]),
-    "rrrmc_eo_sparse_smem": (_Z, [_I, _I]),
-    "rrrmc_eo_sparse_max_smem": (_I, [_I]),
+    "rrrmc_eo_sparse": (_I, [_P] * 9 + [_I] * 4 + [_U] * 3 + [_I] * 3
+                        + [_F, _F, _I, _P]),
+    "rrrmc_eo_sparse_smem": (_Z, [_I, _I, _I, _I]),
+    "rrrmc_eo_sparse_info": (_I, [_I, _I, _I, _Z, _I, _P]),
     "rrrmc_eo_dense": (_I, [_P] * 8 + [_I, _I, _I, _U, _U, _U, _I, _I, _P]),
     "rrrmc_eo_dense_smem": (_Z, [_I, _I]),
     "rrrmc_eo_dense_max_smem": (_I, [_I]),
-    "rrrmc_eo_pspin": (_I, [_P] * 8 + [_I, _I, _I, _I, _U, _U, _U, _I, _P]),
     "rrrmc_rejfree_sat": (_I, [_P] * 12 + [_I] * 6 + [_U, _U, _U, _F, _I,
                                                      _F, _I, _I, _P]),
     "rrrmc_rejfree_sat_smem": (_Z, [_I, _I, _I]),
@@ -84,10 +83,10 @@ _SIGNATURES = {
                                                       _I, _P]),
     "rrrmc_rejfree_perc_smem": (_Z, [_I, _I, _I, _I, _I]),
     "rrrmc_rejfree_perc_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
-    "rrrmc_eo_perc": (_I, [_P] * 9 + [_I] * 5 + [_U, _U, _U, _I, _I, _F,
-                                                  _P]),
-    "rrrmc_eo_perc_smem": (_Z, [_I, _I, _I]),
-    "rrrmc_eo_perc_max_smem": (_I, [_I]),
+    "rrrmc_eo_perc": (_I, [_P] * 8 + [_I] * 4 + [_U, _U, _U, _I, _I, _F,
+                                                  _I, _P]),
+    "rrrmc_eo_perc_smem": (_Z, [_I, _I, _I, _I, _I]),
+    "rrrmc_eo_perc_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
 }
 
 _lib = None

@@ -1,21 +1,28 @@
 """tau-extremal optimisation (EO) moves on sparse Pairwise models, EA
-lattices included: the CUDA kernel (csrc/eo_sparse.cu), its plain torch
-version, and the move loop and the order-statistic select shared with the
-dense EO kernel's plain version (ops/eo_dense.py).
+lattices included: the CUDA kernel (csrc/eo_sparse.cu), its launch plan,
+its plain torch version, and the move loop and the order-statistic select
+shared with the dense EO kernel's plain version (ops/eo_dense.py).
 
 Source note. The kernel replaces rrrmc_tpu/ops/eo_pallas.py::
 _eo_sparse_kernel (launched by `_pallas_eo_sparse_run`) and the lattice
 branch of that file's `_eo_kernel` (`_pallas_eo_run` with dense=False): to
 EO a LatticeEA is a sparse Pairwise with K = 2D and its padded tables, as the
-lattice race was folded into the sparse race (ops/rejfree.py). Each chain's
-spins, local fields and best spins stay resident in shared memory for the
-whole launch (6 bytes a site, 60 KB at N = 10^4). The TPU found the order
-statistic by up to 32 counting passes over the chain block, since Mosaic
-has no gather; here integer keys of a range of at most HIST_MAX values are
-counted in a shared histogram that each flip updates in O(K), so the select
-is one block scan, and other keys take a four-pass radix select. It is
-bound by the tie race's pass over the resident sites and the block barriers
-of a move (csrc/eo.cuh).
+lattice race was folded into the sparse race (ops/rejfree.py). The TPU found
+the order statistic by up to 32 counting passes over the chain block, since
+Mosaic has no gather. Here each chain keeps its keys half_i = sigma_i lf_i
+(in the narrowest type the bound on |half| allows: `key_type`), its spins
+and best spins (as bits) and a histogram of its keys resident in shared
+memory for the whole launch. A flip moves the K + 1 changed keys between
+bins, so the select is a scan of the histogram: exact bins for integer keys
+of a range of at most HIST_MAX values, coarse monotone bins for the others
+(then the sites of the selected bin are collected and the key selected
+exactly among them). The rank draws are made 32 moves ahead. `eo_plan`
+sizes the group of threads that runs a chain: one warp, four chains a
+block, for small chains (no block barrier in a move), or a block of 4, 8 or
+32 warps where a chain has many sites and few chains share an SM. What bounds
+it on the H100 is the tie race's Philox calls, one for each group of four
+sites that holds a member of the selected class, and the pass over the
+keys (csrc/eo_sparse.cu).
 
 The move (the TPU kernels' law, the same on every route of the port):
 half_i = sigma_i lf_i and dE_i = 2 half_i; the rank is #{i : cdf_i < u}
@@ -30,12 +37,13 @@ E < Emin (strict) records Emin, sigma_min and itmin = move0 + m + 1.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 
-from . import check_args, prng
-from .rejfree import pair_de
+from . import check_args, prng, require_smem
+from .rejfree import info_fn, pair_de
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
@@ -44,6 +52,33 @@ LAUNCHES = 0
 #: the most bins of the kernels' integer histogram select (kEoHistMax)
 HIST_MAX = 4096
 _I32_MAX = 2 ** 31 - 1
+#: the warps a chain the sparse EO kernel is built for (csrc/eo_sparse.cu):
+#: one warp, WARP_CHAINS chains a block, or one chain a block of 4, 8 or 32
+EO_WARPS = (1, 4, 8, 32)
+#: chains a block of the one-warp route (kWarpChains)
+WARP_CHAINS = 4
+#: the sparse EO kernel's key types, by its codes: int8 / int16 keys with
+#: exact histogram bins, int32 / float32 keys with coarse bins
+KEY_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
+             torch.float32: 3}
+#: the coarse bins of int32 and float32 keys (32 super-bins of 32)
+COARSE_BINS = 1024
+#: entries of a warp's queue of member groups (kTieQueue)
+TIE_QUEUE = 192
+#: the warps an SM the plan aims at, and the fewest sites a lane of a
+#: chain
+WARPS_PER_SM = 16
+MIN_SITES_PER_LANE = 6
+#: the last sparse EO launch's plan: route, warps a chain, chains a block,
+#: threads a block, key type, select and bins, dynamic shared bytes, blocks
+#: per SM, registers and local bytes a thread (spills)
+LAST_PLAN: dict = {}
+#: the last run of `eo_chunk_reference`: its chain-moves and the groups of
+#: four sites (i // 4) that held a member of the selected class where it
+#: had more than one (a class of one site wins without a draw), summed over
+#: them: the tie race's Philox calls beside the rank draw, the work the law
+#: needs (chip_smoke.py's bound counts them)
+TIE_GROUPS = {"chain_moves": 0, "groups": 0}
 
 BitsFn = Callable[[int, int], torch.Tensor]
 
@@ -67,6 +102,156 @@ def key_bins(key_max: int, what: str) -> int:
             f"the {what} EO kernel counts its keys |key| <= {key_max} in "
             f"{bins} histogram bins, more than {HIST_MAX}")
     return bins
+
+
+def key_type(integer: bool, half_max: Optional[int]) -> torch.dtype:
+    """The resident type of the sparse EO kernel's keys half = sigma lf:
+    float32 for float couplings; int8 or int16 for integer keys bounded by
+    half_max (|half| <= 127, or with at most HIST_MAX histogram bins);
+    else int32 (no bound, or a wider one)."""
+    if not integer:
+        return torch.float32
+    if hist_bins(True, half_max) == 0:
+        return torch.int32
+    return torch.int8 if half_max <= 127 else torch.int16
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def chain_bytes(N: int, key: torch.dtype, nb: int, warps: int) -> int:
+    """Shared bytes of one chain of the sparse EO kernel (eo_sparse.cu
+    eo_layout): the keys (N rounded up to 4), the spins and best spins as
+    bits, the nb bins and their super-bins (more than 32 bins), a queue of
+    TIE_QUEUE member groups and a (score, index) slot a warp, and for the
+    coarse select the listed sites of two moves and 256 radix counters;
+    each part 16-byte aligned."""
+    coarse = key in (torch.int32, torch.float32)
+    words = -(-N // 32)
+    nsup = -(-nb // 32) if nb > 32 else 0
+    return (_align16(-(-N // 4) * 4 * key.itemsize) + 2 * _align16(4 * words)
+            + _align16(4 * nb) + _align16(4 * nsup) + 4 * TIE_QUEUE * warps
+            + _align16(8 * warps)
+            + (_align16(2 * 32 * 8 + 2 * 4) + 256 * 4 if coarse else 0))
+
+
+def eo_plan(N: int, B: int, key: torch.dtype, nb: int, n_sm: int,
+            info: Callable) -> dict:
+    """The sparse EO kernel's launch plan for B chains of N sites with keys
+    of type `key` in nb bins. info(W, need) gives the instantiation of W
+    warps a chain: [blocks per SM, registers, local bytes, static shared
+    bytes, most dynamic shared bytes] at `need` dynamic bytes. Of the W of
+    EO_WARPS whose block fits (none: NotImplementedError), those with at
+    least MIN_SITES_PER_LANE sites a lane (none: the smallest that fits)
+    and at most two waves of chains on the n_sm SMs (or the fewest): the
+    smallest W at which the chains an SM holds at once give WARPS_PER_SM
+    warps, else the largest. Measured on the H100 (PERF.md section 6, the
+    sparse EO kernel's warps a chain): a chain's move is a chain of
+    dependent steps, so more warps a chain pay only while the SM is short
+    of warps; GraphRRG(10^4) at 1024 chains ran fastest on 4 warps (20 an
+    SM), at 128 chains on 32, the EA-3D L=8 lattice (512 sites) on one."""
+    def chains(w):
+        return WARP_CHAINS if w == 1 else 1
+
+    need = {w: chains(w) * chain_bytes(N, key, nb, w) for w in EO_WARPS}
+    facts = {w: info(w, need[w]) for w in EO_WARPS}
+    fits = [w for w in EO_WARPS if need[w] <= facts[w][4] and facts[w][0] > 0]
+    if not fits:
+        w = min(EO_WARPS, key=lambda w: need[w])
+        require_smem(need[w], max(f[4] for f in facts.values()), N,
+                     "sparse EO")
+        raise NotImplementedError(f"sparse EO: no block fits ({facts})")
+    per_sm = -(-B // n_sm)
+
+    def waves(w):
+        return -(-B // (n_sm * facts[w][0] * chains(w)))
+
+    def warps_per_sm(w):
+        return min(per_sm, facts[w][0] * chains(w)) * w
+
+    cands = [w for w in fits if N >= MIN_SITES_PER_LANE * 32 * w] \
+        or [min(fits)]
+    most = max(2, min(waves(w) for w in cands))
+    cands = [w for w in cands if waves(w) <= most]
+    full = [w for w in cands if warps_per_sm(w) >= WARPS_PER_SM]
+    w = min(full) if full else max(cands)
+    f = facts[w]
+    coarse = key in (torch.int32, torch.float32)
+    return {"route": "warp" if w == 1 else "block", "warps": w,
+            "chains": chains(w), "threads": 32 * w * chains(w),
+            "key": str(key).replace("torch.", ""),
+            "select": "coarse" if coarse else "histogram", "bins": nb,
+            "smem": need[w], "blocks_per_sm": f[0], "registers": f[1],
+            "spill_bytes": f[2], "waves": waves(w)}
+
+
+def coarse_map(key: torch.dtype, nb: int, half_max: Optional[int], J, lf):
+    """(lo, scale) of the coarse bins, floor((x - lo) * scale) clamped to
+    [0, nb), x = float(half): nb equal bins over [-H, H], H = half_max for
+    int32 keys, else the largest row sum of |J| or |lf| of the start. Any
+    (lo, scale) gives the same moves (the bins are monotone in the key and
+    keys outside the range fall into the end bins); a range that fits the
+    keys keeps the bins sparse, so the select lists their sites."""
+    if key == torch.int32 and half_max is not None:
+        H = float(half_max) + 0.5
+    else:
+        H = max(float(J.abs().double().sum(1).max()) if J.numel() else 0.0,
+                float(lf.abs().max()) if lf.numel() else 0.0)
+    H = max(H, 1.0)
+    return -H, nb / (2.0 * H)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_facts(entry: str, head: tuple, device: int, threads: int,
+                 need: int) -> tuple:
+    """An instantiation's [blocks per SM, registers, local bytes, static
+    shared bytes, most dynamic shared bytes] at `need` dynamic bytes from
+    the library's C entry `entry` (info_fn's), kept once asked: they hold
+    for the process's library and device."""
+    from .cuda_build import library
+
+    return tuple(info_fn(getattr(library(), entry), *head,
+                         device=device)(threads, need))
+
+
+def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
+                  *, n_moves: int, seed: int, move0: int, chain0: int,
+                  key: torch.dtype, nb: int, pspin: bool,
+                  half_max: Optional[int] = None):
+    """Plan and launch the sparse EO kernel (eo_sparse.cu) on CUDA tensors:
+    neigh [N, K] int32 (PSpin3: the partner table read as [N, 2K']) and J
+    (None for PSpin3); keys of type `key` in nb bins. Records the plan in
+    LAST_PLAN."""
+    from .cuda_build import check, library
+
+    lib = library()
+    B, N = sigma.shape
+    dev = sigma.device
+    code = KEY_CODES[key]
+    K = neigh.shape[1] if neigh.dim() == 2 else 2 * neigh.shape[1]
+    plan = eo_plan(N, B, key, nb,
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   lambda w, need: list(launch_facts(
+                       "rrrmc_eo_sparse_info", (code, int(pspin)),
+                       dev.index or 0, w, need)))
+    W = plan["warps"]
+    smem = lib.rrrmc_eo_sparse_smem(N, code, nb, W)
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{what}: the kernel's shared bytes {smem} differ "
+                           f"from the plan's {plan['smem']}")
+    lo, scale = (coarse_map(key, nb, half_max, J, lf)
+                 if plan["select"] == "coarse" else (0.0, 0.0))
+    LAST_PLAN.clear()
+    LAST_PLAN.update(kernel=what, **plan)
+    with torch.cuda.device(dev):
+        err = lib.rrrmc_eo_sparse(
+            *launch_args(sigma, lf, E, emin, smin, itmin), neigh.data_ptr(),
+            J.data_ptr() if J is not None else None, cdf.data_ptr(), N, K,
+            B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
+            chain0 & 0xFFFFFFFF, code, int(pspin), nb, lo, scale, W,
+            torch.cuda.current_stream().cuda_stream)
+    check(err, f"{what} launch")
 
 
 def sort_key(half: torch.Tensor) -> torch.Tensor:
@@ -135,14 +320,14 @@ def eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *,
     int32 are updated; neigh/J are the model's [N, K] tables (padding == N,
     J's dtype that of lf), cdf [N] float32 the rank table. For integer J,
     half_max bounds |sigma_i lf_i| over every configuration (the largest row
-    sum of |J| plus |h|): the kernel then counts keys in a histogram when
-    2*half_max + 1 <= HIST_MAX, else (and for float J) it takes the radix
-    select.
+    sum of |J| plus |h|): the kernel keeps its keys in the type `key_type`
+    gives and selects by 2*half_max + 1 exact bins when that is at most
+    HIST_MAX, else (and for float J) by COARSE_BINS coarse bins.
 
     Random words are Philox under key (seed, chain0 + b), counter
     (word, move0 + m, draw, 0) (ops/prng.py: DRAW_EO_RANK, DRAW_EO_TIE). On
-    a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (move, draw) -> int32 ([B] for the rank, [B, N]
+    a CUDA tensor this launches the kernel with the plan of `eo_plan`
+    (LAST_PLAN); on a CPU tensor it runs the plain version. `bits` (move, draw) -> int32 ([B] for the rank, [B, N]
     for the tie race) replaces the generator and is taken by the plain
     version only."""
     global LAUNCHES
@@ -160,26 +345,12 @@ def eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *,
         raise ValueError(f"no EO kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
-
-    lib = library()
-    dev = sigma.device
-    nbins = hist_bins(is_integer(J), half_max)
-    smem = lib.rrrmc_eo_sparse_smem(N, nbins)
-    cap = lib.rrrmc_eo_sparse_max_smem(dev.index or 0)
-    if smem > cap:
-        raise NotImplementedError(
-            f"the sparse EO kernel keeps a chain's spins, local fields and "
-            f"best spins in shared memory: N={N} needs {smem} bytes, a block "
-            f"may have {cap}")
-    with torch.cuda.device(dev):
-        err = lib.rrrmc_eo_sparse(
-            *launch_args(sigma, lf, E, emin, smin, itmin), neigh.data_ptr(),
-            J.data_ptr(), cdf.data_ptr(), N, K, B, n_moves,
-            seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-            nbins, 0 if is_integer(J) else 1,
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "eo_sparse launch")
+    key = key_type(is_integer(J), half_max)
+    nb = hist_bins(True, half_max) if KEY_CODES[key] < 2 else COARSE_BINS
+    sparse_launch("eo_sparse", sigma, lf, E, emin, smin, itmin, neigh, J,
+                  cdf, n_moves=n_moves, seed=seed, move0=move0,
+                  chain0=chain0, key=key, nb=nb, pspin=False,
+                  half_max=half_max)
     LAUNCHES += 1
 
 
@@ -225,10 +396,13 @@ def eo_chunk_reference(sigma, lf, E, emin, smin, itmin, cdf, flip_fields, *,
     sig = sigma.to(lf.dtype)
     rank_draws, tie_draws = eo_draws(seed, chain0, B, N, move0, n_moves, dev,
                                      bits)
+    groups = torch.zeros((), dtype=torch.int64, device=dev)
     for m in range(n_moves):
         de = de_of(sig, lf)
         rank = torch.searchsorted(cdf, prng.to_uniform(next(rank_draws)))
-        win = select_rank_with_ties(sort_key(de), rank, next(tie_draws))
+        key = sort_key(de)
+        win = select_rank_with_ties(key, rank, next(tie_draws))
+        groups += member_groups(key, key[rows, win])
         s_w = sig[rows, win]
         dE = de[rows, win]
         flip_fields(sig, lf, win, -2 * s_w)
@@ -239,3 +413,17 @@ def eo_chunk_reference(sigma, lf, E, emin, smin, itmin, cdf, flip_fields, *,
         smin.copy_(torch.where(better[:, None], sig.to(torch.int8), smin))
         itmin.copy_(torch.where(better, move0 + m + 1, itmin))
     sigma.copy_(sig.to(torch.int8))
+    TIE_GROUPS.update(chain_moves=B * n_moves, groups=int(groups))
+
+
+def member_groups(key: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The groups of four sites (i // 4) of each row of key [B, N] that
+    hold a site whose key equals v [B], summed over the rows whose class
+    has more than one site (one site wins without a draw): the tie race's
+    Philox calls at one move."""
+    B, N = key.shape
+    member = torch.zeros((B, -(-N // 4) * 4), dtype=torch.bool,
+                         device=key.device)
+    member[:, :N] = key == v[:, None]
+    tied = member.sum(1, keepdim=True) > 1
+    return (member.view(B, -1, 4).any(-1) & tied).sum()

@@ -1,31 +1,79 @@
 """tau-EO moves on the binary perceptrons: the CUDA kernel's wrapper
-(csrc/eo_perc.cu, with csrc/perc.cuh) and its plain torch version.
-ops/perc.py's source note describes the design and holds the eligibility
-rule.
+(csrc/eo_perc.cu, with csrc/perc.cuh and csrc/eo_group.cuh), its launch
+plan and its plain torch version. ops/perc.py's source note describes the
+design and holds the eligibility rule.
 
-Source note. Replaces rrrmc_tpu/ops/perc_pallas.py::_eo_perc_kernel: the EO
-select of csrc/eo.cuh ranking the sites by dE itself (its key policy without
-the spin factor), recomputed from the stabilities at every move as the race
-kernel computes it. Step and linear give integer keys with |dE| <= P (a
-flip moves each pattern's loss by at most one), counted in a histogram of
-2 P + 1 bins, refilled every move since every dE may change; above HIST_MAX
-bins, and for xentr's float32 keys, the radix select. The TPU kernel ranked
-by dE2 = 2 dE with a binary-search order statistic; the order and the ties
-are the same.
+Source note. Replaces rrrmc_tpu/ops/perc_pallas.py::_eo_perc_kernel: the
+EO select ranking the sites by dE itself (eo.cuh's key policy without the
+spin factor), recomputed from the stabilities at every move as the race
+kernel computes it, from the same pattern bits xb (ops/perc.py::
+pack_patterns): in shared memory where they fit beside the state, else in
+global memory (`LAST_PLAN["patterns"]`). Step and linear give integer keys
+with |dE| <= P (a flip moves each pattern's loss by at most one), counted
+in a histogram of 2 P + 1 bins in the same pass that computes dE, and
+raced among the groups of four sites that hold a member by every warp at
+once; above HIST_MAX bins, and for xentr's float32 keys, eo.cuh's block
+radix select and tie race. The TPU kernel ranked by dE2 = 2 dE with a
+binary-search order statistic; the order and the ties are the same.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import require_smem
-from .eo import BitsFn, eo_chunk_reference, hist_bins
+from .eo import (TIE_QUEUE, BitsFn, _align16, eo_chunk_reference,
+                 hist_bins, launch_facts)
 from .perc import FAMILY_CODES, check_perc_args, de_flip, table_family
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: threads a chain (one block; csrc/eo.cuh kEoThreads)
+THREADS = 256
+#: the last launch's plan: threads, pattern memory, select and bins,
+#: dynamic shared bytes, blocks per SM, registers and local bytes a thread
+LAST_PLAN: dict = {}
+
+
+def eo_perc_bytes(N: int, P: int, fam: str, nb: int, sx: bool) -> int:
+    """Dynamic shared bytes of the perceptron EO kernel's block
+    (csrc/eo_perc.cu layout): the pattern bits where `sx`, dE, the spins
+    and best spins, the stabilities, g's state, the select's counters (two
+    sets of nb bins and their super-bins, or 256 radix counters for nb =
+    0), the warps' queues, slots and partial totals."""
+    W = -(-P // 32)
+    warps = THREADS // 32
+    nsup = -(-nb // 32) if nb > 32 else 0
+    return ((_align16(4 * W * N) if sx else 0) + _align16(16 * -(-N // 4))
+            + 2 * _align16(N) + _align16(4 * P)
+            + _align16(4 * W * (32 if fam == "xentr" else 2))
+            + (2 * _align16(4 * nb) if nb else _align16(4 * 256))
+            + 2 * _align16(4 * nsup) + 4 * TIE_QUEUE * warps
+            + _align16(16 * warps) + _align16(8 * warps))
+
+
+def eo_perc_plan(N: int, P: int, fam: str, info: Callable) -> dict:
+    """The launch plan of the perceptron EO kernel: THREADS a chain, the
+    select (a histogram of 2 P + 1 bins for step and linear up to HIST_MAX,
+    else the radix select) and the pattern bits in shared memory where the
+    block fits with them, else in global memory (none fits:
+    NotImplementedError). info(sx, need) gives the instantiation's [blocks
+    per SM, registers, local bytes, static shared bytes, most dynamic
+    shared bytes] at `need` dynamic bytes."""
+    nb = hist_bins(fam != "xentr", P)
+    for sx in (True, False):
+        need = eo_perc_bytes(N, P, fam, nb, sx)
+        f = info(int(sx), need)
+        if need <= f[4] and f[0] > 0:
+            return {"threads": THREADS,
+                    "patterns": "shared" if sx else "global",
+                    "select": "histogram" if nb else "radix", "bins": nb,
+                    "smem": need, "blocks_per_sm": f[0], "registers": f[1],
+                    "spill_bytes": f[2]}
+    require_smem(need, f[4], N, "perceptron EO")
+    raise NotImplementedError(f"perceptron EO: no block fits ({f})")
 
 
 def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
@@ -34,10 +82,12 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
     """Advance every chain by `n_moves` EO moves, in place: the contract of
     ops/eo.py::eo_sparse_chunk, with the stabilities delta [B, P] int32 in
     the place of lf, E and emin int32 (float32 for xentr) and the tables of
-    ops/perc.py::perc_tables in the place of neigh/J (it reads xi4 and xiT,
-    not the race kernel's bits xb). The key is dE: the
-    kernel counts integer keys in 2 P + 1 histogram bins when that is at
-    most HIST_MAX, else (and for xentr) it takes the radix select."""
+    ops/perc.py::perc_tables in the place of neigh/J: the kernel reads the
+    pattern bits xb (perc_tables builds them from the patterns xi4 holds;
+    their shape and dtype are checked here), the plain version xi4 and
+    xiT. The key is dE: the kernel counts integer
+    keys in 2 P + 1 histogram bins when that is at most HIST_MAX, else (and
+    for xentr) it takes the radix select."""
     global LAUNCHES
     B, N = sigma.shape
     et = E.dtype
@@ -59,18 +109,24 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
     lib = library()
     P = xiT.shape[1]
     dev = sigma.device
-    nbins = hist_bins(fam != "xentr", P)
-    require_smem(lib.rrrmc_eo_perc_smem(N, P, nbins),
-                 lib.rrrmc_eo_perc_max_smem(dev.index or 0), N,
-                 "perceptron EO")
+    code = FAMILY_CODES[fam]
+    plan = eo_perc_plan(N, P, fam, lambda sx, need: list(launch_facts(
+        "rrrmc_eo_perc_info", (code, int(hist_bins(fam != "xentr", P) > 0),
+                               sx), dev.index or 0, THREADS, need)))
+    sx = int(plan["patterns"] == "shared")
+    nbins = plan["bins"]
+    if lib.rrrmc_eo_perc_smem(N, P, code, nbins, sx) != plan["smem"]:
+        raise RuntimeError("eo_perc: the kernel's shared bytes differ from "
+                           "the plan's")
+    LAST_PLAN.clear()
+    LAST_PLAN.update(kernel="eo_perc", **plan)
     with torch.cuda.device(dev):
         err = lib.rrrmc_eo_perc(
             sigma.data_ptr(), delta.data_ptr(), E.data_ptr(),
             emin.data_ptr(), smin.data_ptr(), itmin.data_ptr(),
-            xi4.data_ptr(), xiT.data_ptr(), cdf.data_ptr(), N, P,
-            xi4.shape[1] // 4, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, nbins,
-            FAMILY_CODES[fam], c, torch.cuda.current_stream().cuda_stream)
+            xb.data_ptr(), cdf.data_ptr(), N, P, B, n_moves,
+            seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
+            nbins, code, c, sx, torch.cuda.current_stream().cuda_stream)
     check(err, "eo_perc launch")
     LAUNCHES += 1
 

@@ -6,7 +6,9 @@ eligibility rule.
 Source note. Replaces rrrmc_tpu/ops/eo_pallas.py::_eo_pspin_kernel: the
 sparse EO kernel with the cavity sums c in the place of the local fields
 (keys sigma_i c_i in [-K, K], 2K + 1 histogram bins) and the flip of
-ops/pspin.py, whose 2K updates each move one key between bins.
+ops/pspin.py, whose 2K updates each move one key between bins, a lane a
+partner (a partner that two triangles share takes both terms from one
+lane).
 """
 
 from __future__ import annotations
@@ -15,9 +17,8 @@ from typing import Optional
 
 import torch
 
-from . import require_smem
 from .eo import (BitsFn, _check_args, eo_chunk_reference, key_bins,
-                 launch_args)
+                 sparse_launch)
 from ..models.pspin import flip_cavity
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
@@ -30,8 +31,9 @@ def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
     """Advance every chain by `n_moves` EO moves, in place: the contract of
     ops/eo.py::eo_sparse_chunk, with the cavity sums c [B, N] int32 in the
     place of lf and the partner table A [N, K, 2] int32 in the place of
-    neigh/J. The keys sigma_i c_i lie in [-K, K]: the kernel counts them in
-    2K + 1 histogram bins."""
+    neigh/J. The keys sigma_i c_i lie in [-K, K]: the kernel keeps them as
+    int8 (int16 above K = 127) and counts them in 2K + 1 histogram bins,
+    with the plan of ops/eo.py::eo_plan (eo.LAST_PLAN)."""
     global LAUNCHES
     B, N = sigma.shape
     K = A.shape[1]
@@ -47,21 +49,11 @@ def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
         raise ValueError(f"no EO kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
-
-    lib = library()
-    dev = sigma.device
     nbins = key_bins(K, "PSpin3")
-    require_smem(lib.rrrmc_eo_sparse_smem(N, nbins),
-                 lib.rrrmc_eo_sparse_max_smem(dev.index or 0), N,
-                 "PSpin3 EO")
-    with torch.cuda.device(dev):
-        err = lib.rrrmc_eo_pspin(
-            *launch_args(sigma, c, E, emin, smin, itmin), A.data_ptr(),
-            cdf.data_ptr(), N, 2 * K, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, nbins,
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "eo_pspin launch")
+    sparse_launch("eo_pspin", sigma, c, E, emin, smin, itmin, A, None, cdf,
+                  n_moves=n_moves, seed=seed, move0=move0, chain0=chain0,
+                  key=torch.int8 if K <= 127 else torch.int16, nb=nbins,
+                  pspin=True)
     LAUNCHES += 1
 
 

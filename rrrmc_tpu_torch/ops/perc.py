@@ -19,23 +19,14 @@ the loss table. The integer families give dE = dE2 >> 1, exactly (dE2 is
 even); xentr dE = dE2 * 0.5 in float32. A flip of w moves the stabilities by
 -2 sigma_w xi[:, w].
 
-The EO kernel (one thread block per chain, 256 threads) keeps its spins
-(int8), stabilities (int32), g and dE (int32, float32 for xentr) in shared
-memory and reads the patterns from global memory, shared by every chain, in
-both orientations as int8: xi [P, 4 ceil(N/4)] (zero past N), four sites a
-word for the product, and xi^T [N, P], whose row w is the flip's column; a
-thread takes four sites and adds xi_ai g_a over a = 0 .. P-1 in turn, in
-int32 for step and linear, in float32 for xentr; tot is a block sum in the
-order of ops/rejfree.py::block_sum. The TPU kernels padded to 128 rows and
-ran the product and the rank-1 stability update on their MXU.
-
-The race kernel takes the patterns as bits instead: they are +-1 (the
+Both kernels take the patterns as bits: they are +-1 (the
 model's formula assumes it: N odd makes Delta odd; `perc_rejfree_ok` refuses
 other patterns), so `perc_tables` packs them once per sampler call into xb
 [ceil(P/32), N] words, word-major, bit a % 32 of xb[a // 32, i] set where
-xi_ai = +1, 64 KB at N = 1023, P = 511, which the kernel keeps in shared
+xi_ai = +1, 64 KB at N = 1023, P = 511, which the kernels keep in shared
 memory (read from global memory where they do not fit beside the state:
-the plan's "patterns", "shared" or "global"). After each flip it rebuilds
+the plan's "patterns", "shared" or "global"; the EO kernel's plan,
+ops/eo_perc.py, likewise). After each flip the race kernel rebuilds
 g's state from the stabilities by warp ballots, as 0/1 masks m over the
 patterns: step one plane [Delta == 1] | [Delta == -1], linear two,
 [Delta < 2] and [Delta < 0], with g their sum; over +-1 patterns
@@ -47,6 +38,14 @@ itself (`race_moves`, the launch rule of ops/rejfree.py: 256 threads a
 chain, 1023 sites being too few a thread for 512), so the int8 pattern
 stream from L2 that set the earlier kernel's pace is gone; rrr's z' takes a
 second pass, and a rejected flip is undone exactly (integer stabilities).
+The EO kernel (csrc/eo_perc.cu, 256 threads a chain) keeps dE [N] (int32,
+float32 for xentr), the spins, the stabilities (int32) and g's state in
+shared memory and computes every dE from the bits at every move, four
+sites a thread, counting it in the select's histogram in the same pass;
+the flip's column is one word of bits a warp. The TPU kernels padded to
+128 rows and ran the product and the rank-1 stability update on their
+MXU.
+
 The plain version takes the block size (`threads`) for z's order and
 xentr's tot, and computes the product from the int8 patterns, never from
 the bits: it is the kernel's independent check.
@@ -165,8 +164,8 @@ def pack_patterns(xi: torch.Tensor) -> torch.Tensor:
 def perc_tables(model) -> tuple:
     """The kernels' tables of a Perceptron: (xi [P, 4 ceil(N/4)] int8, zero
     past N; xi^T [N, P] int8; the loss table, which gives the family; the
-    race kernel's pattern bits, `pack_patterns(model.xi)`, which the EO
-    kernel and the plain versions do not read)."""
+    kernels' pattern bits, `pack_patterns(model.xi)`, which the plain
+    versions do not read)."""
     P, N = model.xi.shape
     xi4 = torch.zeros((P, -(-N // 4) * 4), dtype=torch.int8,
                       device=model.xi.device)

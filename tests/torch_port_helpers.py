@@ -352,3 +352,67 @@ def group_lengths_reference(sites, neigh, N: int, cap: int = 32):
         hit[inside] = prev[m[inside] + ell] >= m[inside]
         glen = np.where(hit, np.minimum(glen, ell), glen)
     return torch.as_tensor(glen.astype(np.int32))
+
+
+def ranks_ahead(seed: int, chain0: int, B: int, cdf: torch.Tensor,
+                move0: int, n_moves: int, batch: int = 32) -> torch.Tensor:
+    """[n_moves, B] ranks as the sparse EO kernel draws them: at every
+    `batch`-th move of a launch (counted from the launch's first move, not
+    from move 0) the ranks of the next `batch` moves at once, a lane a move
+    (csrc/eo_sparse.cu, eo_group.cuh rank_of)."""
+    out = []
+    for lo in range(0, n_moves, batch):
+        words = prng.eo_rank_bits(seed, chain0, B, move0 + lo, batch, "cpu")
+        ranks = torch.searchsorted(cdf, prng.to_uniform(words))
+        out.append(ranks[:min(batch, n_moves - lo)])
+    return torch.cat(out)
+
+
+def coarse_select(half: torch.Tensor, rank: torch.Tensor,
+                  tie_bits: torch.Tensor, nb: int, lo: float,
+                  scale: float, listed: int = 32) -> torch.Tensor:
+    """The sparse EO kernel's select on float32 keys (csrc/eo_sparse.cu,
+    COARSE), row by row: the coarse bin floor((half - lo) * scale) clamped
+    to [0, nb) in float32, the bin b of the rank's site by the histogram's
+    running sum, then among the sites of bin b the key of rank rank - before:
+    from the listed sites (at most `listed`) by counting smaller and equal
+    keys, or else by four 8-bit radix passes over the biased keys of the
+    bin's sites; then the tie race of that key's members. Returns [B]
+    winners."""
+    import rrrmc_tpu_torch.ops.eo as eo
+
+    key = eo.sort_key(half)
+    x = ((half - torch.tensor(lo, dtype=torch.float32))
+         * torch.tensor(scale, dtype=torch.float32)).floor()
+    bins = x.clamp(0, nb - 1).to(torch.int64)
+    out = []
+    for b in range(half.shape[0]):
+        hist = torch.bincount(bins[b], minlength=nb)
+        run = hist.cumsum(0)
+        r = int(rank[b])
+        sel = int((run <= r).sum())
+        before = int(run[sel - 1]) if sel else 0
+        sites = (bins[b] == sel).nonzero().flatten()
+        keys = key[b, sites].to(torch.int64)
+        rr = r - before
+        if sites.numel() <= listed:
+            lt = (keys[None, :] < keys[:, None]).sum(1)
+            eq = (keys[None, :] == keys[:, None]).sum(1)
+            v = int(keys[(lt <= rr) & (rr < lt + eq)][0])
+        else:
+            biased = (keys + 2 ** 31) & 0xFFFFFFFF
+            prefix = pmask = 0
+            for shift in (24, 16, 8, 0):
+                ok = (biased & pmask) == prefix
+                digit = torch.bincount((biased[ok] >> shift) & 255,
+                                       minlength=256).cumsum(0)
+                d = int((digit <= rr).sum())
+                rr -= int(digit[d - 1]) if d else 0
+                prefix |= d << shift
+                pmask |= 255 << shift
+            v = prefix - 2 ** 31
+        member = key[b].to(torch.int64) == v
+        score = torch.where(member, tie_bits[b].clamp(max=2 ** 31 - 2),
+                            torch.tensor(2 ** 31 - 1, dtype=torch.int32))
+        out.append(int(score.argmin()))
+    return torch.tensor(out)
