@@ -183,20 +183,25 @@ TPU kernels that the VMEM size split (`_sk_kernel` / `_sk_kernel_hbm`,
 branch / `_eo_stream_kernel`) is one CUDA kernel here; the record lists
 each TPU kernel with the cases and main-path runs of the regime the TPU
 would have sent to it (J within VMEM: the N=1024 models; else streamed).
-The redesigned sparse and perceptron EO kernels print their launch plans
-(ops/eo.py::eo_plan, ops/eo_perc.py::eo_perc_plan) beside each case, and
-`eo_route_cases` holds every route of the sparse one (one warp a chain,
-blocks of 4, 8 and 32 warps, each at a shape for which the plan picks it),
-every key type (int8, int16, int32 and float32, the last two with the
-coarse select, float keys with -0.0 and crowded bins) and PSpin3 on each
-block size, EO_ROUTE_MOVES moves each, bit for bit; the
-perceptron EO kernel also with its pattern bits in global memory.
-`eo_instantiations` prints every EO instantiation's registers, spills
-(ptxas) and local bytes (the CUDA runtime) and fails on a spill or a
-local byte. Every EO case's two-launch check splits at a move0 off the
+Every EO kernel prints its launch plan (ops/eo.py::eo_plan for the
+sparse, dense and K-SAT ones, which share csrc/eo_chain.cuh's move loop;
+ops/eo_perc.py::eo_perc_plan) beside each case, and `eo_route_cases`
+holds every route of the sparse one (one warp a chain, blocks of 4, 8 and
+32 warps, each at a shape for which the plan picks it), every key type
+(int8, int16, int32 and float32, the last two with the coarse select,
+float keys with -0.0 and crowded bins) and PSpin3 on each block size;
+`eo_dense_sat_route_cases` every warps a chain and key type of the dense
+kernel (int8, int16, int32, float32 with -0.0 and crowded bins; rows not
+16-byte aligned) and of the K-SAT one (uint8 and uint16 keys),
+EO_ROUTE_MOVES moves each, bit for bit (the dense and K-SAT kernels' float
+cases too); the perceptron EO kernel also with its pattern bits in global
+memory. `eo_instantiations` prints every EO instantiation's registers,
+spills (ptxas) and local bytes (the CUDA runtime) and fails on a spill or
+a local byte. Every EO case's two-launch check splits at a move0 off the
 kernels' batch of 32 rank draws, and its bound counts the tie race's
 member groups of that run (the plain version's ops/eo.py::TIE_GROUPS),
-with the earlier count, two Philox calls a move, printed beside it.
+with the earlier count, two Philox calls a move, printed beside it; a
+dense case's bound also the rows of J beyond L2 (`bound`).
 
 The hypergraph phases of 2 are the PSpin3 race kernel (the sparse race
 kernel with the hypergraph flip) in bkl, wtm and rrr mode for one 1024-move
@@ -355,7 +360,9 @@ PERC_NAMES = {"step": "GraphPercStep", "linear": "GraphPercLinear",
 DEV = "cuda"
 #: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
 #: source, and its __global__ function, whose instantiations' register
-#: counts the ptxas report of the build gives
+#: counts the ptxas report of the build gives (function/policy: the
+#: instantiations of a shared template with that policy type, as the EO
+#: kernels' move loop, csrc/eo_chain.cuh, takes its flip)
 ENTRIES = {
     "site_metropolis": ("rrrmc_tpu/ops/site_pallas.py:47", "site.cu",
                         "site_resident_kernel"),
@@ -374,21 +381,21 @@ ENTRIES = {
     "rejfree_stream": ("rrrmc_tpu/ops/rejfree_pallas.py:559",
                        "rejfree_dense.cu", "rejfree_dense_kernel"),
     "eo_sparse": ("rrrmc_tpu/ops/eo_pallas.py:449", "eo_sparse.cu",
-                  "eo_sparse_kernel"),
+                  "eo_chain_kernel/SparseFlip"),
     "eo_lattice": ("rrrmc_tpu/ops/eo_pallas.py:66", "eo_sparse.cu",
-                   "eo_sparse_kernel"),
+                   "eo_chain_kernel/SparseFlip"),
     "eo_dense": ("rrrmc_tpu/ops/eo_pallas.py:66", "eo_dense.cu",
-                 "eo_dense_kernel"),
+                 "eo_chain_kernel/DenseFlip"),
     "eo_stream": ("rrrmc_tpu/ops/eo_pallas.py:255", "eo_dense.cu",
-                  "eo_dense_kernel"),
+                  "eo_chain_kernel/DenseFlip"),
     "rejfree_pspin": ("rrrmc_tpu/ops/rejfree_pallas.py:1122",
                       "rejfree_sparse.cu", "rejfree_sparse_kernel"),
     "eo_pspin": ("rrrmc_tpu/ops/eo_pallas.py:600", "eo_sparse.cu",
-                 "eo_sparse_kernel"),
+                 "eo_chain_kernel/SparseFlip"),
     "rejfree_sat": ("rrrmc_tpu/ops/sat_pallas.py:306", "rejfree_sat.cu",
                     "rejfree_sat_kernel"),
     "eo_sat": ("rrrmc_tpu/ops/sat_pallas.py:528", "eo_sat.cu",
-               "eo_sat_kernel"),
+               "eo_chain_kernel/SatFlip"),
     "rejfree_replica": ("rrrmc_tpu/ops/quant_pallas.py:232",
                         "rejfree_replica.cu", "rejfree_replica_kernel"),
     "replica_sweep": ("rrrmc_tpu/ops/quant_pallas.py:478",
@@ -402,8 +409,9 @@ ENTRIES = {
                 "eo_perc_kernel"),
 }
 #: the H100 SXM's published device-memory rate, float32 rate outside the
-#: tensor cores, and int8 tensor-core rate (dense)
+#: tensor cores, and int8 tensor-core rate (dense), and its L2 cache
 HBM_BYTES_PER_S, F32_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 67e12, 1.979e15
+L2_BYTES = 50e6
 #: operations of one Philox4x32-10 call: 10 rounds of two 32-bit products
 #: with their high halves, two xors and two key additions
 PHILOX_OPS = 80
@@ -418,7 +426,11 @@ def require(ok: bool, what: str):
 def bound(nbytes: float, ops: float, int8_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     the operations' time: `ops` over the float32 rate plus `int8_ops` (the
-    products a TPU kernel ran on its MXU) over the int8 tensor-core rate."""
+    products a TPU kernel ran on its MXU) over the int8 tensor-core rate.
+    A dense EO case (`eo_case`) takes beside it the bytes of the winner's
+    row of J that every chain-move reads from device memory, the share of
+    J beyond the L2 cache, B moves N sizeof(J) max(0, 1 - L2_BYTES / |J|)
+    over the memory rate, as its bound where that is larger."""
     tb = nbytes / HBM_BYTES_PER_S
     to = ops / F32_OPS_PER_S + int8_ops / INT8_OPS_PER_S
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
@@ -1064,13 +1076,15 @@ def plan_of_eo(plan) -> str:
 
 
 def eo_case(model, label, B, card, kernel, ops=None, warps=None,
-            n_moves=EO_CMP_MOVES):
+            n_moves=EO_CMP_MOVES, key=None):
     """An EO kernel against its plain version: n_moves tau-EO moves of B
     chains from one random start, one Philox seed, the sampler's select
     (the histogram for integer keys, the radix select for float ones; the
     sparse kernel's plan, which must give `warps` a chain where that is
-    given). Spins and best spins, itmin, E and Emin and
-    the local fields are held to `_compare`'s rule; the same moves split
+    given, and `key` keys where that is given). Spins and best spins,
+    itmin, E and Emin and the local fields are held to `_compare`'s rule
+    (the dense and K-SAT kernels' bit for bit, float J too); the same moves
+    split
     over two launches (move0, off the kernels' batch of 32 rank draws) must
     equal the one launch. `ops(moves, bins, tie_groups)` gives the bound's
     operations as `bound`'s (ops, int8_ops) (`_ops_eo` by default); the
@@ -1085,9 +1099,10 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
 
     fam = family_of(model)
     chunk, ref, tables = fam.eo, _reference(fam.eo), fam.tables(model)
-    # the redesigned kernels record their plans
-    plans = {"eo_perc": sys.modules[chunk.__module__], "eo_sparse": eo,
-             "eo_lattice": eo, "eo_pspin": eo}.get(kernel)
+    # every EO kernel records its plan: the sparse and PSpin3 ones in
+    # ops/eo.py, the others in their wrappers' modules
+    plans = (eo if kernel in ("eo_sparse", "eo_lattice", "eo_pspin")
+             else sys.modules[chunk.__module__])
     kw = fam.eo_kw(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     integer = not st.E.dtype.is_floating_point
@@ -1109,6 +1124,9 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
     if warps is not None:
         require(plan["warps"] == warps, f"{kernel} {label}: the plan gives "
                 f"{plan['warps']} warps a chain, not {warps}")
+    if key is not None:
+        require(plan["key"] == key, f"{kernel} {label}: the plan gives "
+                f"{plan['key']} keys, not {key}")
     # the same moves in two launches, the second from move0
     s = fresh()
     third = n_moves // 3
@@ -1117,7 +1135,8 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
     p = fresh()
     plain_ms = _events_ms(lambda: run(ref, p))
     groups = eo.TIE_GROUPS["groups"]
-    bad, err, errs = _compare(f"{kernel} {label}", integer, outs_eo(k),
+    exact = integer or kernel in ("eo_dense", "eo_stream", "eo_sat")
+    bad, err, errs = _compare(f"{kernel} {label}", exact, outs_eo(k),
                               outs_eo(p), B, model.N)
     require(third % 32 and all(torch.equal(a, b) for a, b in zip(s, k)),
             f"{kernel} {label}: two launches differ from one")
@@ -1135,16 +1154,27 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
 
     bound_ms, bound_by = bound(nbytes, *ops_of(groups))
     two_calls_ms, _ = bound(nbytes, *ops_of(None))
+    # a dense kernel reads the winner's row of J at every chain-move: the
+    # share of J beyond L2 comes from device memory each time
+    row_ms = None
+    if kernel in ("eo_dense", "eo_stream"):
+        J = tables[0]
+        row_ms = 1e3 * moves * _nbytes(J[0]) * max(
+            0.0, 1.0 - L2_BYTES / _nbytes(J)) / HBM_BYTES_PER_S
+        if row_ms > bound_ms:
+            bound_ms, bound_by = row_ms, "bytes"
     print(f"{kernel} {label} B={B} moves={n_moves} select="
           f"{f'histogram of {bins} bins' if bins else 'radix'}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
           f"({bound_by}; {groups / moves:.1f} tie groups a move; two "
-          f"Philox calls a move: {two_calls_ms:.3g} ms), diverged chains "
-          f"{bad}, max abs err {err:.3g}"
+          f"Philox calls a move: {two_calls_ms:.3g} ms"
+          f"{f'; rows of J beyond L2: {row_ms:.3g} ms' if row_ms is not None else ''}"
+          f"), diverged chains {bad}, max abs err {err:.3g}"
           f"{f' [{plan_of_eo(plan)}]' if plan else ''} [{card}]")
     return {"kernel": kernel, "case": label, "B": B, "moves": n_moves,
             "bins": bins, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rows_ms": row_ms,
             "bound_two_calls_ms": two_calls_ms,
             "tie_groups_a_move": groups / moves, "diverged": bad,
             "max_abs_err": err, "errs": errs, "eo_plan": plan}
@@ -1209,23 +1239,85 @@ def eo_route_cases(card, rrg, rrgn, ps):
     return out
 
 
+def eo_dense_sat_route_cases(card, sk1, drrg, skn, sat):
+    """The dense and K-SAT EO kernels on the plan routes and key types the
+    main paths' cases do not reach, each held bit for bit to its plain
+    version (`eo_case`, which prints the plan), each at a shape for which
+    the plan (ops/eo.py::eo_plan) picks the warps a chain and the key type
+    that the case names, and fails where it picks others. Dense (the plan
+    takes the fewest warps that give a lane at most 40 sites):
+    GraphSK(500) with 256 chains (one warp, int16 keys, rows at 500-byte
+    strides, most not 16-byte aligned); densify(GraphRRG(16000)) with 64
+    chains (32 warps) and densify(GraphRRG(10^4)) with 256 (8), int8 keys;
+    GraphSKNormal(8192) with 64 chains (8 warps, float32 keys);
+    GraphSK(1100) with J scaled to +-127 (one warp, int32 keys with the
+    coarse select); float couplings in {-1, 0, 1} (halves -0.0 and +0.0,
+    and crowded coarse bins: the radix select over the selected bin) on one
+    warp (600 spins) and on 4 (4096 spins, 256 chains). K-SAT: the
+    GraphSAT(10^4, 3, 4.2) of the path with 256 chains (8 warps),
+    GraphSAT(2000, 3, 4.2) with 1024 (4) and GraphSAT(600, 3, 4.2) (one
+    warp), all with uint8 keys, and GraphSAT(1000, 3, 45), whose Cmax above
+    127 takes the uint16 keys (4 warps)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    def zero(m):
+        return dataclasses.replace(m, J=torch.where(
+            m.J > 0.5, 1.0, torch.where(m.J < -0.5, -1.0, 0.0)))
+
+    sk11 = rt.GraphSK(1100, seed=4, device=DEV)
+    skn600 = rt.GraphSKNormal(600, seed=4, device=DEV)
+    crowded = "J in {-1, 0, 1} float (crowded bins)"
+    dense = "eo_stream"
+    out = []
+    for model, label, B, kernel, warps, key in (
+            (rt.GraphSK(500, seed=4, device=DEV), "GraphSK(500)", 256,
+             "eo_dense", 1, "int16"),
+            (rt.densify(rt.GraphRRG(16_000, 3, (-1, 1), seed=7, device=DEV)),
+             "densify(GraphRRG(16000))", 64, dense, 32, "int8"),
+            (drrg, "densify(GraphRRG(10^4)) 256 chains", 256, dense, 8,
+             "int8"),
+            (rt.GraphSKNormal(8192, seed=4, device=DEV),
+             "GraphSKNormal(8192)", 64, dense, 8, "float32"),
+            (dataclasses.replace(sk11, J=sk11.J * 127),
+             "GraphSK(1100) J*127 (int32 keys, coarse)", 256, "eo_dense", 1,
+             "int32"),
+            (zero(skn600), f"GraphSKNormal(600) {crowded}", 256, "eo_dense",
+             1, "float32"),
+            (zero(skn), f"GraphSKNormal(4096) {crowded}", 256, dense, 4,
+             "float32"),
+            (sat, "GraphSAT(10^4, 3, 4.2) 256 chains", 256, "eo_sat", 8,
+             "uint8"),
+            (rt.GraphSAT(2000, 3, 4.2, seed=SEED, device=DEV),
+             "GraphSAT(2000, 3, 4.2)", CHAINS, "eo_sat", 4, "uint8"),
+            (rt.GraphSAT(600, 3, 4.2, seed=SEED, device=DEV),
+             "GraphSAT(600, 3, 4.2)", 256, "eo_sat", 1, "uint8"),
+            (rt.GraphSAT(1000, 3, 45.0, seed=SEED, device=DEV),
+             "GraphSAT(1000, 3, 45) (Cmax > 127: uint16 keys)", HYPER_CHAINS,
+             "eo_sat", 4, "uint16")):
+        out.append(eo_case(model, label, B, card, kernel, warps=warps,
+                           n_moves=EO_ROUTE_MOVES, key=key))
+    return out
+
+
 def eo_instantiations(log: str, card: str) -> None:
-    """Every instantiation of the redesigned EO kernels (eo_sparse.cu: warps
-    a chain, key type, hypergraph flip; eo_perc.cu: family, select, pattern
-    memory): its registers and
+    """Every instantiation of the redesigned EO kernels (eo_chain.cuh's move
+    loop in eo_sparse.cu: warps a chain, key type, hypergraph flip; in
+    eo_dense.cu: warps a chain, key type; in eo_sat.cu: warps a chain, key
+    type; eo_perc.cu: family, select, pattern memory): its registers and
     spill bytes (ptxas, when this run built the library) and its local
     bytes a thread (the CUDA runtime). Fails on a spill or a local byte."""
     import ctypes
     import re
 
-    from rrrmc_tpu_torch.ops import cuda_build, eo
+    from rrrmc_tpu_torch.ops import cuda_build, eo, eo_sat
 
-    names = ("eo_sparse_kernel", "eo_perc_kernel")
+    names = ("eo_chain_kernel", "eo_perc_kernel")
     ptx, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = m.group(1) if any(f"{len(n)}{n}" in m.group(1)
+            fn = m.group(1) if any(_instance_of(n, m.group(1))
                                    for n in names) else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1243,9 +1335,9 @@ def eo_instantiations(log: str, card: str) -> None:
               f"{rec.get('registers')}, spill bytes {rec.get('spill')} "
               f"(ptxas)  [{card}]")
         require(rec.get("spill", 0) == 0, f"{readable[fn]} spills")
-    require(not log or len(ptx) == 24 + 10,
+    require(not log or len(ptx) == 24 + 16 + 8 + 10,
             f"{len(ptx)} EO instantiations in the ptxas report, expected 24 "
-            f"sparse and 10 perceptron ones")
+            f"sparse, 16 dense, 8 K-SAT and 10 perceptron ones")
     lib = cuda_build.library()
     out = (ctypes.c_int * 5)()
     local = {}
@@ -1256,6 +1348,15 @@ def eo_instantiations(log: str, card: str) -> None:
                     w, code, pspin, 0, 0, out), "eo_sparse_info")
                 local[f"eo_sparse {w} warps {str(key)[6:]}"
                       f"{' pspin' if pspin else ''}"] = out[1], out[2]
+    for w in eo.EO_WARPS:
+        for key, code in eo.KEY_CODES.items():
+            cuda_build.check(lib.rrrmc_eo_dense_info(w, code, 0, 0, out),
+                             "eo_dense_info")
+            local[f"eo_dense {w} warps {str(key)[6:]}"] = out[1], out[2]
+        for key, code in eo_sat.SAT_KEY_CODES.items():
+            cuda_build.check(lib.rrrmc_eo_sat_info(w, code, 0, 0, out),
+                             "eo_sat_info")
+            local[f"eo_sat {w} warps {str(key)[6:]}"] = out[1], out[2]
     for fam in (0, 1, 2):
         for hist in ((1, 0) if fam < 2 else (0,)):
             for sx in (1, 0):
@@ -1267,6 +1368,13 @@ def eo_instantiations(log: str, card: str) -> None:
           f"{json.dumps(local)}  [{card}]")
     require(not any(v[1] for v in local.values()),
             f"EO kernels use local memory: {local}")
+
+
+def _instance_of(name: str, mangled: str) -> bool:
+    """Whether a mangled function name is an instantiation of an ENTRIES
+    function name (function, or function/policy type)."""
+    fn, *policy = name.split("/")
+    return f"{len(fn)}{fn}" in mangled and all(p in mangled for p in policy)
 
 
 def registers(log: str) -> dict:
@@ -1283,7 +1391,7 @@ def registers(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             for name in {fn for _, _, fn in ENTRIES.values()}:
-                if f"{len(name)}{name}" in fn:
+                if _instance_of(name, fn):
                     lo, hi = out.get(name, [1 << 30, 0])
                     n = int(m.group(1))
                     out[name] = [min(lo, n), max(hi, n)]
@@ -1306,7 +1414,7 @@ def spill_bytes(log: str) -> dict:
                       line)
         if m and fn is not None:
             for name in {fn for _, _, fn in ENTRIES.values()}:
-                if f"{len(name)}{name}" in fn:
+                if _instance_of(name, fn):
                     n = max(int(m.group(1)), int(m.group(2)))
                     out[name] = max(out.get(name, 0), n)
     return out
@@ -2739,11 +2847,12 @@ def main() -> int:
                          "eo_sparse", warps=4))
     cases.append(eo_case(ea8, "GraphEA(8, 3)", CHAINS, card, "eo_lattice",
                          warps=1))
-    cases.append(eo_case(sk1, "GraphSK(1024)", CHAINS, card, "eo_dense"))
+    cases.append(eo_case(sk1, "GraphSK(1024)", CHAINS, card, "eo_dense",
+                         warps=1))
     cases.append(eo_case(drrg, "densify(GraphRRG(10^4))", CHAINS, card,
-                         "eo_stream"))
+                         "eo_stream", warps=8))
     cases.append(eo_case(skn, "GraphSKNormal(4096)", 512, card,
-                         "eo_stream"))
+                         "eo_stream", warps=4))
 
     # the hypergraph models, built with no device given: the card is the
     # default
@@ -2762,8 +2871,9 @@ def main() -> int:
                                       B=HYPER_CHAINS, beta=beta,
                                       n_moves=moves(mode)))
         cases.append(eo_case(model, label, HYPER_CHAINS, card, f"eo_{kind}",
-                             warps=32 if model is ps else None))
+                             warps=32))
     cases += eo_route_cases(card, rrg7, rrgn7, ps)
+    cases += eo_dense_sat_route_cases(card, sk1, drrg, skn, sat)
 
     # the replica composites, built with no device given: the card is the
     # default
@@ -2952,11 +3062,21 @@ def main() -> int:
                 c["eo_plan"].get("patterns"), c["kernel"])
                for c in cases if c.get("eo_plan")}
     from rrrmc_tpu_torch.ops import eo as eo_ops
+    sparse = ("eo_sparse", "eo_lattice", "eo_pspin")
+    dense = ("eo_dense", "eo_stream")
     for what, want, have in (
             ("eo_sparse.cu warps a chain", set(eo_ops.EO_WARPS),
-             {w for w, _, _, k in eo_seen if k != "eo_perc"}),
+             {w for w, _, _, k in eo_seen if k in sparse}),
             ("eo_sparse.cu key types", {"int8", "int16", "int32", "float32"},
-             {t for _, t, _, k in eo_seen if k != "eo_perc"}),
+             {t for _, t, _, k in eo_seen if k in sparse}),
+            ("eo_dense.cu warps a chain", set(eo_ops.EO_WARPS),
+             {w for w, _, _, k in eo_seen if k in dense}),
+            ("eo_dense.cu key types", {"int8", "int16", "int32", "float32"},
+             {t for _, t, _, k in eo_seen if k in dense}),
+            ("eo_sat.cu warps a chain", set(eo_ops.EO_WARPS),
+             {w for w, _, _, k in eo_seen if k == "eo_sat"}),
+            ("eo_sat.cu key types", {"uint8", "uint16"},
+             {t for _, t, _, k in eo_seen if k == "eo_sat"}),
             ("eo_sparse.cu PSpin3 warps", set(eo_ops.EO_WARPS),
              {w for w, _, _, k in eo_seen if k == "eo_pspin"}),
             ("eo_perc.cu pattern memories", {"shared", "global"},

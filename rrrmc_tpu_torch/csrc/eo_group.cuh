@@ -1,8 +1,9 @@
-// Warp-level device code of the redesigned tau-EO kernels (eo_sparse.cu,
-// eo_perc.cu), beside the block-level helpers of eo.cuh, which eo_dense.cu
-// and eo_sat.cu keep. A chain is run by a group of W warps: one warp (W = 1,
-// several chains a block) or a whole block. The law is eo.cuh's, bit for
-// bit; what changes is who does each step:
+// Warp-level device code of the redesigned tau-EO kernels (eo_chain.cuh's
+// move loop of eo_sparse.cu, eo_dense.cu and eo_sat.cu; eo_perc.cu), beside
+// the block-level helpers of eo.cuh, which only eo_perc.cu's radix route
+// keeps. A chain is run by a group of W warps: one warp (W = 1, several
+// chains a block) or a whole block. The law is eo.cuh's, bit for bit; what
+// changes is who does each step:
 //   rank     drawn ahead: at every 32nd move each warp draws the rank of the
 //            next 32 moves, a lane a move, and runs their binary searches
 //            side by side; move m takes lane m % 32's by a shuffle;
@@ -215,10 +216,11 @@ __device__ __forceinline__ uint32_t half_mask(uint32_t w, int32_t v) {
   return (((eq & 0x00010001u) * 0x00008001u) >> 15) & 3u;
 }
 
-// The tie race over packed int8 or int16 keys (sentinels past N never equal
-// v), by one warp: 16-byte vectors vi = first + lane, first + lane +
-// stride, ... below NV, each holding G = 4 (int8) or 2 (int16) groups of
-// four sites; a lane queues its vector's member groups. A class of one
+// The tie race over packed 8-bit or 16-bit keys (sentinels past N never
+// equal v; v is given as the keys' own bits, so biased keys compare with
+// the biased v), by one warp: 16-byte vectors vi = first + lane, first +
+// lane + stride, ... below NV, each holding G = 4 (8-bit) or 2 (16-bit)
+// groups of four sites; a lane queues its vector's member groups. A class of one
 // site (`single`) needs no draw: that site wins whatever its word, and the
 // lane that finds it keeps it with score 0.
 template <typename KT>

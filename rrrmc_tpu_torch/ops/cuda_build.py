@@ -58,16 +58,18 @@ _SIGNATURES = {
                         + [_F, _F, _I, _P]),
     "rrrmc_eo_sparse_smem": (_Z, [_I, _I, _I, _I]),
     "rrrmc_eo_sparse_info": (_I, [_I, _I, _I, _Z, _I, _P]),
-    "rrrmc_eo_dense": (_I, [_P] * 8 + [_I, _I, _I, _U, _U, _U, _I, _I, _P]),
-    "rrrmc_eo_dense_smem": (_Z, [_I, _I]),
-    "rrrmc_eo_dense_max_smem": (_I, [_I]),
+    "rrrmc_eo_dense": (_I, [_P] * 8 + [_I, _I, _I, _U, _U, _U, _I, _I, _F,
+                                       _F, _I, _P]),
+    "rrrmc_eo_dense_smem": (_Z, [_I, _I, _I, _I]),
+    "rrrmc_eo_dense_info": (_I, [_I, _I, _Z, _I, _P]),
     "rrrmc_rejfree_sat": (_I, [_P] * 12 + [_I] * 6 + [_U, _U, _U, _F, _I,
                                                      _F, _I, _I, _P]),
     "rrrmc_rejfree_sat_smem": (_Z, [_I, _I, _I]),
     "rrrmc_rejfree_sat_info": (_I, [_I, _I, _Z, _I, _P]),
-    "rrrmc_eo_sat": (_I, [_P] * 11 + [_I] * 6 + [_U, _U, _U, _I, _P]),
-    "rrrmc_eo_sat_smem": (_Z, [_I, _I, _I]),
-    "rrrmc_eo_sat_max_smem": (_I, [_I]),
+    "rrrmc_eo_sat": (_I, [_P] * 11 + [_I] * 6 + [_U, _U, _U, _I, _I, _I,
+                                                  _P]),
+    "rrrmc_eo_sat_smem": (_Z, [_I] * 5),
+    "rrrmc_eo_sat_info": (_I, [_I, _I, _Z, _I, _P]),
     "rrrmc_rejfree_replica": (_I, [_P] * 11 + [_I] * 5 + [_U, _U, _U, _F,
                                                           _I, _F, _I, _I, _I,
                                                           _I, _I, _P]),

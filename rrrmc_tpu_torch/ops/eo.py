@@ -1,7 +1,8 @@
 """tau-extremal optimisation (EO) moves on sparse Pairwise models, EA
-lattices included: the CUDA kernel (csrc/eo_sparse.cu), its launch plan,
-its plain torch version, and the move loop and the order-statistic select
-shared with the dense EO kernel's plain version (ops/eo_dense.py).
+lattices included: the CUDA kernel (csrc/eo_sparse.cu), its plain torch
+version, the launch plan of the three kernels on csrc/eo_chain.cuh's move
+loop (sparse, dense: ops/eo_dense.py, K-SAT: ops/eo_sat.py), and the move
+loop and the order-statistic select of every EO kernel's plain version.
 
 Source note. The kernel replaces rrrmc_tpu/ops/eo_pallas.py::
 _eo_sparse_kernel (launched by `_pallas_eo_sparse_run`) and the lattice
@@ -69,6 +70,8 @@ TIE_QUEUE = 192
 #: chain
 WARPS_PER_SM = 16
 MIN_SITES_PER_LANE = 6
+#: the most sites a lane of the dense EO kernel's plan (ops/eo_dense.py)
+DENSE_SITES_PER_LANE = 40
 #: the last sparse EO launch's plan: route, warps a chain, chains a block,
 #: threads a block, key type, select and bins, dynamic shared bytes, blocks
 #: per SM, registers and local bytes a thread (spills)
@@ -120,48 +123,59 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def chain_bytes(N: int, key: torch.dtype, nb: int, warps: int) -> int:
-    """Shared bytes of one chain of the sparse EO kernel (eo_sparse.cu
-    eo_layout): the keys (N rounded up to 4), the spins and best spins as
+def chain_bytes(N: int, key: torch.dtype, nb: int, warps: int,
+                extra: int = 0) -> int:
+    """Shared bytes of one chain of the EO kernels of csrc/eo_chain.cuh
+    (eo_layout): the keys (N rounded up to 4), the spins and best spins as
     bits, the nb bins and their super-bins (more than 32 bins), a queue of
-    TIE_QUEUE member groups and a (score, index) slot a warp, and for the
-    coarse select the listed sites of two moves and 256 radix counters;
-    each part 16-byte aligned."""
+    TIE_QUEUE member groups and a (score, index) slot a warp, for the
+    coarse select the listed sites of two moves and 256 radix counters, and
+    `extra` bytes of the kernel's own (K-SAT: its counts); each part
+    16-byte aligned."""
     coarse = key in (torch.int32, torch.float32)
     words = -(-N // 32)
     nsup = -(-nb // 32) if nb > 32 else 0
     return (_align16(-(-N // 4) * 4 * key.itemsize) + 2 * _align16(4 * words)
             + _align16(4 * nb) + _align16(4 * nsup) + 4 * TIE_QUEUE * warps
             + _align16(8 * warps)
-            + (_align16(2 * 32 * 8 + 2 * 4) + 256 * 4 if coarse else 0))
+            + (_align16(2 * 32 * 8 + 2 * 4) + 256 * 4 if coarse else 0)
+            + _align16(extra))
 
 
 def eo_plan(N: int, B: int, key: torch.dtype, nb: int, n_sm: int,
-            info: Callable) -> dict:
-    """The sparse EO kernel's launch plan for B chains of N sites with keys
-    of type `key` in nb bins. info(W, need) gives the instantiation of W
-    warps a chain: [blocks per SM, registers, local bytes, static shared
-    bytes, most dynamic shared bytes] at `need` dynamic bytes. Of the W of
-    EO_WARPS whose block fits (none: NotImplementedError), those with at
-    least MIN_SITES_PER_LANE sites a lane (none: the smallest that fits)
-    and at most two waves of chains on the n_sm SMs (or the fewest): the
-    smallest W at which the chains an SM holds at once give WARPS_PER_SM
-    warps, else the largest. Measured on the H100 (PERF.md section 6, the
-    sparse EO kernel's warps a chain): a chain's move is a chain of
-    dependent steps, so more warps a chain pay only while the SM is short
-    of warps; GraphRRG(10^4) at 1024 chains ran fastest on 4 warps (20 an
-    SM), at 128 chains on 32, the EA-3D L=8 lattice (512 sites) on one."""
+            info: Callable, *, extra: int = 0, what: str = "sparse EO",
+            sites_per_lane: Optional[int] = None) -> dict:
+    """The launch plan of an EO kernel of csrc/eo_chain.cuh (the sparse,
+    dense and K-SAT ones) for B chains of N sites with keys of type `key`
+    in nb bins and `extra` bytes of its own a chain. info(W, need) gives
+    the instantiation of W warps a chain: [blocks per SM, registers, local
+    bytes, static shared bytes, most dynamic shared bytes] at `need`
+    dynamic bytes. Of the W of EO_WARPS whose block fits (none:
+    NotImplementedError), those with at least MIN_SITES_PER_LANE sites a
+    lane (none: the smallest that fits) and at most two waves of chains on
+    the n_sm SMs (or the fewest): the smallest W at which the chains an SM
+    holds at once give WARPS_PER_SM warps, else the largest. Measured on
+    the H100 (PERF.md section 6, the EO kernels' warps a chain): a chain's
+    move is a chain of dependent steps, so more warps a chain pay only while
+    the SM is short of warps; GraphRRG(10^4) at 1024 chains ran fastest on
+    4 warps (20 an SM), at 128 chains on 32, the EA-3D L=8 lattice (512
+    sites) on one. With `sites_per_lane` (the dense kernel, whose flip
+    walks all N sites) the rule is the fewest W of the candidates with
+    enough sites a lane that give a lane at most that many sites, else the
+    largest, whatever the waves: GraphSK(1024) at 1024 chains ran fastest
+    on one warp, densify(GraphRRG(10^4)) on 8 (three waves, against 4 on
+    two), GraphSKNormal(4096) at 512 chains on 4 (DENSE_SITES_PER_LANE)."""
     def chains(w):
         return WARP_CHAINS if w == 1 else 1
 
-    need = {w: chains(w) * chain_bytes(N, key, nb, w) for w in EO_WARPS}
+    need = {w: chains(w) * chain_bytes(N, key, nb, w, extra)
+            for w in EO_WARPS}
     facts = {w: info(w, need[w]) for w in EO_WARPS}
     fits = [w for w in EO_WARPS if need[w] <= facts[w][4] and facts[w][0] > 0]
     if not fits:
         w = min(EO_WARPS, key=lambda w: need[w])
-        require_smem(need[w], max(f[4] for f in facts.values()), N,
-                     "sparse EO")
-        raise NotImplementedError(f"sparse EO: no block fits ({facts})")
+        require_smem(need[w], max(f[4] for f in facts.values()), N, what)
+        raise NotImplementedError(f"{what}: no block fits ({facts})")
     per_sm = -(-B // n_sm)
 
     def waves(w):
@@ -173,8 +187,11 @@ def eo_plan(N: int, B: int, key: torch.dtype, nb: int, n_sm: int,
     cands = [w for w in fits if N >= MIN_SITES_PER_LANE * 32 * w] \
         or [min(fits)]
     most = max(2, min(waves(w) for w in cands))
-    cands = [w for w in cands if waves(w) <= most]
-    full = [w for w in cands if warps_per_sm(w) >= WARPS_PER_SM]
+    if sites_per_lane is not None:
+        full = [w for w in cands if N <= sites_per_lane * 32 * w]
+    else:
+        cands = [w for w in cands if waves(w) <= most]
+        full = [w for w in cands if warps_per_sm(w) >= WARPS_PER_SM]
     w = min(full) if full else max(cands)
     f = facts[w]
     coarse = key in (torch.int32, torch.float32)
@@ -189,14 +206,16 @@ def eo_plan(N: int, B: int, key: torch.dtype, nb: int, n_sm: int,
 def coarse_map(key: torch.dtype, nb: int, half_max: Optional[int], J, lf):
     """(lo, scale) of the coarse bins, floor((x - lo) * scale) clamped to
     [0, nb), x = float(half): nb equal bins over [-H, H], H = half_max for
-    int32 keys, else the largest row sum of |J| or |lf| of the start. Any
-    (lo, scale) gives the same moves (the bins are monotone in the key and
-    keys outside the range fall into the end bins); a range that fits the
-    keys keeps the bins sparse, so the select lists their sites."""
+    int32 keys, else the largest row sum of |J| (J None: none) or |lf| of
+    the start. Any (lo, scale) gives the same moves (the bins are monotone
+    in the key and keys outside the range fall into the end bins); a range
+    that fits the keys keeps the bins sparse, so the select lists their
+    sites."""
     if key == torch.int32 and half_max is not None:
         H = float(half_max) + 0.5
     else:
-        H = max(float(J.abs().double().sum(1).max()) if J.numel() else 0.0,
+        H = max(float(J.abs().double().sum(1).max())
+                if J is not None and J.numel() else 0.0,
                 float(lf.abs().max()) if lf.numel() else 0.0)
     H = max(H, 1.0)
     return -H, nb / (2.0 * H)
@@ -215,6 +234,28 @@ def launch_facts(entry: str, head: tuple, device: int, threads: int,
                          device=device)(threads, need))
 
 
+def planned(what: str, record: dict, info_entry: str, head: tuple,
+            smem_of: Callable, N: int, B: int, key: torch.dtype, nb: int,
+            dev, label: str = "sparse EO", **rule) -> dict:
+    """The `eo_plan` of an EO kernel of csrc/eo_chain.cuh on device dev
+    (`rule`: its extra bytes and sites a lane), its instantiations' facts
+    from the C entry `info_entry` (with the key code and flags `head`),
+    checked against the kernel's own shared bytes smem_of(W), and recorded
+    in `record` (the module's LAST_PLAN) under the kernel's name `what`."""
+    plan = eo_plan(N, B, key, nb,
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   lambda w, need: list(launch_facts(
+                       info_entry, head, dev.index or 0, w, need)),
+                   what=label, **rule)
+    smem = smem_of(plan["warps"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{what}: the kernel's shared bytes {smem} differ "
+                           f"from the plan's {plan['smem']}")
+    record.clear()
+    record.update(kernel=what, **plan)
+    return plan
+
+
 def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
                   *, n_moves: int, seed: int, move0: int, chain0: int,
                   key: torch.dtype, nb: int, pspin: bool,
@@ -230,20 +271,12 @@ def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
     dev = sigma.device
     code = KEY_CODES[key]
     K = neigh.shape[1] if neigh.dim() == 2 else 2 * neigh.shape[1]
-    plan = eo_plan(N, B, key, nb,
-                   torch.cuda.get_device_properties(dev).multi_processor_count,
-                   lambda w, need: list(launch_facts(
-                       "rrrmc_eo_sparse_info", (code, int(pspin)),
-                       dev.index or 0, w, need)))
+    plan = planned(what, LAST_PLAN, "rrrmc_eo_sparse_info", (code, int(pspin)),
+                   lambda w: lib.rrrmc_eo_sparse_smem(N, code, nb, w), N, B,
+                   key, nb, dev)
     W = plan["warps"]
-    smem = lib.rrrmc_eo_sparse_smem(N, code, nb, W)
-    if smem != plan["smem"]:
-        raise RuntimeError(f"{what}: the kernel's shared bytes {smem} differ "
-                           f"from the plan's {plan['smem']}")
     lo, scale = (coarse_map(key, nb, half_max, J, lf)
                  if plan["select"] == "coarse" else (0.0, 0.0))
-    LAST_PLAN.clear()
-    LAST_PLAN.update(kernel=what, **plan)
     with torch.cuda.device(dev):
         err = lib.rrrmc_eo_sparse(
             *launch_args(sigma, lf, E, emin, smin, itmin), neigh.data_ptr(),

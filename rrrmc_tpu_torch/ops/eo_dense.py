@@ -1,5 +1,5 @@
 """tau-extremal optimisation (EO) moves on FullyConnected models: the CUDA
-kernel (csrc/eo_dense.cu) and its plain torch version.
+kernel (csrc/eo_dense.cu), its launch plan and its plain torch version.
 
 Source note. The kernel replaces the dense branch of
 rrrmc_tpu/ops/eo_pallas.py::_eo_kernel (`_pallas_eo_run` with dense=True:
@@ -7,14 +7,21 @@ J resident in VMEM, integer N <= 4096, float N <= 2048) and that file's
 _eo_stream_kernel (`_pallas_eo_stream_run`: J streamed from HBM, integer
 N <= 32768, float N <= 16384). The TPU split them by VMEM size and
 recomputed lf = J sigma every move; on the H100 J is read from device memory
-or L2 at every N, and each chain keeps its spins, local fields and best
-spins resident in shared memory (6 bytes a site) while a flip adds the
-winner's row of J, as the dense race kernel does (ops/rejfree_dense.py). The
-TPU's padding of N to a lane or window multiple is not needed. Integer keys
-of a range of at most ops/eo.py::HIST_MAX values are counted in a shared
-histogram that the row update keeps up to date; float keys take the radix
-select. It is bound by the passes over the N resident sites per move and one
-row of J per move.
+or L2 at every N, so one kernel serves both. It runs the move loop of
+csrc/eo_chain.cuh, the sparse EO kernel's (ops/eo.py): W warps a chain by
+ops/eo.py::eo_plan with at most DENSE_SITES_PER_LANE sites a lane, each
+chain's keys half = sigma lf resident in the type the bound on |half|
+allows (ops/eo.py::key_type: int8 on the densified +-J RRG, int16 on
+GraphSK(1024), with exact histogram bins; int32 or float32 with coarse
+bins), its spins and best spins as bits, the ranks drawn ahead, the warp-
+level select and the packed tie race. A flip adds the winner's row of J to
+the keys: every warp of the chain reads the row as 16-byte vectors (16 int8
+or 4 float32 couplings a lane), an all-zero int8 vector skipped, each
+changed key moved between bins. The TPU's padding of N to a lane or window
+multiple is not needed. It is bound by the winner's row of J at every
+chain-move (from device memory where J is larger than L2), the tie race's
+Philox calls and, on SK, whose every key moves at every move, the N bin
+moves.
 
 The move is the sparse EO kernel's (ops/eo.py): the same rank draw, select,
 tie race, streams and outputs. Integer J (|J| <= 127, read as int8) keeps
@@ -29,12 +36,24 @@ from typing import Optional
 
 import torch
 
-from .eo import (BitsFn, _check_args, eo_chunk_reference, hist_bins,
-                 launch_args)
+from .eo import (COARSE_BINS, DENSE_SITES_PER_LANE, KEY_CODES, BitsFn,
+                 _check_args, coarse_map, eo_chunk_reference, hist_bins,
+                 key_type, launch_args, planned)
 from ..core.dtypes import is_integer
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: the last dense EO launch's plan (ops/eo.py::eo_plan's keys)
+LAST_PLAN: dict = {}
+
+
+def dense_select(integer: bool, half_max: Optional[int]):
+    """(key type, bins) of the dense EO kernel: ops/eo.py::key_type's
+    resident type, 2 half_max + 1 exact bins for int8 and int16 keys, else
+    COARSE_BINS coarse ones."""
+    key = key_type(integer, half_max)
+    return key, (hist_bins(True, half_max) if KEY_CODES[key] < 2
+                 else COARSE_BINS)
 
 
 def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
@@ -46,8 +65,9 @@ def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
     ops/rejfree_dense.py::kernel_couplings) in place of the neighbour
     tables.
 
-    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version. `bits` (move, draw) replaces the generator and is taken
+    On a CUDA tensor this launches the kernel with the plan of
+    ops/eo.py::eo_plan (LAST_PLAN); on a CPU tensor it runs the plain
+    version. `bits` (move, draw) replaces the generator and is taken
     by the plain version only."""
     global LAUNCHES
     B, N = sigma.shape
@@ -69,21 +89,23 @@ def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
     from .cuda_build import check, library
 
     lib = library()
-    dev = sigma.device
-    nbins = hist_bins(integer, half_max)
-    smem = lib.rrrmc_eo_dense_smem(N, nbins)
-    cap = lib.rrrmc_eo_dense_max_smem(dev.index or 0)
-    if smem > cap:
-        raise NotImplementedError(
-            f"the dense EO kernel keeps a chain's spins, local fields and "
-            f"best spins in shared memory: N={N} needs {smem} bytes, a block "
-            f"may have {cap}")
-    with torch.cuda.device(dev):
+    key, nb = dense_select(integer, half_max)
+    code = KEY_CODES[key]
+    plan = planned("eo_dense", LAST_PLAN, "rrrmc_eo_dense_info", (code,),
+                   lambda w: lib.rrrmc_eo_dense_smem(N, code, nb, w), N, B,
+                   key, nb, sigma.device, label="dense EO",
+                   sites_per_lane=DENSE_SITES_PER_LANE)
+    # the coarse bins span |lf| of the start, not J's row sums: a dense
+    # row's |J| sum is some sqrt(N) times the fields' spread, and would
+    # crowd the keys into a few bins
+    lo, scale = (coarse_map(key, nb, half_max, None, lf)
+                 if plan["select"] == "coarse" else (0.0, 0.0))
+    with torch.cuda.device(sigma.device):
         err = lib.rrrmc_eo_dense(
             *launch_args(sigma, lf, E, emin, smin, itmin), J.data_ptr(),
             cdf.data_ptr(), N, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, nbins,
-            0 if integer else 1, torch.cuda.current_stream().cuda_stream)
+            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, code, nb, lo, scale,
+            plan["warps"], torch.cuda.current_stream().cuda_stream)
     check(err, "eo_dense launch")
     LAUNCHES += 1
 

@@ -1,12 +1,17 @@
 """tau-EO moves on random K-SAT: the CUDA kernel's wrapper (csrc/eo_sat.cu,
-with csrc/sat.cuh) and its plain torch version. ops/sat.py's source note
-describes the design and holds the eligibility rule.
+with csrc/sat.cuh), its launch plan and its plain torch version. ops/sat.py's
+source note describes the design and holds the eligibility rule.
 
-Source note. Replaces rrrmc_tpu/ops/sat_pallas.py::_eo_sat_kernel: the EO
-select of csrc/eo.cuh ranking the variables by dE itself (its key policy
-without the spin factor), |dE| <= Cmax (the width of the variable-major
-table T), so 2 Cmax + 1 histogram bins, and the incremental count and dE update of ops/sat.py, each atomic
-change of a dE moving one key between bins.
+Source note. Replaces rrrmc_tpu/ops/sat_pallas.py::_eo_sat_kernel. The
+kernel runs the move loop of csrc/eo_chain.cuh, the sparse EO kernel's
+(ops/eo.py), ranking the variables by dE itself: W warps a chain by
+ops/eo.py::eo_plan (32 at 128 chains of GraphSAT(10^4, 3, 4.2)), the ranks
+drawn ahead, the warp-level select over 2 Cmax + 1 exact histogram bins
+(|dE| <= Cmax, the width of the variable-major table T) and the packed tie
+race; dE resident as biased uint8 keys where Cmax <= 127, else biased
+uint16 (`sat_key_type`), beside the clause counts (uint8) and the spins as
+bits. The flip is ops/sat.py's incremental count and dE update by one warp,
+each atomic change of a dE moving its key between bins.
 """
 
 from __future__ import annotations
@@ -15,13 +20,25 @@ from typing import Optional
 
 import torch
 
-from . import require_smem
-from .eo import BitsFn, eo_chunk_reference, key_bins
+from .eo import BitsFn, eo_chunk_reference, key_bins, planned
 from .sat import check_sat_args, de_flip
 from ..models.sat import flip_counts
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: the last SAT EO launch's plan (ops/eo.py::eo_plan's keys)
+LAST_PLAN: dict = {}
+#: the kernel's key types by its codes: dE biased by 128 in a uint8, by
+#: 32768 in a uint16
+SAT_KEY_CODES = {torch.uint8: 0, torch.uint16: 1}
+#: the largest Cmax of the uint8 keys (sat.cuh: kDeByteMax)
+BYTE_KEY_MAX = 127
+
+
+def sat_key_type(cmax: int) -> torch.dtype:
+    """The resident type of the SAT EO kernel's dE keys, |dE| <= Cmax:
+    biased uint8 up to Cmax = 127, else biased uint16."""
+    return torch.uint8 if cmax <= BYTE_KEY_MAX else torch.uint16
 
 
 def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
@@ -31,7 +48,8 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
     ops/eo.py::eo_sparse_chunk, with the satisfied counts sat [B, Mc] int32
     in the place of lf and the model's tables A, L, T, TL in the place of
     neigh/J. The key is dE, |dE| <= Cmax = T.shape[1]: the kernel counts
-    the keys in 2 Cmax + 1 histogram bins."""
+    the keys in 2 Cmax + 1 histogram bins, with the plan of
+    ops/eo.py::eo_plan (LAST_PLAN)."""
     global LAUNCHES
     B, N = sigma.shape
     check_sat_args(sigma, sat, E, {
@@ -52,17 +70,20 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
 
     lib = library()
     Mc, K = A.shape
-    dev = sigma.device
-    nbins = key_bins(T.shape[1], "SAT")
-    require_smem(lib.rrrmc_eo_sat_smem(N, Mc, nbins),
-                 lib.rrrmc_eo_sat_max_smem(dev.index or 0), N, "SAT EO")
-    with torch.cuda.device(dev):
+    cmax = T.shape[1]
+    nbins = key_bins(cmax, "SAT")
+    key = sat_key_type(cmax)
+    code = SAT_KEY_CODES[key]
+    plan = planned("eo_sat", LAST_PLAN, "rrrmc_eo_sat_info", (code,),
+                   lambda w: lib.rrrmc_eo_sat_smem(N, Mc, code, nbins, w), N,
+                   B, key, nbins, sigma.device, extra=Mc, label="SAT EO")
+    with torch.cuda.device(sigma.device):
         err = lib.rrrmc_eo_sat(
             sigma.data_ptr(), sat.data_ptr(), E.data_ptr(), emin.data_ptr(),
             smin.data_ptr(), itmin.data_ptr(), A.data_ptr(), L.data_ptr(),
-            T.data_ptr(), TL.data_ptr(), cdf.data_ptr(), N, Mc, K,
-            T.shape[1], B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
-            chain0 & 0xFFFFFFFF, nbins,
+            T.data_ptr(), TL.data_ptr(), cdf.data_ptr(), N, Mc, K, cmax, B,
+            n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
+            chain0 & 0xFFFFFFFF, code, nbins, plan["warps"],
             torch.cuda.current_stream().cuda_stream)
     check(err, "eo_sat launch")
     LAUNCHES += 1

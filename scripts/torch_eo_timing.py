@@ -18,31 +18,37 @@ where the selected classes differ from a random start's). The cases: EA-3D
 L=8 +-J (row 8's lattice branch, 1024 chains), GraphRRG(10^4, 3) +-J with
 1024 and 128 chains and GraphRRGNormal(10^4, 3) with 1024 (row 10),
 GraphPSpin3(7500, 3) with 128 (row 11), GraphPercStep / Linear /
-XEntr(1023, 511) with 256 (row 20), and the rows that share csrc/eo.cuh:
-GraphSK(1024) with 1024 (row 8's dense branch), densify(GraphRRG(10^4, 3))
-with 1024 and GraphSKNormal(4096) with 512 (row 9), GraphSAT(10^4, 3, 4.2)
-with 128 (row 18).
+XEntr(1023, 511) with 256 (row 20), GraphSK(1024) with 1024 (row 8's dense
+branch), densify(GraphRRG(10^4, 3)) with 1024 and GraphSKNormal(4096) with
+512 (row 9), GraphSAT(10^4, 3, 4.2) with 128 (row 18).
 
 --paths times the EO main paths' extremal_opt calls as chip_smoke.py runs
 them (one untimed call, then --reps calls, host clock around each call and
 a synchronize): EA-3D L=8 (1024 chains, 400 000 moves), GraphRRG(10^4)
 (128 chains, 200 000; 1024 chains, 20 000), GraphRRGNormal(10^4) (1024,
 20 000), GraphPSpin3(7500, 3) (128, 100 000), GraphPercStep and
-GraphPercXEntr(1023, 511) (256, 20 000).
+GraphPercXEntr(1023, 511) (256, 20 000), GraphSK(1024) (1024, 100 000),
+densify(GraphRRG(10^4)) (1024, 20 000), GraphSKNormal(4096) (512, 20 000)
+and GraphSAT(10^4, 3, 4.2) (128, 30 000).
 
---ablation (this tree) takes the sparse kernel's design apart on the row
-cases, each part against the design in the same call: the ranks drawn move
-by move (a variant of csrc/eo_sparse.cu), the flip's row updated one site
-after another by one lane (a variant), the tie race 32 groups a round in
-the place of a 16-byte vector a lane (int8 keys), int16 keys in the place
-of int8 (the wrapper's launch with the int16 key code), every float bin
-crowded (a variant that always takes the radix select over the selected
-bin), and the plan's warps a chain against the others (the kernel's C
-entry, rrrmc_eo_sparse, called with each W and the plan's key type and
-bins).
+--ablation (this tree) takes the EO kernels' designs apart on the row
+cases, each part against the design in the same call, through the
+kernels' C entries (rrrmc_eo_sparse, rrrmc_eo_dense, rrrmc_eo_sat) with
+the plan's key type and bins: the sparse kernel's ranks drawn move by move,
+its flip by one lane, the tie race 32 groups a round in the place of a
+16-byte vector a lane (int8 keys), int16 keys in the place of int8, the
+coarse select's list pass unrolled by the compiler, super-bins moved with
+every bin move, every float bin crowded; the dense kernel's bin moves
+merged in a warp (__match_any_sync), int16 keys site by site and int8
+keys packed, the row vectors in flight (4 for 1 and 1 for 4), no
+zero-vector skip, int16 keys in coarse bins of width 4 and 16 on
+GraphSK(1024) (both from a random start and after WARM moves); the K-SAT
+kernel's uint16 keys for uint8 and its flip's loads one after another; a
+launch of no move (the load and the store) on the dense
+and K-SAT cases; and the plan's warps a chain against the others.
 Variants are built alone from a copy of csrc/ under
-rrrmc_tpu_torch/_build/ablation/ and loaded in the place of the package's
-library for the sparse kernel's calls.
+rrrmc_tpu_torch/_build/ablation/ (VARIANTS: text substitutions in the
+sources).
 
 Prints one JSON line per case and the card's name and power limit; exits 1
 without a card.
@@ -52,7 +58,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import dataclasses
 import json
 import os
 import shutil
@@ -73,7 +78,11 @@ PATHS = (("extremal_opt GraphEA(8, 3)", "ea8", 1024, 400_000),
          ("extremal_opt GraphRRGNormal(10^4)", "rrgn", 1024, 20_000),
          ("extremal_opt GraphPSpin3(7500, 3)", "ps", 128, 100_000),
          ("extremal_opt GraphPercStep(1023, 511)", "step", 256, 20_000),
-         ("extremal_opt GraphPercXEntr(1023, 511)", "xentr", 256, 20_000))
+         ("extremal_opt GraphPercXEntr(1023, 511)", "xentr", 256, 20_000),
+         ("extremal_opt GraphSK(1024)", "sk", 1024, 100_000),
+         ("extremal_opt densify(GraphRRG(10^4))", "drrg", 1024, 20_000),
+         ("extremal_opt GraphSKNormal(4096)", "skn", 512, 20_000),
+         ("extremal_opt GraphSAT(10^4, 3, 4.2)", "sat", 128, 30_000))
 
 
 def card_line() -> str:
@@ -156,9 +165,9 @@ def plan_of(fam_eo):
 
 
 def time_case(torch, root, card, row, label, chunk, tables, kw, start, cdf,
-              reps, move0=0, **extra):
+              reps, move0=0, moves=MOVES, **extra):
     def launch(a):
-        chunk(*a, *tables, cdf, n_moves=MOVES, seed=SEED, move0=move0, **kw)
+        chunk(*a, *tables, cdf, n_moves=moves, seed=SEED, move0=move0, **kw)
 
     def once():
         # the timed launch is enqueued behind an untimed one, so the events
@@ -171,7 +180,7 @@ def time_case(torch, root, card, row, label, chunk, tables, kw, start, cdf,
     once()                                                # warm-up
     ms = [once() for _ in range(reps)]
     print(json.dumps({
-        "root": root, "row": row, "case": label, "moves": MOVES,
+        "root": root, "row": row, "case": label, "moves": moves,
         "move0": move0, "ms": ms, "median_ms": statistics.median(ms),
         "min_ms": min(ms),
         "plan": None if "warps" in extra else plan_of(chunk), "card": card,
@@ -216,24 +225,24 @@ def path_lines(torch, rt, root, card, reps):
             "rate_unit": "moves*chains/s", "card": card}), flush=True)
 
 
-def variant(cuda_build, name, subs):
-    """The library of a variant of csrc/eo_sparse.cu (text substitutions
-    `subs`), built alone from a copy of csrc/ and loaded with the package's
-    C signatures: it holds the sparse EO kernel's functions only."""
+def variant(cuda_build, name, source, subs):
+    """The library of a variant of one EO kernel source (`source`, built
+    alone from a copy of csrc/ whose files take the text substitutions
+    `subs`, (file, old, new)), loaded with the package's C signatures: it
+    holds that kernel's functions only."""
     d = os.path.join(cuda_build.BUILD_DIR, "ablation", name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, d)
-    path = os.path.join(d, "eo_sparse.cu")
-    text = open(path).read()
-    for old, new in subs:
+    for fname, old, new in subs:
+        path = os.path.join(d, fname)
+        text = open(path).read()
         if old not in text:
-            raise RuntimeError(f"{name}: no {old!r} in eo_sparse.cu")
-        text = text.replace(old, new)
-    open(path, "w").write(text)
+            raise RuntimeError(f"{name}: no {old!r} in {fname}")
+        open(path, "w").write(text.replace(old, new))
     so = os.path.join(d, "lib.so")
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared",
-                    "-o", so, path], check=True, capture_output=True,
-                   timeout=900)
+                    "-o", so, os.path.join(d, source)], check=True,
+                   capture_output=True, timeout=900)
     lib = ctypes.CDLL(so)
     for fn, (res, argt) in cuda_build._SIGNATURES.items():
         if hasattr(lib, fn):
@@ -242,123 +251,232 @@ def variant(cuda_build, name, subs):
     return lib
 
 
-#: the variants of --ablation: name -> substitutions in eo_sparse.cu
+#: the dense flip's bin moves with the lanes of a warp that move between one
+#: pair of exact bins merged into one atomic each (__match_any_sync)
+MERGED_MOVE = """\
+    if constexpr (C::kSel == kEoHist) {
+      const bool moved = ok && b0 != b1;
+      const unsigned peers =
+          __match_any_sync(kAll, moved ? (b0 << 16) | b1 : -1);
+      if (moved && __ffs(peers) - 1 == c.lane) {
+        const int n = __popc(peers);
+        atomicAdd(c.hist + b0, -n);
+        atomicAdd(c.hist + b1, n);
+        if (c.nb > 32 && (b0 >> 5) != (b1 >> 5)) {
+          atomicAdd(c.sup + (b0 >> 5), -n);
+          atomicAdd(c.sup + (b1 >> 5), n);
+        }
+      }
+    } else if (ok) {
+      c.move_bins(b0, b1);
+    }
+"""
+
+#: the variants of --ablation: name -> (kernel source, substitutions
+#: (file, old, new), the cases' model keys it is timed on)
 VARIANTS = {
-    "ranks move by move": [(
-        "    if ((m & 31) == 0) rl = rrrmc::rank_of(a.cdf, N, a.seed, chain, "
+    "ranks move by move": ("eo_sparse.cu", [(
+        "eo_chain.cuh",
+        "    if ((m & 31) == 0) rl = rank_of(a.cdf, N, a.seed, chain, "
         "mv + lane);\n    const int r = __shfl_sync(kAll, rl, m & 31);",
-        "    const int r = rrrmc::rank_of(a.cdf, N, a.seed, chain, mv);\n"
-        "    (void)rl;")],
-    "flip by one lane": [
-        ("      if (K < 32 && !__any_sync(kAll, twice)) {",
-         "      if (false) {"),
-        ("        if (K <= 32) {", "        if (false) {")],
-    "tie race 32 groups a round": [(
-        "      rrrmc::warp_tie_packed(keys, NV, cw * 32, kT, v, hist[bin] == 1, "
-        "q,\n                             a.seed, chain, mv, best, win);",
-        "      rrrmc::warp_tie(NG, cw * 32, kT, [&](int g) { return "
-        "rrrmc::word_mask(reinterpret_cast<const uint32_t*>(keys)[g], v); },"
-        " q, a.seed, chain, mv, best, win);")],
-    "every float bin crowded": [("      if (c <= 32) {", "      if (false) {")],
+        "    const int r = rank_of(a.cdf, N, a.seed, chain, mv);\n"
+        "    (void)rl;")], {"ea8", "rrg", "rrgn", "ps"}),
+    "flip by one lane": ("eo_sparse.cu", [
+        ("eo_sparse.cu", "    if (K < 32 && !__any_sync(kAll, twice)) {",
+         "    if (false) {"),
+        ("eo_sparse.cu", "      if (K <= 32) {", "      if (false) {")],
+        {"ea8", "rrg", "rrgn", "ps"}),
+    # int8 keys only (the other instantiations build, but are not timed)
+    "tie race 32 groups a round": ("eo_sparse.cu", [(
+        "eo_chain.cuh",
+        "      warp_tie_packed(keys, NV, cw * 32, kT, v - key_of(KT(0)),\n"
+        "                      hist[bin] == 1, q, a.seed, chain, mv, best, "
+        "win);",
+        "      warp_tie(NG, cw * 32, kT, [&](int g) { return "
+        "word_mask(reinterpret_cast<const uint32_t*>(keys)[g], v); },"
+        " q, a.seed, chain, mv, best, win);")], {"ea8", "rrg", "ps"}),
+    "super-bins moved with every bin move": ("eo_sparse.cu", [(
+        "eo_chain.cuh", "if (nb > 32 && (b0 >> 5) != (b1 >> 5)) {",
+        "if (nb > 32) {")], {"rrgn"}),
+    "super-bins moved with every bin move (dense)": ("eo_dense.cu", [(
+        "eo_chain.cuh", "if (nb > 32 && (b0 >> 5) != (b1 >> 5)) {",
+        "if (nb > 32) {")], {"sk"}),
+    "list pass unrolled by the compiler": ("eo_sparse.cu", [(
+        "eo_chain.cuh", "#pragma unroll 1\n      for (int i0 = cw * 32; i0 < N;",
+        "      for (int i0 = cw * 32; i0 < N;")], {"rrgn"}),
+    "every float bin crowded": ("eo_sparse.cu", [(
+        "eo_chain.cuh", "      if (cl <= 32) {", "      if (false) {")],
+        {"rrgn"}),
+    # the dense flip's design points
+    "bin moves merged in a warp": ("eo_dense.cu", [(
+        "eo_dense.cu", "    if (ok) c.move_bins(b0, b1);\n", MERGED_MOVE)],
+        {"sk", "drrg"}),
+    "int16 keys site by site": ("eo_dense.cu", [(
+        "eo_dense.cu", "return key_bytes == 2;", "return false;")], {"sk"}),
+    "int8 keys packed": ("eo_dense.cu", [(
+        "eo_dense.cu", "return key_bytes == 2;", "return key_bytes <= 2;")],
+        {"drrg"}),
+    "four row vectors in flight packed": ("eo_dense.cu", [(
+        "eo_dense.cu", "kRowLoadsPacked = 1, kRowLoadsSites = 4;",
+        "kRowLoadsPacked = 4, kRowLoadsSites = 4;")], {"sk"}),
+    "one row vector in flight site by site": ("eo_dense.cu", [(
+        "eo_dense.cu", "kRowLoadsPacked = 1, kRowLoadsSites = 4;",
+        "kRowLoadsPacked = 1, kRowLoadsSites = 1;")], {"drrg", "skn"}),
+    "no zero-vector skip": ("eo_dense.cu", [(
+        "eo_dense.cu", "(q.x | q.y | q.z | q.w) != 0u", "true")], {"drrg"}),
+    # the K-SAT kernel's loads issued ahead (sat.cuh)
+    "flip loads one after another": ("eo_sat.cu", [(
+        "eo_sat.cu", "sat_flip_at<32, true>", "sat_flip_at<32, false>")],
+        {"sat"}),
+    # int16 keys in coarse bins (key code 1 takes the coarse select)
+    "int16 keys in coarse bins": ("eo_dense.cu", [
+        ("eo_dense.cu",
+         "    case 1: return by_warps<int16_t, kEoHist, int8_t>(W);",
+         "    case 1: return by_warps<int16_t, kEoCoarse, int8_t>(W);"),
+        ("eo_dense.cu", "kKeyBytes[key], nb, W, key >= 2, 0)",
+         "kKeyBytes[key], nb, W, key >= 1, 0)")], set()),
 }
 
-#: the variants that hold only for int8 keys (the others' instantiations
-#: build, but are not timed)
-INT8_ONLY = {"tie race 32 groups a round"}
+#: the widths 2^k of the int16 coarse bins timed on GraphSK(1024)
+COARSE_WIDTHS = (4, 16)
 
 
-def int16_keys(torch, lib, chunk):
-    """The sparse wrapper with int16 keys in the place of int8 (the kernel's
-    C entry with key code 1, the same 2 half_max + 1 bins)."""
-    from rrrmc_tpu_torch.ops import eo
-
-    def run(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *, n_moves,
-            seed, half_max, move0=0):
-        eo.sparse_launch("eo_sparse", sigma, lf, E, emin, smin, itmin, neigh,
-                         J, cdf, n_moves=n_moves, seed=seed, move0=move0,
-                         chain0=0, key=torch.int16,
-                         nb=eo.hist_bins(True, half_max), pspin=False)
-
-    run.__module__ = chunk.__module__
-    return run
-
-
-def warps_chunk(torch, chunk, plan, w):
-    """The sparse or PSpin3 EO wrapper's launch on w warps a chain: the
-    kernel's C entry with the key type and bins of `plan` (the wrapper's
-    eo.LAST_PLAN) and w in the place of the plan's warps; a ValueError
-    where the block does not fit on an SM."""
+def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
+                  coarse=None):
+    """The EO wrapper's launch through its kernel's C entry (the sparse or
+    PSpin3, dense or K-SAT one) on w warps a chain, with the key code and
+    bins of `plan` (the wrapper's LAST_PLAN) unless `code` / `nb` are given,
+    from the library `lib` (the package's by default); `coarse` (lo, scale)
+    gives the bin map of a coarse select. A ValueError where the block does
+    not fit on an SM."""
     from rrrmc_tpu_torch.ops import cuda_build, eo
 
+    kind = chunk.__module__.rsplit(".", 1)[1]
     key = getattr(torch, plan["key"])
-    code, nb = eo.KEY_CODES[key], plan["bins"]
+    if code is None:
+        code = (eo.KEY_CODES if kind != "eo_sat"
+                else sys.modules[chunk.__module__].SAT_KEY_CODES)[key]
+    nb = plan["bins"] if nb is None else nb
 
     def run(sigma, lf, E, emin, smin, itmin, *tables_cdf, n_moves, seed,
             move0=0, half_max=None):
         *tables, cdf = tables_cdf
-        pspin = len(tables) == 1
-        neigh, J = (tables[0], None) if pspin else tables
         B, N = sigma.shape
-        K = 2 * neigh.shape[1] if pspin else neigh.shape[1]
-        lib = cuda_build.library()
-        smem = lib.rrrmc_eo_sparse_smem(N, code, nb, w)
-        facts = eo.launch_facts("rrrmc_eo_sparse_info", (code, int(pspin)),
-                                sigma.device.index or 0, w, smem)
+        L = lib or cuda_build.library()
+        dev = sigma.device.index or 0
+        st = torch.cuda.current_stream().cuda_stream
+        state = eo.launch_args(sigma, lf, E, emin, smin, itmin)
+        if coarse is not None:
+            lo, scale = coarse
+        elif plan["select"] == "coarse":
+            lo, scale = eo.coarse_map(
+                key, nb, half_max,
+                tables[-1] if kind in ("eo", "eo_pspin") else None, lf)
+        else:
+            lo, scale = 0.0, 0.0
+        if kind in ("eo", "eo_pspin"):
+            pspin = len(tables) == 1
+            neigh, J = (tables[0], None) if pspin else tables
+            K = 2 * neigh.shape[1] if pspin else neigh.shape[1]
+            smem = L.rrrmc_eo_sparse_smem(N, code, nb, w)
+            facts = eo.info_fn(L.rrrmc_eo_sparse_info, code, int(pspin),
+                               device=dev)(w, smem)
+            call = lambda: L.rrrmc_eo_sparse(
+                *state, neigh.data_ptr(),
+                J.data_ptr() if J is not None else None, cdf.data_ptr(), N,
+                K, B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, 0,
+                code, int(pspin), nb, lo, scale, w, st)
+        elif kind == "eo_dense":
+            (J,) = tables
+            smem = L.rrrmc_eo_dense_smem(N, code, nb, w)
+            facts = eo.info_fn(L.rrrmc_eo_dense_info, code, device=dev)(
+                w, smem)
+            call = lambda: L.rrrmc_eo_dense(
+                *state, J.data_ptr(), cdf.data_ptr(), N, B, n_moves,
+                seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, 0, code, nb, lo,
+                scale, w, st)
+        else:
+            A, Lt, T, TL = tables
+            Mc, K = A.shape
+            smem = L.rrrmc_eo_sat_smem(N, Mc, code, nb, w)
+            facts = eo.info_fn(L.rrrmc_eo_sat_info, code, device=dev)(
+                w, smem)
+            call = lambda: L.rrrmc_eo_sat(
+                sigma.data_ptr(), lf.data_ptr(), E.data_ptr(),
+                emin.data_ptr(), smin.data_ptr(), itmin.data_ptr(),
+                A.data_ptr(), Lt.data_ptr(), T.data_ptr(), TL.data_ptr(),
+                cdf.data_ptr(), N, Mc, K, T.shape[1], B, n_moves,
+                seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, 0, code, nb, w, st)
         if smem > facts[4] or facts[0] == 0:
             raise ValueError(f"{w} warps a chain do not fit ({facts})")
-        lo, scale = (eo.coarse_map(key, nb, half_max, J, lf)
-                     if plan["select"] == "coarse" else (0.0, 0.0))
-        err = lib.rrrmc_eo_sparse(
-            *eo.launch_args(sigma, lf, E, emin, smin, itmin),
-            neigh.data_ptr(), J.data_ptr() if J is not None else None,
-            cdf.data_ptr(), N, K, B, n_moves, seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, 0, code, int(pspin), nb, lo, scale, w,
-            torch.cuda.current_stream().cuda_stream)
-        cuda_build.check(err, f"eo_sparse on {w} warps a chain")
+        cuda_build.check(call(), f"{kind} on {w} warps a chain")
 
     run.__module__ = chunk.__module__
     return run
 
 
+#: the cases of --ablation by model key (CASES' labels), and the cases
+#: timed again after WARM moves too
+ABLATION_KEYS = ("ea8", "rrg", "rrgn", "ps", "sk", "drrg", "skn", "sat")
+WARM_ABLATION = {"sk"}
+
+
 def ablation(torch, rt, root, card, reps):
     from rrrmc_tpu_torch.ops import cuda_build, eo
+    from rrrmc_tpu_torch.samplers.families import half_bound
 
-    package = cuda_build.library()
-    ms = models(rt, {"ea8", "rrg", "rrgn", "ps"})
+    cuda_build.library()
+    ms = models(rt, set(ABLATION_KEYS))
     cases = [c for c in CASES if c[2] in ms]
-    libs = {"design": package}
-    libs.update({name: variant(cuda_build, name.replace(" ", "_"), subs)
-                 for name, subs in VARIANTS.items()})
+    libs = {name: variant(cuda_build, name.replace(" ", "_"), source, subs)
+            for name, (source, subs, _) in VARIANTS.items()}
     for row, label, key, B in cases:
         chunk, tables, kw, start, cdf = eo_state(torch, rt, ms[key], B)
-        plan = None
-        for name, lib in libs.items():
-            if (name == "every float bin crowded" and key != "rrgn") or (
-                    name in INT8_ONLY and key == "rrgn"):
+        starts = [(0, start, "random")]
+        if key in WARM_ABLATION:
+            warm = [t.clone() for t in start]
+            chunk(*warm, *tables, cdf, n_moves=WARM, seed=SEED, **kw)
+            starts.append((WARM, warm, f"after {WARM}"))
+        for move0, st, begin in starts:
+            def timed(fn, name, **extra):
+                try:
+                    time_case(torch, root, card, row, label, fn, tables, kw,
+                              st, cdf, reps, move0=move0, ablation=name,
+                              chains=B, begin=begin, **extra)
+                except ValueError as e:
+                    print(json.dumps({"root": root, "row": row,
+                                      "case": label, "ablation": name,
+                                      "refused": str(e), "card": card}),
+                          flush=True)
+
+            timed(chunk, "design")
+            plan = plan_of(chunk)
+            if key in ("sk", "drrg", "skn", "sat") and not move0:
+                timed(chunk, "no move (the load and the store)", moves=0)
+            for name, (_, _, keys) in VARIANTS.items():
+                if key in keys:
+                    timed(c_entry_chunk(torch, chunk, plan, plan["warps"],
+                                        lib=libs[name]), name)
+            if key in ("ea8", "rrg"):
+                timed(c_entry_chunk(torch, chunk, plan, plan["warps"],
+                                    code=1), "int16 keys")
+            if key == "sat":
+                timed(c_entry_chunk(torch, chunk, plan, plan["warps"],
+                                    code=1), "uint16 keys")
+            if key == "sk":
+                half = half_bound(ms[key])
+                for width in COARSE_WIDTHS:
+                    nb = (2 * half) // width + 1
+                    timed(c_entry_chunk(
+                        torch, chunk, plan, plan["warps"], code=1, nb=nb,
+                        lib=libs["int16 keys in coarse bins"],
+                        coarse=(-float(half), 1.0 / width)),
+                        f"int16 keys in coarse bins of {width}")
+            if move0:
                 continue
-            cuda_build._lib = lib
-            try:
-                time_case(torch, root, card, row, label, chunk, tables, kw,
-                          start, cdf, reps, ablation=name, chains=B)
-            finally:
-                cuda_build._lib = package
-            if name == "design":
-                plan = plan_of(chunk)
-        if key in ("ea8", "rrg"):
-            time_case(torch, root, card, row, label,
-                      int16_keys(torch, package, chunk), tables, kw, start,
-                      cdf, reps, ablation="int16 keys", chains=B)
-        for w in eo.EO_WARPS:
-            try:
-                time_case(torch, root, card, row, label,
-                          warps_chunk(torch, chunk, plan, w), tables, kw,
-                          start, cdf, reps, ablation=f"{w} warps a chain",
-                          chains=B, warps=w)
-            except ValueError as e:
-                print(json.dumps({"root": root, "row": row, "case": label,
-                                  "ablation": f"{w} warps a chain",
-                                  "refused": str(e), "card": card}),
-                      flush=True)
+            for w in eo.EO_WARPS:
+                timed(c_entry_chunk(torch, chunk, plan, w),
+                      f"{w} warps a chain", warps=w)
 
 
 def main() -> int:
