@@ -76,6 +76,24 @@ Phases, any failure exits non-zero:
      GraphPercStep, GraphPercLinear and GraphPercXEntr(15, 9) must equal
      the exact Boltzmann mean of the 2^15 states within max(5 standard
      errors, 0.05).
+   - the north star's experiment (`factors_path`):
+     experiments.equilibrated_factors on GraphRRG(10_000, 3, +-J,
+     seed=167), built with no device argument, at beta=3 with 128 chains
+     and target_s=1: every row on its CUDA kernel (kernel-site,
+     kernel-rejfree-sparse) for at least 0.5 s, finite positive factors,
+     z/N in (0, 1], E_per_spin_eq within FACTORS_EQ_TOL of the JAX
+     package's factors_sparse row; each row's E/N and z/N printed beside
+     the JAX row's.
+   - the generic torch paths (`generic_path`): on GraphRRG(1000, 3) +-J,
+     128 chains at beta=2, equilibrated by kernel bklMC, rrrMC, bklMC and
+     wtmMC with backend="torch" against the same calls on the kernel route
+     (route "torch", E == energy(sigma), second-half E/N within 5 standard
+     errors over the chains); rrrMC on GraphRRGNormalDiscretized(1000, 3)
+     (a Double); a bklMC hook that stops the run; stats_overlaps with
+     bklMC, 16 chains, 2 disorders (q2 and x2 finite, in [0, 1]); the
+     snapshot stream of generic bklMC on GraphRRG(10_000, 3) with 128
+     chains, cut to its memory budget, its snapshots' energies equal to
+     the energy series.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
@@ -125,7 +143,7 @@ the row-by-row commit). Every dense and composite sweep case
 prints its launch plan (chains a block, span, shared bytes, commit path).
 Integer bases must agree bit for bit, E and z/N included. Then the
 refusals: a composite above shared memory, a sparse base under
-sweepMC_quant and a Double under bklMC each raise.
+sweepMC_quant and a Double under bklMC(backend="kernel") each raise.
 
 The perceptron phases of 2 are the perceptron race kernel in bkl, wtm and
 rrr mode and the perceptron EO kernel (EO_CMP_MOVES moves; the histogram
@@ -242,6 +260,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -356,6 +375,27 @@ PERC_ITERS_MET, PERC_EO_MOVES = 5_000, 20_000
 PERC_LAW_N, PERC_LAW_P, PERC_LAW_SEED, PERC_LAW_ITERS = 15, 9, 11, 40_000
 PERC_NAMES = {"step": "GraphPercStep", "linear": "GraphPercLinear",
               "xentr": "GraphPercXEntr"}
+#: the factor path: equilibrated_factors on GraphRRG(10^4, 3, +-J,
+#: seed=167) at beta=3 with 128 chains, each row measured for >= half of
+#: FACTORS_TARGET_S; its E_per_spin_eq held within FACTORS_EQ_TOL of the
+#: JAX package's factors_sparse row (bench_all_results.json, about twice the
+#: spread of the JAX runs)
+FACTORS_BETA, FACTORS_CHAINS, FACTORS_TARGET_S = 3.0, 128, 1.0
+FACTORS_EQ_TOL = 0.01
+#: the generic path: GraphRRG(1000, 3) +-J, 128 chains at beta=2, after
+#: GEN_EQ_SWEEPS sweeps of kernel bklMC; the generic and kernel runs'
+#: lengths (rrr moves, bkl virtual iterations, wtm samples of step N*10),
+#: and the overlap pipeline's chains, disorders and iterations
+GEN_N, GEN_CHAINS, GEN_BETA, GEN_EQ_SWEEPS = 1000, 128, 2.0, 1000
+GEN_ITERS_RRR, GEN_ITERS_BKL, GEN_WTM_SAMPLES = 2_000, 200_000, 20
+GEN_OV_CHAINS, GEN_OV_DISORDER, GEN_OV_ITERS = 16, 2, 50_000
+#: the snapshot stream at the north star's width: GraphRRG(10_000, 3) +-J,
+#: 128 chains, generic bklMC with the configuration observer from a random
+#: start for WIDE_ITERS virtual iterations (several chunks once the chunk
+#: is cut to the stream budget), four checkpoints; the device memory the
+#: call may take beyond STREAM_BYTES
+WIDE_N, WIDE_CHAINS, WIDE_ITERS, WIDE_CKPT = 10_000, 128, 1_000, 4
+WIDE_SLACK_BYTES = 1 << 26
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 #: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
@@ -2695,9 +2735,9 @@ def replica_refusals(card):
     """No fallback: the race kernel refuses a composite whose state exceeds
     shared memory (GraphQSKT(4096, 32): 131 072 spins, 401 536 bytes with
     its int16 base fields; GraphQSKT(4096, 16) fits in 204 864), the sweep
-    kernel a composite over a sparse base, and the race samplers a Double
-    that is not a Quant / RE composite; each raises, none runs a plain
-    version."""
+    kernel a composite over a sparse base, and the race kernel, asked for,
+    a Double that is not a Quant / RE composite; each raises, none runs a
+    plain version."""
     import rrrmc_tpu_torch as rt
 
     big = rt.GraphQSKT(4096, 32, Q_GAMMA, Q_BETA, seed=1)
@@ -2709,14 +2749,282 @@ def replica_refusals(card):
              lambda: rt.rrrMC(big, Q_BETA, 10, chains=8), NotImplementedError),
             ("sweepMC_quant on Quant(RRG)",
              lambda: rt.sweepMC_quant(sparse, 1.0, 1, chains=8), ValueError),
-            ("bklMC on GraphRRGNormalDiscretized",
-             lambda: rt.bklMC(dbl, 1.0, 10, chains=8), NotImplementedError)):
+            ("bklMC(backend='kernel') on GraphRRGNormalDiscretized",
+             lambda: rt.bklMC(dbl, 1.0, 10, chains=8, backend="kernel"),
+             NotImplementedError)):
         try:
             call()
         except err as e:
             print(f"refused as it must be: {what}: {e}  [{card}]")
         else:
             raise AssertionError(f"{what} ran: no fallback allowed")
+
+
+def _factor_row(graph: str, beta: float) -> dict:
+    """The JAX package's equilibrated-factor row for (graph, beta) on the
+    sparse race kernel (bench_all_results.json `factors_sparse`)."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "bench_all_results.json"
+    rows = json.loads(path.read_text())["factors_sparse"]
+    return next(r for r in rows if r["graph"] == graph and r["beta"] == beta)
+
+
+def factors_path(card):
+    """The north star's experiment: equilibrated_factors on GraphRRG(10^4,
+    3, +-J, seed=167), built and run with no device argument, at beta=3
+    with 128 chains, every launch count set to 0 just before it. Each row
+    must have run its CUDA kernel (kernel-site, kernel-rejfree-sparse) for
+    at least FACTORS_TARGET_S / 2, with finite positive factors and z/N in
+    (0, 1]; E_per_spin_eq must lie within FACTORS_EQ_TOL of the JAX row's.
+    Each row's E/N and z/N are printed beside the JAX row's and not held:
+    rows at beta >= 3 still relax while measured, so they depend on the
+    row's length. Returns (records, the launch counts)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.experiments import equilibrated_factors
+    from rrrmc_tpu_torch.ops import rejfree, site
+
+    m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED)
+    ref = _factor_row("rrg_pmJ", FACTORS_BETA)
+    torch.cuda.synchronize()
+    site.LAUNCHES = rejfree.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = equilibrated_factors(m, FACTORS_BETA, chains=FACTORS_CHAINS,
+                             target_s=FACTORS_TARGET_S)
+    dt = time.perf_counter() - t0
+    counts = {"site_metropolis": site.LAUNCHES,
+              "rejfree_sparse": rejfree.LAUNCHES}
+    require(all(n > 0 for n in counts.values()),
+            f"factors: launch counts {counts}")
+    want = {"standard": "kernel-site", "rrr": "kernel-rejfree-sparse",
+            "bkl": "kernel-rejfree-sparse", "wtm": "kernel-rejfree-sparse"}
+    records = []
+    for name, row in r["rows"].items():
+        f = r["factors_vs_rrr"][name]
+        require(row["backend"] == want[name] and row["impl"] == "cuda",
+                f"factors {name}: route {row['backend']} {row['impl']}")
+        require(row["wall_s"] >= FACTORS_TARGET_S / 2,
+                f"factors {name}: {row['wall_s']} s measured")
+        require(math.isfinite(f) and f > 0, f"factors {name}: factor {f}")
+        zn = row.get("mean_z_over_n")
+        require(zn is None or 0 < zn <= 1, f"factors {name}: z/N {zn}")
+        jr = ref["rows"][name]
+        print(f"factors beta={FACTORS_BETA} {name}: factor {f:.6g} "
+              f"(JAX {ref['factors_vs_rrr'][name]:.6g}), "
+              f"{row['iters_per_s']:.6g} iterations/s a chain over "
+              f"{row['wall_s']:.3f} s, E/N {row['E_per_spin']:.5f} "
+              f"(JAX {jr['E_per_spin']:.5f}), z/N "
+              f"{zn if zn is None else f'{zn:.6f}'} (JAX "
+              f"{jr.get('mean_z_over_n')})  [{card}]")
+        records.append({"run": f"equilibrated_factors {name}",
+                        "seconds": row["wall_s"], "chains": FACTORS_CHAINS,
+                        "E_per_spin": row["E_per_spin"],
+                        "rate": row["iters_per_s"] * FACTORS_CHAINS,
+                        "rate_unit": "nominal iterations*chains/s",
+                        **({"mean_z_over_n": zn} if zn is not None else {})})
+    diff = r["E_per_spin_eq"] - ref["E_per_spin_eq"]
+    print(f"factors beta={FACTORS_BETA}: E_per_spin_eq "
+          f"{r['E_per_spin_eq']:.6f}, JAX {ref['E_per_spin_eq']:.6f}, "
+          f"difference {diff:+.6f} (bound {FACTORS_EQ_TOL}); equilibration "
+          f"{r['equil_wall_s']:.2f} s, {r['equil_moves_per_chain']:.0f} "
+          f"moves a chain; path {dt:.1f} s, launches {json.dumps(counts)}"
+          f"  [{card}]")
+    require(abs(diff) <= FACTORS_EQ_TOL,
+            f"factors: E_per_spin_eq off the JAX row's by {diff}")
+    return records, counts
+
+
+def generic_path(card):
+    """The generic torch paths of rrrMC, bklMC and wtmMC on the card:
+    GraphRRG(1000, 3) +-J, 128 chains at beta=2, equilibrated by kernel
+    bklMC; from those spins each sampler with backend="torch" and on its
+    kernel route. The generic runs must report the route "torch" and an
+    energy equal to energy(sigma), and the mean E/N of each generic
+    series' second half must equal the kernel route's within 5 standard
+    errors over the chains. Then rrrMC (generic: no race kernel takes a
+    Double) on GraphRRGNormalDiscretized(1000, 3, (-1, 1)), E within 1e-4
+    max(1, |E|); a bklMC hook that stops the run at its first call; and
+    stats_overlaps with bklMC (generic: a snapshot observer) on
+    GraphRRG(1000, 3), 16 chains, 2 disorders, q2 and x2 finite and in
+    [0, 1]. Last, the snapshot stream at the north star's width
+    (`wide_snapshots`). Returns (records, the race kernel's launch
+    count)."""
+    import numpy as np
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.experiments import stats_overlaps
+    from rrrmc_tpu_torch.ops import rejfree
+
+    X = rt.GraphRRG(GEN_N, 3, (-1, 1), seed=SEED)
+    torch.cuda.synchronize()
+    rejfree.LAUNCHES = 0
+    t_path = time.perf_counter()
+    eq = GEN_EQ_SWEEPS * GEN_N
+    _, st = rt.bklMC(X, GEN_BETA, eq, step=eq, chains=GEN_CHAINS, seed=1,
+                     backend="kernel")
+    C0 = st.sigma
+    step_w = 10.0 * GEN_N
+    runs = {
+        "rrrMC": lambda b: rt.rrrMC(X, GEN_BETA, GEN_ITERS_RRR,
+                                    step=GEN_ITERS_RRR // 20,
+                                    chains=GEN_CHAINS, seed=2, C0=C0,
+                                    backend=b),
+        "bklMC": lambda b: rt.bklMC(X, GEN_BETA, GEN_ITERS_BKL,
+                                    step=GEN_ITERS_BKL // 20,
+                                    chains=GEN_CHAINS, seed=3, C0=C0,
+                                    backend=b),
+        "wtmMC": lambda b: rt.wtmMC(X, GEN_BETA, GEN_WTM_SAMPLES,
+                                    step=step_w, chains=GEN_CHAINS, seed=4,
+                                    C0=C0, backend=b)}
+
+    def half_mean(Es):
+        h = Es[:, Es.shape[1] // 2:].double().mean(1) / GEN_N
+        return float(h.mean()), float(h.std()) / h.numel() ** 0.5
+
+    records = []
+    for name, call in runs.items():
+        out = {}
+        for backend in ("torch", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Es, s = call(backend)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            route = rt.LAST_ROUTE["backend"]
+            want = "torch" if backend == "torch" else "kernel-rejfree-sparse"
+            require(route == want, f"generic {name} {backend}: route {route}")
+            require(Es.shape == (GEN_CHAINS, 20)
+                    and bool(torch.isfinite(Es).all())
+                    and torch.equal(X.energy(s.sigma), s.E),
+                    f"generic {name} {backend}: series or energy")
+            out[backend] = half_mean(Es) + (dt, int(s.accepted.sum()))
+        (a, sa, ta, na), (b, sb, tb, nb) = out["torch"], out["kernel"]
+        bound = 5 * math.hypot(sa, sb)
+        print(f"generic {name}: E/N torch {a:.5f} +- {sa:.5f} ({ta:.2f} s, "
+              f"{na / GEN_CHAINS:.0f} moves a chain), kernel {b:.5f} +- "
+              f"{sb:.5f} ({tb:.2f} s), |difference| {abs(a - b):.5f} "
+              f"(bound {bound:.5f})  [{card}]")
+        require(abs(a - b) <= bound, f"generic {name}: E/N {a} against the "
+                                     f"kernel route's {b}")
+        records.append({"run": f"{name} backend=torch", "seconds": ta,
+                        "chains": GEN_CHAINS, "E_per_spin": a,
+                        "moves_per_chain": na / GEN_CHAINS,
+                        "moves_rate": na / ta, "energy_err": 0.0})
+
+    dbl = rt.GraphRRGNormalDiscretized(GEN_N, 3, (-1, 1), seed=SEED)
+    t0 = time.perf_counter()
+    Es, s = rt.rrrMC(dbl, GEN_BETA, GEN_ITERS_RRR, step=GEN_ITERS_RRR // 20,
+                     chains=GEN_CHAINS, seed=5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = float((dbl.energy(s.sigma).double() - s.E.double()).abs().max())
+    require(rt.LAST_ROUTE["backend"] == "torch"
+            and err <= 1e-4 * max(1.0, float(s.E.abs().max()))
+            and bool(torch.isfinite(Es).all()),
+            f"generic rrrMC on a Double: route {rt.LAST_ROUTE['backend']}, "
+            f"|E - energy| {err}")
+    print(f"generic rrrMC GraphRRGNormalDiscretized({GEN_N}, 3): E/N "
+          f"{float(Es[:, -1].double().mean()) / GEN_N:.5f}, |E - energy| "
+          f"{err:.3g}, {dt:.2f} s  [{card}]")
+    records.append({"run": "rrrMC GraphRRGNormalDiscretized backend=torch",
+                    "seconds": dt, "chains": GEN_CHAINS,
+                    "E_per_spin": float(Es[:, -1].double().mean()) / GEN_N,
+                    "energy_err": err})
+
+    calls = []
+    Es, s = rt.bklMC(X, GEN_BETA, 10 ** 8, step=10 ** 6, chains=GEN_CHAINS,
+                     seed=6, C0=C0, chunk_moves=64,
+                     hook=lambda it, model, state: calls.append(it) or False)
+    require(len(calls) == 1 and 0 < calls[0] < 10 ** 8
+            and bool((Es[:, -1] == 0).all())
+            and torch.equal(X.energy(s.sigma), s.E),
+            f"generic bklMC hook: calls {calls}")
+    print(f"generic bklMC hook: stopped at iteration {calls[0]} of 10^8 "
+          f"after one chunk  [{card}]")
+
+    t0 = time.perf_counter()
+    ov = stats_overlaps(
+        lambda d: rt.GraphRRG(GEN_N, 3, (-1, 1), seed=d), rt.bklMC,
+        GEN_BETA, GEN_OV_ITERS, chains=GEN_OV_CHAINS,
+        n_disorder=GEN_OV_DISORDER, seed=SEED)
+    dt = time.perf_counter() - t0
+    require(rt.LAST_ROUTE["backend"] == "torch", "stats_overlaps route")
+    for k in ("q2_mean", "x2_mean"):
+        v = ov[k][1:] if k == "q2_mean" else ov[k]
+        require(bool(np.all(np.isfinite(v)) and np.all((v >= 0) & (v <= 1))),
+                f"stats_overlaps {k} {v}")
+    print(f"stats_overlaps bklMC GraphRRG({GEN_N}, 3), {GEN_OV_CHAINS} "
+          f"chains, {GEN_OV_DISORDER} disorders: t {ov['t'].tolist()}, q2 "
+          f"{np.round(ov['q2_mean'], 4).tolist()}, x2 "
+          f"{np.round(ov['x2_mean'], 4).tolist()}, {dt:.2f} s  [{card}]")
+    records.append(wide_snapshots(card))
+    torch.cuda.synchronize()
+    counts = {"rejfree_sparse": rejfree.LAUNCHES}
+    require(counts["rejfree_sparse"] > 0, "generic path: no race launch")
+    print(f"generic path: {time.perf_counter() - t_path:.1f} s, launches "
+          f"{json.dumps(counts)}  [{card}]")
+    return records, counts
+
+
+def wide_snapshots(card) -> dict:
+    """Generic bklMC with the configuration observer on GraphRRG(WIDE_N,
+    3) +-J, WIDE_CHAINS chains: the [chunk, B, N] snapshot stream must be
+    cut to STREAM_BYTES (one hook call a chunk, as many chunks as the
+    slowest chain's moves need at the cut chunk), the device memory the
+    call takes must stay within STREAM_BYTES + WIDE_SLACK_BYTES, and each
+    snapshot's energy must equal the energy series of the same call
+    without the observer, with the same final spins."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.experiments import config_series_observer
+    from rrrmc_tpu_torch.samplers import bkl
+
+    W = rt.GraphRRG(WIDE_N, 3, (-1, 1), seed=SEED)
+    chunk = bkl.STREAM_BYTES // (WIDE_CHAINS * (WIDE_N + 8))
+    kw = dict(step=WIDE_ITERS // WIDE_CKPT, chains=WIDE_CHAINS, seed=7,
+              backend="torch")
+    Es, s1 = rt.bklMC(W, GEN_BETA, WIDE_ITERS, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hooks = []
+    t0 = time.perf_counter()
+    snaps, s2 = rt.bklMC(W, GEN_BETA, WIDE_ITERS,
+                         observer=config_series_observer(),
+                         hook=lambda it, m, st: hooks.append(it) or True,
+                         **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    moves = int(s2.accepted.max())
+    require(rt.LAST_ROUTE["backend"] == "torch" and chunk < 1024
+            and len(hooks) == -(-moves // chunk) and len(hooks) >= 2,
+            f"wide snapshots: chunk {chunk}, {len(hooks)} chunks for "
+            f"{moves} moves")
+    require(peak <= bkl.STREAM_BYTES + WIDE_SLACK_BYTES,
+            f"wide snapshots: {peak} bytes at the peak")
+    require(snaps.shape == Es.shape + (WIDE_N,)
+            and snaps.dtype == torch.int8, "wide snapshots: shape")
+    filled = (snaps != 0).any(-1)
+    E_snap = W.to_physical(W.energy(snaps.reshape(-1, WIDE_N))).reshape(
+        Es.shape)
+    require(bool(filled[:, :-1].all()) and torch.equal(E_snap[filled],
+                                                       Es[filled])
+            and torch.equal(s1.sigma, s2.sigma)
+            and torch.equal(W.energy(s2.sigma), s2.E),
+            "wide snapshots: the snapshots' energies against the series")
+    print(f"wide snapshots GraphRRG({WIDE_N}, 3), {WIDE_CHAINS} chains: "
+          f"chunk {chunk} moves, {len(hooks)} chunks for {moves} moves, "
+          f"peak {peak / 2 ** 20:.1f} MiB over the call (stream budget "
+          f"{bkl.STREAM_BYTES / 2 ** 20:.0f} MiB; uncut "
+          f"{1024 * WIDE_CHAINS * (WIDE_N + 8) / 2 ** 20:.0f} MiB), "
+          f"{int(filled.sum())} snapshots equal to the series, {dt:.2f} s  "
+          f"[{card}]")
+    return {"run": f"bklMC snapshots GraphRRG({WIDE_N}) backend=torch",
+            "seconds": dt, "chains": WIDE_CHAINS, "chunk": chunk,
+            "chunks": len(hooks), "moves_per_chain_max": moves,
+            "peak_bytes": peak}
 
 
 def main() -> int:
@@ -2983,14 +3291,19 @@ def main() -> int:
     rep_records, rep_counts, rep_launches = replica_path(
         card, qskt, skre, qrrg, rerrg, qnt, qeat)
     perc_records, perc_counts = perc_path(card, percs)
+    factor_records, factor_counts = factors_path(card)
+    generic_records, generic_counts = generic_path(card)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
                                 "PSpin3": ps_counts, "K-SAT": sat_counts,
                                 "replica": rep_counts,
-                                "perceptron": perc_counts},
+                                "perceptron": perc_counts,
+                                "factors": factor_counts,
+                                "generic": generic_counts},
                       "runs": rrg_records + ea_records + sk_records
                       + eo_records + ps_records + sat_records
-                      + rep_records + perc_records}))
+                      + rep_records + perc_records + factor_records
+                      + generic_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],

@@ -63,8 +63,12 @@ def sat_rejfree_ok(model) -> bool:
     slots moves its clause's count once)."""
     from ..models.sat import SATModel
 
-    if not (isinstance(model, SATModel) and model.N >= 8):
-        return False
+    return (isinstance(model, SATModel) and model.N >= 8
+            and distinct_variables(model))
+
+
+def distinct_variables(model) -> bool:
+    """Whether every clause of a SATModel holds K distinct variables."""
     srt = model.A.sort(dim=1).values
     return not bool((srt[:, 1:] == srt[:, :-1]).any())
 

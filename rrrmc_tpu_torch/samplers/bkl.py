@@ -1,5 +1,5 @@
-"""bklMC: rejection-free Bortz-Kalos-Lebowitz, and the race-kernel loop
-shared by bklMC / wtmMC / rrrMC.
+"""bklMC: rejection-free Bortz-Kalos-Lebowitz, the race-kernel loop shared
+by bklMC / wtmMC / rrrMC, and the generic torch path of bklMC and wtmMC.
 
 Semantics follow the reference: each move draws a geometric number of
 virtually-rejected iterations `skip` with success probability z/N, then an
@@ -9,19 +9,18 @@ with standardMC at equal `iters`.
 
 Chains advance different numbers of virtual iterations per move, so
 checkpoints cannot be emitted in lockstep. Each chunk of moves records a
-per-chain (coordinate, energy) stream, and checkpoint energies are filled by
-a batched searchsorted over the stream: the batch generalization of the
+per-chain (coordinate, observable) stream, and checkpoint values are filled
+by a batched searchsorted over the stream: the batch generalization of the
 reference's checkpoint drain loop.
 
-This port runs bkl, wtm and rrr on the race kernels only, one per model
-family (samplers/families.py): the sparse one (ops/rejfree.py) for Pairwise
-models, the dense one (ops/rejfree_dense.py) for FullyConnected models, the
-hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, the
-perceptrons' (ops/perc.py) for PercStep, PercLinear and PercXEntr, and the
-replica composites' (ops/replica.py) for GraphQuant and GraphRobustEnsemble
-over a dense or sparse base; their generic torch paths, with hooks and
-observers, and every other composite (`Double`), are ROADMAP.md queue 1,
-item 3.
+Two routes. The race kernel of the model's family (samplers/families.py):
+the sparse one (ops/rejfree.py) for Pairwise models, the dense one
+(ops/rejfree_dense.py) for FullyConnected models, the hypergraph ones
+(ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, the perceptrons'
+(ops/perc.py) and the replica composites' (ops/replica.py); it records
+energies only. The generic torch path (`make_bkl_move`, a batched step of
+plain tensor ops on [B, N]) runs any model, takes hooks and observers, and
+is what backend="torch" asks for (the JAX package's "xla").
 """
 
 from __future__ import annotations
@@ -32,48 +31,85 @@ import torch
 
 from ..core.model import Model
 from ..ops.rejfree import coord_dtype
-from .common import DEFAULT_SEED, MCState, init_state, kernel_seed, set_route
-from .families import ELIGIBLE, family_of, resident_state
+from .common import (DEFAULT_SEED, MCState, default_observer, init_state,
+                     kernel_seed, set_route, working_copy)
+from .families import ELIGIBLE, family_of, inexact_reason, resident_state
+from .moves import acceptance_weights, categorical_from_weights, geometric_skip
 
 #: iteration targets above this would overflow the kernels' int32
 #: coordinates
 MAX_ITERS = 10 ** 9
 
+#: bytes of per-move coordinate and observable streams one chunk of the
+#: generic path may hold: a snapshot observer's stream is [chunk, B, N]
+#: (1.3 GB of int8 at 128 chains of 10^4 spins and 1024 moves), so its
+#: chunks are cut to fit
+STREAM_BYTES = 1 << 28
 
-def require_kernel_route(sampler: str, model, *, backend: str, hook,
-                         observer):
-    """Raise unless the call can run on a race kernel."""
-    later = "ROADMAP.md queue 1, item 3 (the generic torch samplers)"
-    if backend not in ("auto", "kernel"):
+
+def kernel_route(sampler: str, model, *, backend: str, hook, observer,
+                 iters=None) -> bool:
+    """True where the call runs on a race kernel, False where it takes the
+    generic torch path. backend "kernel" raises unless the model's family
+    has a race kernel, the call has no hook or observer and `iters` fits
+    the kernels' coordinates; "torch" forces the generic path; "auto" takes
+    the kernel for an eligible model with no hook or observer, and the
+    generic path otherwise. An eligible call that "auto" would run on the
+    kernel raises, as "kernel" does, where `iters` does not fit: it is not
+    moved to the far slower generic path. A model whose own delta_all and
+    flip are inexact (`families.inexact_reason`) is refused on every
+    route."""
+    if backend not in ("auto", "kernel", "torch"):
+        raise ValueError(f"{sampler}: unknown backend {backend!r}")
+    why = inexact_reason(model)
+    if why is not None:
         raise NotImplementedError(
-            f"{sampler}(backend={backend!r}): only the kernel route is "
-            f"ported; the generic torch path is {later}")
-    if hook is not None or observer is not None:
-        raise NotImplementedError(
-            f"{sampler} with a hook or an observer needs the generic torch "
-            f"path: {later}")
-    if family_of(model) is None:
-        raise NotImplementedError(
-            f"{sampler}: {type(model).__name__} is not eligible for the "
-            f"race kernels ({ELIGIBLE}), and the generic torch path is "
-            f"{later}")
+            f"{sampler}: {type(model).__name__} is refused on every route; "
+            f"the samplers take {why}")
+    eligible = family_of(model) is not None
+    plain_call = hook is None and observer is None
+    if backend == "kernel":
+        if not plain_call:
+            raise NotImplementedError(
+                f"{sampler}(backend='kernel') takes no hook or observer: "
+                f"the race kernels record energies only (backend 'auto' or "
+                f"'torch' runs the generic path)")
+        if not eligible:
+            raise NotImplementedError(
+                f"{sampler}: {type(model).__name__} is not eligible for the "
+                f"race kernels ({ELIGIBLE})")
+    elif backend == "torch" or not (eligible and plain_call):
+        return False
+    if iters is not None and iters > MAX_ITERS:
+        raise ValueError(f"{sampler}: iters must be <= {MAX_ITERS} on the "
+                         f"kernel route (backend 'torch' runs the generic "
+                         f"path at any length)")
+    return True
 
 
 def fill_checkpoints(S, step, x_start, o_start, xs, os_):
-    """Fill the checkpoint series S [B, K] (checkpoint coordinate
+    """Fill the checkpoint series S [B, K, ...] (checkpoint coordinate
     ns_k = (k+1)*step) with the observable in effect just before the first
-    move whose post-move coordinate reaches ns_k. xs / os_: [chunk, B]
-    per-move coordinate and observable streams (xs non-decreasing per
-    chain); x_start / o_start [B]: values at the chunk start."""
-    B, n_ckpt = S.shape
+    move whose post-move coordinate reaches ns_k: a move whose coordinate
+    passes several checkpoints gives each of them its pre-move value.
+    xs [chunk, B]: per-move coordinate streams (non-decreasing per chain);
+    os_ [chunk, B, ...]: the post-move observable stream; x_start [B] and
+    o_start [B, ...]: the values at the chunk start."""
+    B, n_ckpt = S.shape[:2]
     ns = (torch.arange(1, n_ckpt + 1, dtype=xs.dtype, device=xs.device)
           * torch.tensor(step, dtype=xs.dtype, device=xs.device))
     xb = xs.t().contiguous()
     idx = torch.searchsorted(xb, ns.expand(B, n_ckpt).contiguous(),
                              right=False)        # moves strictly before ns
-    vals = torch.cat([o_start[:, None], os_.t()], dim=1).gather(1, idx)
+    rows = torch.arange(B, device=xs.device)[:, None]
+    # the value after move idx - 1, or the chunk start's where idx == 0
+    # (indexed in place: no copy of the stream)
+    vals = os_[(idx - 1).clamp(min=0), rows]
+    trail = (1,) * (S.ndim - 2)
+    vals = torch.where((idx == 0).view(idx.shape + trail),
+                       o_start[:, None], vals)
     newly = (ns[None, :] > x_start[:, None]) & (ns[None, :] <= xb[:, -1:])
-    return torch.where(newly, vals.to(S.dtype), S)
+    return torch.where(newly.view(newly.shape + trail), vals.to(S.dtype), S)
 
 
 def rejfree_mc(model, beta: float, mode: str, target, step,
@@ -117,6 +153,86 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
                        generator=state.generator)
 
 
+def make_bkl_move(model: Model, beta: float, iters: int):
+    """The generic BKL move over a batch of chains.
+
+    move(sigma, aux, E, accepted, it, u_skip, u_mv) advances, in place,
+    every chain whose coordinate it [B] (int64) is below `iters`: dE of
+    every site, the weights min(1, e^{-beta dE}), the site i drawn from
+    them with the uniforms u_mv [B], the skip drawn with u_skip [B] at
+    p = z/N, and the masked flip; E gains dE_i, it gains skip + 1. The
+    weights' arithmetic runs in the uniforms' dtype. Returns (i, skip)."""
+    n = model.N
+
+    def move(sigma, aux, E, accepted, it, u_skip, u_mv):
+        active = it < iters
+        dE = model.delta_all(sigma, aux)
+        w = acceptance_weights(model.to_physical(dE).to(u_mv.dtype), beta)
+        i, z = categorical_from_weights(u_mv, w)
+        skip = geometric_skip(u_skip, z / n)
+        rows = torch.arange(sigma.shape[0], device=sigma.device)
+        dEi = dE[rows, i]
+        model.flip(sigma, aux, i, active)
+        E.add_(torch.where(active, dEi, torch.zeros_like(dEi)))
+        it.add_(torch.where(active, skip + 1, torch.zeros_like(skip)))
+        accepted.add_(active.to(torch.int32))
+        return i, skip
+
+    return move
+
+
+def stream_mc(model, st: MCState, move, coord, target, step, n_ckpt: int,
+              chunk_moves: int, observer, hook, hook_coord):
+    """The generic path's chunk loop, shared by bklMC and wtmMC: run
+    move() (which advances st and the coordinate tensor `coord` [B] in
+    place) in chunks until every chain's coordinate reaches `target`,
+    recording per-move coordinate and observable streams and filling the
+    checkpoint series from them (`fill_checkpoints`); one host sync per
+    chunk. A chunk holds at most STREAM_BYTES of streams. hook(x, model,
+    st), x = hook_coord(least coordinate), is called once a chunk;
+    returning False stops the run. Returns the series [B, n_ckpt, ...]."""
+    obs = observer or default_observer
+    o0 = obs(model, st.sigma, st.aux, st.E)
+    B = o0.shape[0]
+    S = o0.new_zeros((B, n_ckpt) + tuple(o0.shape[1:]))
+    per_move = (o0.numel() * o0.element_size()
+                + coord.numel() * coord.element_size())
+    chunk = max(1, min(chunk_moves, STREAM_BYTES // per_move))
+    xs = coord.new_empty((chunk,) + tuple(coord.shape))
+    os_ = o0.new_empty((chunk,) + tuple(o0.shape))
+    while bool(coord.min() < target):
+        x_start = coord.clone()
+        o_start = obs(model, st.sigma, st.aux, st.E).clone()
+        for m in range(chunk):
+            move()
+            xs[m] = coord
+            os_[m] = obs(model, st.sigma, st.aux, st.E)
+        S = fill_checkpoints(S, step, x_start, o_start, xs, os_)
+        if hook is not None and hook(hook_coord(coord.min()), model,
+                                     st) is False:
+            break
+    return S
+
+
+def _bkl_torch(model, beta, iters, step, state, chunk_moves, observer,
+               hook):
+    st = working_copy(state)
+    dev = st.sigma.device
+    B = st.sigma.shape[0]
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    move = make_bkl_move(model, beta, iters)
+
+    def advance():
+        u_skip = torch.rand(B, generator=st.generator, device=dev)
+        u_mv = torch.rand(B, generator=st.generator, device=dev)
+        move(st.sigma, st.aux, st.E, st.accepted, it, u_skip, u_mv)
+
+    S = stream_mc(model, st, advance, it, iters, step, iters // step,
+                  chunk_moves, observer, hook, lambda x: int(x))
+    set_route("torch")
+    return S, st
+
+
 def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           chunk_moves: int = 1024, hook=None, observer=None,
@@ -125,15 +241,25 @@ def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
     """Rejection-free BKL; `iters` counts virtual (rejected-inclusive)
     iterations. Returns (Es [chains, iters // step], final MCState).
 
-    Runs on the race kernel of the model's family (families.py: the CUDA
-    kernel for a CUDA state, its plain version on the CPU), `chunk_moves`
-    moves per launch. backend "auto" and "kernel" both take it; hooks, observers and
-    ineligible models raise NotImplementedError."""
-    require_kernel_route("bklMC", model, backend=backend, hook=hook,
-                         observer=observer)
-    if iters > MAX_ITERS:
-        raise ValueError(f"bklMC: iters must be <= {MAX_ITERS}")
+    hook(it, model, state) -> False stops early (called once a chunk, with
+    the chains' least coordinate). observer(model, sigma, aux, E) replaces
+    the checkpoint energies with any per-chain observable ([B, ...]; the
+    series is then [chains, iters // step, ...]), each checkpoint taking
+    the value in effect at its coordinate exactly as energies do.
+
+    backend "kernel": the race kernel of the model's family (families.py:
+    the CUDA kernel for a CUDA state, its plain version on the CPU),
+    `chunk_moves` moves a launch, raising for a hook, an observer, an
+    ineligible model or iters > MAX_ITERS; "torch": the generic path
+    (`make_bkl_move`) on any model; "auto": the kernel for an eligible
+    model with no hook or observer (raising for iters > MAX_ITERS as
+    "kernel" does), else the generic path."""
+    on_kernel = kernel_route("bklMC", model, backend=backend, hook=hook,
+                             observer=observer, iters=iters)
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
-    return rejfree_mc(model, float(beta), "bkl", int(iters), int(step),
-                      state, iters // step, chunk_moves)
+    if on_kernel:
+        return rejfree_mc(model, float(beta), "bkl", int(iters), int(step),
+                          state, iters // step, chunk_moves)
+    return _bkl_torch(model, float(beta), int(iters), int(step), state,
+                      chunk_moves, observer, hook)

@@ -152,7 +152,9 @@ def run_sweeps(model: Model, state: MCState, beta, make_step: Callable,
     for _ in range(n_checkpoints):
         for _ in range(moves_per_checkpoint):
             step(state)
-        series.append(obs_fn(model, state.sigma, state.aux, state.E))
+        # a copy: the observable may be the live state (the spins, or a
+        # float E), which the next move updates in place
+        series.append(obs_fn(model, state.sigma, state.aux, state.E).clone())
     if not series:
         o = obs_fn(model, state.sigma, state.aux, state.E)
         return state, o.new_zeros((0,) + tuple(o.shape))

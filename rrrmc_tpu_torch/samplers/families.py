@@ -145,8 +145,31 @@ FAMILIES = (
 
 
 def family_of(model) -> Optional[Family]:
-    """The first family whose kernels take `model`, or None."""
+    """The first family whose kernels take `model`, or None: then bklMC,
+    wtmMC and rrrMC take the generic torch path."""
     return next((f for f in FAMILIES if f.eligible(model)), None)
+
+
+def inexact_reason(model) -> Optional[str]:
+    """Why the model's own delta_all and flip do not follow its energy, so
+    that no route of bklMC, wtmMC or rrrMC may run it; None for a sound
+    model. Two models the JAX package builds and samples are refused: a
+    SATModel whose clause holds a variable twice (delta_all and flip count
+    such a clause's slots separately; ROADMAP.md queue 3) and a Perceptron
+    whose patterns are not all +-1 (delta_all assumes a flip moves every
+    stability by 2). Their energy invariant would fail on every route."""
+    from ..models.perceptron import Perceptron
+    from ..models.sat import SATModel
+    from ..ops.perc import plus_minus_one
+    from ..ops.sat import distinct_variables
+
+    if isinstance(model, SATModel) and not distinct_variables(model):
+        return ("a SATModel whose clauses hold distinct variables (a "
+                "repeated variable's slots count its clause twice)")
+    if isinstance(model, Perceptron) and not plus_minus_one(model.xi):
+        return ("a Perceptron with +-1 patterns (delta_all assumes a flip "
+                "moves every stability by 2)")
+    return None
 
 
 def resident_state(fam: Family, model, sigma, E):

@@ -47,3 +47,28 @@ def accept_factor(u, c, x):
     `accept(c, x)`), in the log domain: u < c e^x <=> log u < log c + x,
     exact at any magnitude of c and x."""
     return torch.log(u) < torch.log(c) + x
+
+
+def inner_view(model):
+    """(inner model, aux projection): the identity for single models, the
+    exactly-sampled part of a Double and its aux for composites."""
+    inner = model.inner
+    if inner is None:
+        return model, (lambda aux: aux)
+    return inner, model.inner_aux
+
+
+def select_state(pred, new, cur):
+    """Per chain b, `new` where pred[b] else `cur`, written into `cur` in
+    place: a state tensor whose axis 0 holds each chain's rows together
+    (B rows, or B * M for a replica composite's base aux), or a tuple of
+    them (a composite's aux). Returns `cur`."""
+    if isinstance(cur, tuple):
+        for a, b in zip(new, cur):
+            select_state(pred, a, b)
+        return cur
+    if torch.is_tensor(cur):
+        rows = pred.repeat_interleave(cur.shape[0] // pred.shape[0])
+        mask = rows.view((-1,) + (1,) * (cur.ndim - 1))
+        cur.copy_(torch.where(mask, new, cur))
+    return cur

@@ -1,0 +1,130 @@
+"""Where a move of the generic torch path goes (rrrmc_tpu_torch/samplers/
+{bkl,wtm,rrr}.py), on one CUDA card: one call each of bklMC, wtmMC and
+rrrMC with backend="torch" on GraphRRG(1000, 3) +-J (seed 167), 128 chains
+at beta=2, of exactly MOVES moves (bkl and wtm: one chunk of MOVES moves,
+stopped by the hook; rrr: one checkpoint of MOVES moves).
+
+Each call runs twice after a warm-up: once timed with CUDA events around
+it (the wall time a move), once under torch.profiler (CPU and CUDA
+activities). Per move the script reports the device kernels, the kernel
+launch calls, the aten operator calls (nested ones included), the host
+synchronisations (cudaStreamSynchronize, cudaDeviceSynchronize,
+cudaEventSynchronize), the cudaMemcpy* calls (of any direction: a copy to
+the host would also show as a synchronisation), the device time summed
+over the kernels and its share of the wall time, the wall time a launch
+call, and the aten operators that take the most host time. One JSON
+object per sampler on stdout, with the card's name and power limit.
+
+    python scripts/torch_generic_profile.py [--out profile.json]
+
+A script in scripts/ needs the repo on PYTHONPATH.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+
+import torch
+
+import rrrmc_tpu_torch as rt
+
+N, K, SEED, CHAINS, BETA, MOVES = 1000, 3, 167, 128, 2.0, 200
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize")
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def calls(X, C0):
+    """Each sampler's generic call of exactly MOVES moves."""
+    stop = lambda *a: False   # noqa: E731 (one chunk, then stop)
+    kw = dict(chains=CHAINS, C0=C0, chunk_moves=MOVES, backend="torch")
+    return {
+        "bklMC": lambda seed: rt.bklMC(X, BETA, 10 ** 9, step=10 ** 9,
+                                       seed=seed, hook=stop, **kw),
+        "wtmMC": lambda seed: rt.wtmMC(X, BETA, 1, step=1e9, seed=seed,
+                                       hook=stop, **kw),
+        "rrrMC": lambda seed: rt.rrrMC(X, BETA, MOVES, step=MOVES,
+                                       seed=seed, **kw)}
+
+
+def profile(call, card: str) -> dict:
+    """Time and profile call(seed) as set out in the module docstring."""
+    call(1)                                    # warm-up
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    call(2)
+    t1.record()
+    torch.cuda.synchronize()
+    wall_ms = t0.elapsed_time(t1)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call(3)
+        torch.cuda.synchronize()
+    kernels, device_us = 0, 0.0
+    runtime = collections.Counter()
+    aten = collections.Counter()
+    aten_us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            device_us += e.time_range.elapsed_us()
+        elif e.name.startswith(("cuda", "cu")):
+            runtime[e.name] += 1
+        elif e.name.startswith("aten::"):
+            aten[e.name] += 1
+            aten_us[e.name] += e.self_cpu_time_total
+    launches = sum(runtime[n] for n in LAUNCHES)
+    copies = sum(c for n, c in runtime.items() if n.startswith("cudaMemcpy"))
+    syncs = {n: runtime[n] / MOVES for n in SYNCS if runtime[n]}
+    top = [{"op": n, "per_move": aten[n] / MOVES,
+            "host_us_per_move": aten_us[n] / MOVES}
+           for n, _ in aten_us.most_common(8)]
+    return {"moves": MOVES, "chains": CHAINS, "card": card,
+            "wall_ms": wall_ms, "wall_us_per_move": 1e3 * wall_ms / MOVES,
+            "kernels_per_move": kernels / MOVES,
+            "launch_calls_per_move": launches / MOVES,
+            "aten_ops_per_move": sum(aten.values()) / MOVES,
+            "syncs_per_move": syncs,
+            "memcpy_calls_per_move": copies / MOVES,
+            "device_us_per_move": device_us / MOVES,
+            "device_busy_share": device_us / (1e3 * wall_ms),
+            "wall_us_per_launch": (1e3 * wall_ms / launches
+                                   if launches else None),
+            "top_aten_by_host_time": top}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_generic_profile: no CUDA device is visible")
+    card = card_line()
+    print(card, flush=True)
+    X = rt.GraphRRG(N, K, (-1, 1), seed=SEED)
+    C0 = rt.init_state(X, CHAINS, SEED).sigma
+    out = {}
+    for name, call in calls(X, C0).items():
+        out[name] = profile(call, card)
+        print(json.dumps({"sampler": name, **out[name]}), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -139,16 +139,22 @@ def test_ea_instance_file(tmp_path):
 
 def test_unported_constructors_raise():
     """The NormalDiscretized builders build Doubles (an inner part on the
-    levels plus a residual); the race samplers on a Double that is not a
-    Quant / RE composite are not ported (ROADMAP.md queue 1, item 3) and
-    raise."""
+    levels plus a residual). The race samplers run a Double that is not a
+    Quant / RE composite on the generic torch path (rrr by the DoubleGraph
+    law), with the running physical energy within float32 rounding of
+    energy(sigma); the kernel route, asked for, raises."""
     for build in (lambda: pt.GraphRRGNormalDiscretized(12, 3, (-1, 1), **CPU),
                   lambda: pt.GraphEANormalDiscretized(2, 2, (-1, 1), **CPU),
                   lambda: pt.GraphFieldsNormalDiscretized(8, (-1, 1), **CPU)):
         m = build()
         assert isinstance(m, pt.Double)
-        with pytest.raises(NotImplementedError, match="Double"):
-            pt.bklMC(m, 1.0, 10, chains=2, **CPU)
+        for f in (pt.rrrMC, pt.bklMC):
+            Es, st = f(m, 1.0, 200, step=20, chains=2, **CPU)
+            assert pt.LAST_ROUTE["backend"] == "torch"
+            err = (m.energy(st.sigma).double() - st.E.double()).abs().max()
+            assert float(err) <= 1e-5 * m.N and Es.shape == (2, 10)
+            with pytest.raises(NotImplementedError, match="Double"):
+                f(m, 1.0, 10, chains=2, backend="kernel", **CPU)
 
 
 @pytest.mark.parametrize("name", ["RRG_frac", "RRGNormal", "Fields"])

@@ -180,8 +180,9 @@ def test_extremal_opt_routes(fam):
 def test_replica_aliases(alias):
     """The Quant and RE composites over a step perceptron: standardMC and
     extremal_opt(backend="torch") keep the energy invariant; the race
-    samplers have no kernel for them and raise with the generic path's
-    item."""
+    samplers have no kernel for them: they run the generic torch path,
+    with the same energy check, and raise where the kernel is asked
+    for."""
     X = getattr(pt, alias)(11, 5, 3, 1.0 if alias.startswith("GraphQ")
                            else 0.5, 1.0, seed=3, **CPU)
     Es, st = pt.standardMC(X, 1.0, 300, step=30, chains=8, seed=1, **CPU)
@@ -191,8 +192,13 @@ def test_replica_aliases(alias):
     err = (X.energy(R.sigma).double() - R.E.double()).abs().max()
     assert float(err) <= 1e-4 * max(1.0, float(R.E.abs().max()))
     assert family_of(X) is None
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        pt.bklMC(X, 1.0, 100, chains=8, **CPU)
+    for f in (pt.bklMC, pt.rrrMC):
+        Es, st = f(X, 1.0, 100, step=10, chains=8, **CPU)
+        assert pt.LAST_ROUTE["backend"] == "torch"
+        err = (X.energy(st.sigma).double() - st.E.double()).abs().max()
+        assert float(err) <= 1e-4 * max(1.0, float(st.E.abs().max()))
+        with pytest.raises(NotImplementedError, match="not eligible"):
+            f(X, 1.0, 100, chains=8, backend="kernel", **CPU)
 
 
 def test_builders_default_to_the_card():
@@ -230,8 +236,9 @@ def test_shared_patterns_keep_their_own_family():
 
 def test_even_n_is_refused():
     """An even-N Perceptron with a step table is not eligible for the
-    kernels (its stabilities can be 0, where the elementwise g is wrong),
-    and extremal_opt(backend="auto") takes the torch route on it."""
+    kernels (its stabilities can be 0, where the elementwise g is wrong):
+    extremal_opt(backend="auto") and bklMC take the torch route on it, and
+    bklMC(backend="kernel") raises."""
     N, P = 16, 7
     d = np.arange(-N, N + 1, 2)
     m = Perceptron(xi=torch.from_numpy(gen_xi(N, P,
@@ -245,5 +252,8 @@ def test_even_n_is_refused():
     assert torch.equal(m.energy(R.sigma).to(torch.float32), R.E)
     with pytest.raises(ValueError, match="odd"):
         pt.GraphPercStep(16, 7, seed=1, **CPU)
-    with pytest.raises(NotImplementedError):
-        pt.bklMC(m, 1.0, 100, chains=8, **CPU)
+    Es, st = pt.bklMC(m, 1.0, 100, step=10, chains=8, **CPU)
+    assert pt.LAST_ROUTE["backend"] == "torch"
+    assert torch.equal(m.energy(st.sigma), st.E)
+    with pytest.raises(NotImplementedError, match="not eligible"):
+        pt.bklMC(m, 1.0, 100, chains=8, backend="kernel", **CPU)

@@ -121,11 +121,15 @@ def test_extremal_opt_kernel_route_equals_torch_route():
 
 
 def test_eligibility():
-    """N < 9 stays off the kernels (the JAX rule): the race samplers raise,
-    extremal_opt takes the generic route unless the kernel is asked for."""
+    """N < 9 stays off the kernels (the JAX rule): the race samplers and
+    extremal_opt take the generic route unless the kernel is asked for."""
     m = pt.GraphPSpin3(6, 2, seed=1, **CPU)
-    with pytest.raises(NotImplementedError, match="PSpin3"):
-        pt.bklMC(m, 1.0, 100, **CPU)
+    for f, n in ((pt.bklMC, 100), (pt.wtmMC, 5), (pt.rrrMC, 100)):
+        Es, st = f(m, 1.0, n, chains=4, **CPU)
+        assert pt.LAST_ROUTE["backend"] == "torch"
+        assert torch.equal(m.energy(st.sigma), st.E)
+        with pytest.raises(NotImplementedError, match="PSpin3"):
+            f(m, 1.0, n, backend="kernel", **CPU)
     with pytest.raises(NotImplementedError):
         pt.extremal_opt(m, 1.4, 10, backend="kernel", **CPU)
     pt.extremal_opt(m, 1.4, 10, chains=2, **CPU)

@@ -296,8 +296,12 @@ def test_dense_rejfree_ok_and_checks():
     with pytest.raises(ValueError, match="mode"):
         rejfree_dense_chunk(st.sigma, lf, st.E, *z, kernel_couplings(m),
                             **dict(kw, mode="metropolis"))
+    small = pt.GraphSK(6, **CPU)
     with pytest.raises(NotImplementedError, match="not eligible"):
-        pt.bklMC(pt.GraphSK(6, **CPU), 1.0, 10, **CPU)
+        pt.bklMC(small, 1.0, 10, backend="kernel", **CPU)
+    Es, st = pt.bklMC(small, 1.0, 10, **CPU)
+    assert pt.LAST_ROUTE["backend"] == "torch"
+    assert torch.equal(small.energy(st.sigma), st.E)
 
 
 def _boltzmann_mean(model, beta):

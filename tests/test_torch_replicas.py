@@ -325,15 +325,21 @@ def test_composite_masks_match_jax():
 
 def test_ineligible_models_raise():
     """No fallback: the sweep kernel refuses a sparse base, the race
-    samplers a Double that is not a Quant / RE composite, sweepMC a
-    composite over a dense base (that is sweepMC_quant's)."""
+    kernels a Double that is not a Quant / RE composite (which the race
+    samplers run on the generic torch path unless the kernel is asked
+    for), sweepMC a composite over a dense base (that is
+    sweepMC_quant's)."""
     r = CASES["RERRG"][1]()
     with pytest.raises(ValueError, match="replica sweep kernel"):
         pt.sweepMC_quant(r, 1.0, 1, chains=2, **CPU)
     dbl = pt.GraphRRGNormalDiscretized(12, 3, (-1, 0, 1), seed=6, **CPU)
     for fn in (pt.rrrMC, pt.bklMC):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            fn(dbl, 1.0, 10, chains=2, **CPU)
+        Es, st = fn(dbl, 1.0, 10, chains=2, **CPU)
+        assert pt.LAST_ROUTE["backend"] == "torch"
+        err = (dbl.energy(st.sigma).double() - st.E.double()).abs().max()
+        assert float(err) <= 1e-5 * dbl.N
+        with pytest.raises(NotImplementedError, match="not eligible"):
+            fn(dbl, 1.0, 10, chains=2, backend="kernel", **CPU)
     with pytest.raises(NotImplementedError, match="sweepMC_quant"):
         pt.sweepMC(CASES["QSKT"][1](), 1.0, 1, chains=2, **CPU)
     with pytest.raises(NotImplementedError, match="no sweep kernel"):

@@ -129,16 +129,27 @@ def test_state_continuation():
 
 
 def test_kernel_only_samplers_raise():
+    """backend="torch", a hook, an observer or a model without a race
+    kernel take the generic torch path (exact running energy); the kernel
+    route, asked for, still raises on each of them."""
     m = pt.GraphRRG(16, 3, seed=5, **CPU)
-    for f in (pt.rrrMC, pt.bklMC):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            f(m, 1.0, 100, backend="torch")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            f(m, 1.0, 100, hook=lambda *a: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.wtmMC(m, 1.0, 10, observer=lambda *a: a[-1], **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.bklMC(pt.GraphThreeSpin(**CPU), 1.0, 100, **CPU)
+    three = pt.GraphThreeSpin(**CPU)
+    for f, n in ((pt.rrrMC, 100), (pt.bklMC, 100), (pt.wtmMC, 10)):
+        for model, kw in ((m, dict(backend="torch")),
+                          (m, dict(hook=lambda *a: True)),
+                          (m, dict(observer=lambda mdl, s, a, E: s.sum(-1))),
+                          (three, {})):
+            Es, st = f(model, 1.0, n, chains=4, **kw, **CPU)
+            assert pt.LAST_ROUTE["backend"] == "torch"
+            assert torch.equal(model.energy(st.sigma), st.E)
+            if kw.get("backend") == "torch":
+                continue
+            with pytest.raises(NotImplementedError,
+                               match="hook or observer|not eligible"):
+                f(model, 1.0, n, chains=4, **dict(kw, backend="kernel"),
+                  **CPU)
+    with pytest.raises(ValueError, match="backend"):
+        pt.bklMC(m, 1.0, 100, backend="xla", **CPU)
     with pytest.raises(NotImplementedError):
         pt.standardMC(m, 1.0, 100, backend="kernel", hook=lambda *a: True,
                       **CPU)
