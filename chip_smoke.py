@@ -94,6 +94,21 @@ Phases, any failure exits non-zero:
      snapshot stream of generic bklMC on GraphRRG(10_000, 3) with 128
      chains, cut to its memory budget, its snapshots' energies equal to
      the energy series.
+   - the wrappers (`wrapper_path`): GraphLocalEntropy(1000, M=8, gamma=1,
+     beta=1) over GraphRRG(1000, 3, +-J, seed=13), built with no device
+     argument, 128 chains: rrrMC, bklMC and wtmMC on LE (the generic path,
+     about 2000 moves a chain) against the same calls on flatten(LE) (the
+     sparse race kernel) from spins that kernel bklMC equilibrated, their
+     second-half E/N within 5 standard errors, and LEenergies plus the
+     star's energy equal to E; on flatten(LE) standardMC (the site kernel),
+     bklMC (the sparse race), sweepMC (the site-sweep route) and
+     extremal_opt(tau=1.4) (the sparse EO kernel); sweepMC on LE's and on
+     TLE's composite masks (bench_all.py's tle_rrg_sweep row, its rates
+     printed) and generic bklMC moves on TLE; the committee rows of
+     bench_all.py (GraphCommStep(65, 15, 487), GraphCommReLU and
+     GraphCommQu(64, 16, 487), 256 chains, beta=1) through standardMC,
+     rrrMC and bklMC on the generic path, exact int32 energies. The
+     replica race kernel must not launch; the path's wall time is printed.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
@@ -127,6 +142,12 @@ each prints its plan (chains a block, threads, lanes, shared
 bytes, blocks a SM, registers). `site_sweep_instantiations` prints every
 instantiation of both kernels with its registers and spill bytes (ptxas)
 and local bytes (the CUDA runtime) and fails on a spill or a local byte.
+
+The wrapper phase of 2 holds the site kernel (SITE_CMP_MOVES moves), the
+sparse race kernel (bkl, wtm, rrr; CMP_MOVES moves) and the sparse EO
+kernel on flatten(LE) at the wrapper path's 128 chains: float32
+couplings, centre spins of degree M = 8 (K = 8), under `_compare`'s float
+rule.
 
 The replica phases of 2 are the composite race kernel on GraphQSKT(1024,
 16) (bkl, wtm, rrr), GraphSKRE(1024, 5) (rrr) and GraphQSKNormalT(1024, 16)
@@ -396,6 +417,30 @@ GEN_OV_CHAINS, GEN_OV_DISORDER, GEN_OV_ITERS = 16, 2, 50_000
 #: call may take beyond STREAM_BYTES
 WIDE_N, WIDE_CHAINS, WIDE_ITERS, WIDE_CKPT = 10_000, 128, 1_000, 4
 WIDE_SLACK_BYTES = 1 << 26
+#: the wrapper path (`wrapper_path`): scripts/bench_all.py's composite_sparse
+#: shape for local entropy, GraphLocalEntropy(1000, M=8, gamma=1, beta=1)
+#: over GraphRRG(1000, 3, +-J, seed=13), 128 chains (composite N = 9000);
+#: kernel bklMC's equilibration on flatten(LE) in sweeps of N; the generic
+#: samplers' moves a chain (bkl and wtm: their iterations and time from the
+#: kernel run's z/N); the kernel routes' run lengths on flatten(LE)
+LE_NK, LE_M, LE_GAMMA, LE_BETA, LE_SEED, LE_CHAINS = 1000, 8, 1.0, 1.0, 13, \
+    128
+LE_EQ_SWEEPS, LE_MOVES, LE_CKPT = 50, 2000, 20
+LE_ITERS_MET, LE_ITERS_BKL, LE_EO_MOVES, LE_SWEEPS = 300_000, 200_000, \
+    20_000, 20
+#: the control of the generic-against-kernel check: generic rrrMC on LE at
+#: this multiple of LE_BETA must fail the check
+LE_FAULT_BETA = 0.9
+#: bench_all.py's tle_rrg_sweep row: GraphTopologicalLocalEntropy(1000, 8,
+#: 0.5, 0.3, 1.0, GraphRRG(1000, 3, +-J, seed=13)), 128 chains, sweepMC on
+#: the composite masks; then generic bklMC moves a chain
+TLE_GAMMA, TLE_LAMBDA, TLE_SWEEPS, TLE_BKL_MOVES = 0.5, 0.3, 20, 500
+#: bench_all.py's perc_comm_section committee rows at 256 chains, beta=1,
+#: and the generic samplers' run lengths (bkl: one chunk of moves)
+COMM_ROWS = (("GraphCommStep", 65, 15), ("GraphCommReLU", 64, 16),
+             ("GraphCommQu", 64, 16))
+COMM_P, COMM_SEED, COMM_CHAINS, COMM_BETA = 487, 5, 256, 1.0
+COMM_ITERS_MET, COMM_ITERS_RRR, COMM_BKL_MOVES = 2000, 500, 500
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 #: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
@@ -3027,6 +3072,254 @@ def wide_snapshots(card) -> dict:
             "peak_bytes": peak}
 
 
+def _le_models(device=None):
+    """The wrapper path's LE model, its flat copy and the TLE model, built
+    with no device argument unless one is given."""
+    import rrrmc_tpu_torch as rt
+
+    base = rt.GraphRRG(LE_NK, 3, (-1, 1), seed=LE_SEED, device=device)
+    le = rt.GraphLocalEntropy(LE_NK, LE_M, LE_GAMMA, LE_BETA, base)
+    tle = rt.GraphTopologicalLocalEntropy(LE_NK, LE_M, TLE_GAMMA, TLE_LAMBDA,
+                                          LE_BETA, base)
+    return le, rt.flatten(le), tle
+
+
+def _checked(name, model, call, route, card, n_ckpt=None, kernel=False):
+    """One sampler call through the public API, and its checks: LAST_ROUTE
+    names `route` (impl "cuda" for a kernel route), the series is finite
+    (of n_ckpt checkpoints where given), and the running E equals
+    energy(sigma): exactly for int32 energies, within 1e-4 * max(1, |E|)
+    for float32 ones. Returns (record, Es, state)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Es, st = call()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(rt.LAST_ROUTE)
+    require(got["backend"] == route
+            and (not kernel or got.get("impl") == "cuda"),
+            f"{name}: route {got}, expected {route}")
+    require(bool(torch.isfinite(Es).all())
+            and (n_ckpt is None or Es.shape == (st.sigma.shape[0], n_ckpt)),
+            f"{name}: series {tuple(Es.shape)}")
+    E_re = model.energy(st.sigma)
+    if E_re.dtype.is_floating_point:
+        err = float((E_re.double() - st.E.double()).abs().max())
+        require(err <= 1e-4 * max(1.0, float(E_re.abs().max())),
+                f"{name}: |E - energy| = {err}")
+    else:
+        err = 0.0
+        require(torch.equal(E_re, st.E), f"{name}: E != energy(sigma)")
+    rec = {"run": name, "route": route, "seconds": dt,
+           "chains": st.sigma.shape[0], "energy_err": err,
+           "E_per_spin": float(st.E.double().mean()) / model.N}
+    print(f"{name}: route {route}, E/N {rec['E_per_spin']:.5f}, "
+          f"|E - energy| {err:.3g}, {dt:.2f} s  [{card}]")
+    return rec, Es, st
+
+
+def wrapper_path(card):
+    """The local-entropy, topological-LE and committee models on the card,
+    through the public API with every launch count of the site, sparse
+    race, sparse EO and replica race kernels set to 0 just before the path
+    and read just after:
+
+    - LE over GraphRRG(1000, 3), M = 8, 128 chains: kernel bklMC on
+      flatten(LE) equilibrates LE_EQ_SWEEPS sweeps; from there rrrMC, bklMC
+      and wtmMC on LE itself (the generic path, about LE_MOVES moves a
+      chain) against the same calls on flatten(LE) (the sparse race
+      kernel): both start from the same spins, so the second-half E/N is
+      compared chain by chain, the mean difference within 5 standard
+      errors of the chains' differences; and as a control, generic rrrMC
+      at LE_FAULT_BETA * beta must fail that check against the kernel
+      route at beta; LEenergies + the star's energy == E; then on
+      flatten(LE) standardMC (the site kernel), bklMC (the sparse race),
+      extremal_opt(tau=1.4) (the sparse EO kernel) and sweepMC (the
+      site-sweep route), and sweepMC on LE itself (the composite masks,
+      centre slots included, route "torch");
+    - TLE, bench_all.py's tle_rrg_sweep row: sweepMC on the composite
+      masks (sweeps/s and attempted flips * chains/s printed), then
+      TLE_BKL_MOVES generic bklMC moves;
+    - the committee rows, 256 chains at beta=1: standardMC, rrrMC and
+      bklMC on the generic path, the exact int32 invariant, moves *
+      chains/s printed.
+
+    The replica race kernel must not launch (LE and TLE take the generic
+    path, as in the JAX package). Returns (records, the path's launch
+    counts)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import eo, rejfree, replica, site
+    from rrrmc_tpu_torch.samplers.moves import acceptance_weights
+    from rrrmc_tpu_torch.samplers.sweep import composite_masks
+
+    mods = {"site_metropolis": site, "rejfree_sparse": rejfree,
+            "eo_sparse": eo, "rejfree_replica": replica}
+    le, fle, tle = _le_models()
+    require(le.resid_m.base.J.device.type == "cuda"
+            and fle.J.device.type == "cuda", "LE without a device is not on "
+                                             "the card")
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    t_path = time.perf_counter()
+    N, B, beta = le.N, LE_CHAINS, LE_BETA
+    eq = LE_EQ_SWEEPS * N
+    rec, _, st = _checked(
+        "bklMC flatten(LE) equilibration", fle,
+        lambda: rt.bklMC(fle, beta, eq, step=eq, chains=B, seed=1),
+        "kernel-rejfree-sparse", card, 1, kernel=True)
+    records = [rec]
+    C0 = st.sigma
+    # z/N of the equilibrated spins: a bkl move takes N/z iterations
+    zn = float(acceptance_weights(fle.delta_all(C0, fle.init_aux(C0)),
+                                  beta).mean())
+    iters = int(LE_MOVES / zn)
+    step_w = iters / LE_CKPT
+    runs = {
+        "rrrMC": lambda m: rt.rrrMC(m, beta, LE_MOVES,
+                                    step=LE_MOVES // LE_CKPT, chains=B,
+                                    seed=2, C0=C0),
+        "bklMC": lambda m: rt.bklMC(m, beta, iters, step=iters // LE_CKPT,
+                                    chains=B, seed=3, C0=C0),
+        "wtmMC": lambda m: rt.wtmMC(m, beta, LE_CKPT, step=step_w,
+                                    chains=B, seed=4, C0=C0)}
+
+    def halves(Es):
+        """Each chain's mean E/N over the second half of its series."""
+        return Es[:, Es.shape[1] // 2:].double().mean(1) / N
+
+    def gap(label, h, h_kernel):
+        """The mean of the chains' differences of two runs from C0 and 5
+        standard errors of it (the spread of C0 cancels chain by chain),
+        printed."""
+        d = h - h_kernel
+        diff, bound = float(d.mean()), 5 * float(d.std()) / d.numel() ** 0.5
+        print(f"wrapper {label}: E/N LE (generic) {float(h.mean()):.5f}, "
+              f"flatten(LE) (kernel) {float(h_kernel.mean()):.5f}, chain "
+              f"by chain difference {diff:.6f} (bound {bound:.6f})  "
+              f"[{card}]")
+        return diff, bound
+
+    kernel_halves = {}
+    for name, call in runs.items():
+        out = {}
+        for label, model, route in (("LE", le, "torch"),
+                                    ("flatten(LE)", fle,
+                                     "kernel-rejfree-sparse")):
+            rec, Es, st = _checked(f"{name} {label}", model,
+                                   lambda: call(model), route, card,
+                                   LE_CKPT, kernel=model is fle)
+            if model is le:
+                rec["moves_per_chain"] = float(st.accepted.double().mean())
+            records.append(rec)
+            out[label] = (halves(Es), st)
+        (h, st_g), (kernel_halves[name], _) = out["LE"], out["flatten(LE)"]
+        diff, bound = gap(name, h, kernel_halves[name])
+        require(abs(diff) <= bound, f"wrapper {name}: E/N differs from "
+                                    f"flatten(LE)'s by {diff} > {bound}")
+        parts = le.LEenergies(st_g.sigma).sum(1) + le.inner_m.to_physical(
+            le.inner_m.energy(st_g.sigma))
+        err = float((parts.double() - st_g.E.double()).abs().max())
+        require(err <= 1e-4 * max(1.0, float(st_g.E.abs().max())),
+                f"wrapper {name}: LEenergies + star != E ({err})")
+
+    rec, Es, _ = _checked(
+        f"rrrMC LE at {LE_FAULT_BETA} beta (control)", le,
+        lambda: rt.rrrMC(le, LE_FAULT_BETA * beta, LE_MOVES,
+                         step=LE_MOVES // LE_CKPT, chains=B, seed=12, C0=C0),
+        "torch", card, LE_CKPT)
+    records.append(rec)
+    diff, bound = gap(f"rrrMC at {LE_FAULT_BETA} beta (control)",
+                      halves(Es), kernel_halves["rrrMC"])
+    require(abs(diff) > bound, f"wrapper check: rrrMC at {LE_FAULT_BETA} "
+                               f"beta passes it ({diff} <= {bound})")
+
+    it_met, it_bkl = LE_ITERS_MET, LE_ITERS_BKL
+    kernel_runs = [
+        ("standardMC flatten(LE)", fle, "kernel-site",
+         lambda: rt.standardMC(fle, beta, it_met, step=it_met // 10,
+                               chains=B, seed=5, backend="kernel"), 10),
+        ("bklMC flatten(LE)", fle, "kernel-rejfree-sparse",
+         lambda: rt.bklMC(fle, beta, it_bkl, step=it_bkl // 10, chains=B,
+                          seed=6), 10),
+        ("sweepMC flatten(LE)", fle, "kernel-site-sweep",
+         lambda: rt.sweepMC(fle, beta, LE_SWEEPS, step=LE_SWEEPS // 2,
+                            chains=B, seed=7), 2)]
+    for name, model, route, call, n_ckpt in kernel_runs:
+        rec, _, _ = _checked(name, model, call, route, card, n_ckpt,
+                             kernel=True)
+        records.append(rec)
+    rec, _ = _eo_run("flatten(LE)", fle, "kernel-eo-sparse", B, LE_EO_MOVES,
+                     8, lambda: eo.LAUNCHES, card)
+    records.append(rec)
+    masks = composite_masks(le)
+    require(masks is not None and masks.shape[0] % (LE_M + 1) == 0,
+            "LE: no composite masks over every slot")
+    rec, _, _ = _checked(
+        "sweepMC LE (composite masks)", le,
+        lambda: rt.sweepMC(le, beta, LE_SWEEPS, step=LE_SWEEPS // 2,
+                           chains=B, seed=9), "torch", card, 2)
+    require(rt.LAST_ROUTE.get("n_masks") == masks.shape[0],
+            f"sweepMC LE: {rt.LAST_ROUTE}")
+    records.append(rec)
+
+    rec, _, _ = _checked(
+        "sweepMC TLE (composite masks)", tle,
+        lambda: rt.sweepMC(tle, beta, TLE_SWEEPS, step=TLE_SWEEPS // 2,
+                           chains=B, seed=10), "torch", card, 2)
+    rec.update(sweeps_per_s=TLE_SWEEPS / rec["seconds"],
+               flips_chains_per_s=TLE_SWEEPS * tle.N * B / rec["seconds"])
+    print(f"tle_rrg_sweep: {rec['sweeps_per_s']:.4g} sweeps/s, "
+          f"{rec['flips_chains_per_s']:.4g} flips*chains/s ({B} chains, "
+          f"N = {tle.N}, {masks.shape[0]} masks a sweep)  [{card}]")
+    records.append(rec)
+    stop = lambda *a: False   # noqa: E731 (one chunk of moves, then stop)
+    rec, _, _ = _checked(
+        "bklMC TLE", tle,
+        lambda: rt.bklMC(tle, beta, 10 ** 9, step=10 ** 9, chains=B, seed=11,
+                         chunk_moves=TLE_BKL_MOVES, hook=stop),
+        "torch", card)
+    records.append(rec)
+
+    for fn, K1, K2 in COMM_ROWS:
+        m = getattr(rt, fn)(K1, K2, COMM_P, seed=COMM_SEED)
+        require(m.xi.device.type == "cuda", f"{fn} is not on the card")
+        label = f"{fn}({K1}, {K2}, {COMM_P})"
+        kw = dict(chains=COMM_CHAINS, seed=COMM_SEED)
+        for name, call, moves in (
+                ("standardMC", lambda: rt.standardMC(
+                    m, COMM_BETA, COMM_ITERS_MET,
+                    step=COMM_ITERS_MET // 4, **kw), COMM_ITERS_MET),
+                ("rrrMC", lambda: rt.rrrMC(
+                    m, COMM_BETA, COMM_ITERS_RRR,
+                    step=COMM_ITERS_RRR // 4, **kw), COMM_ITERS_RRR),
+                ("bklMC", lambda: rt.bklMC(
+                    m, COMM_BETA, 10 ** 9, step=10 ** 9,
+                    chunk_moves=COMM_BKL_MOVES, hook=stop, **kw),
+                 COMM_BKL_MOVES)):
+            rec, _, st = _checked(f"{name} {label}", m, call, "torch", card)
+            require(st.E.dtype == torch.int32, f"{label}: E not int32")
+            rec.update(rate=moves * COMM_CHAINS / rec["seconds"],
+                       rate_unit="moves*chains/s")
+            print(f"{name} {label}: {rec['rate']:.4g} moves*chains/s "
+                  f"({moves} moves)  [{card}]")
+            records.append(rec)
+
+    torch.cuda.synchronize()
+    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    for name in ("site_metropolis", "rejfree_sparse", "eo_sparse"):
+        require(counts[name] > 0, f"wrapper path: {name} not launched")
+    require(counts["rejfree_replica"] == 0,
+            "wrapper path: LE or TLE took the replica race kernel")
+    print(f"wrapper path: {time.perf_counter() - t_path:.1f} s, launches "
+          f"{json.dumps(counts)}  [{card}]")
+    return records, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3245,6 +3538,16 @@ def main() -> int:
                                     CHAINS, RE_BETA, card,
                                     warm=RE_GRID_SWEEPS))
     replica_refusals(card)
+    # flatten(LE), the wrapper path's flat model: float couplings, centre
+    # spins of degree M = 8 (K = 8), on the site, sparse race and sparse EO
+    # kernels at the path's chains
+    _, fle, _ = _le_models(DEV)
+    label = f"flatten(LE(RRG({LE_NK}, 3), M={LE_M}))"
+    cases.append(site_case(fle, label, card, SITE_CMP_MOVES, B=LE_CHAINS))
+    for mode in ("bkl", "wtm", "rrr"):
+        cases.append(rejfree_case(fle, label, mode, card, B=LE_CHAINS,
+                                  beta=LE_BETA, n_moves=CMP_MOVES))
+    cases.append(eo_case(fle, label, LE_CHAINS, card, "eo_sparse"))
     cases += fused_cases(card)
     cases += dense_fused_cases(card, sk1, drrg, skn)
 
@@ -3293,17 +3596,19 @@ def main() -> int:
     perc_records, perc_counts = perc_path(card, percs)
     factor_records, factor_counts = factors_path(card)
     generic_records, generic_counts = generic_path(card)
+    wrapper_records, wrapper_counts = wrapper_path(card)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
                                 "PSpin3": ps_counts, "K-SAT": sat_counts,
                                 "replica": rep_counts,
                                 "perceptron": perc_counts,
                                 "factors": factor_counts,
-                                "generic": generic_counts},
+                                "generic": generic_counts,
+                                "wrappers": wrapper_counts},
                       "runs": rrg_records + ea_records + sk_records
                       + eo_records + ps_records + sat_records
                       + rep_records + perc_records + factor_records
-                      + generic_records}))
+                      + generic_records + wrapper_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],

@@ -10,8 +10,12 @@ rejection-free race moves and the tau-EO moves (sparse, dense, and on the
 PSpin3 and K-SAT hypergraphs and on the perceptrons), and the race moves
 and sweeps of the replica composites (GraphQuant, GraphRobustEnsemble) run
 on hand-written CUDA kernels (csrc/) for a CUDA state and on their plain
-torch versions on the CPU. Names mirror the JAX package (rrrmc_tpu), which stays
-the reference. This package never imports JAX.
+torch versions on the CPU. The other wrappers (local entropy, topological
+local entropy, AddFields) and the committee machines run on the generic
+torch paths, as they run on plain XLA in the JAX package; `flatten` merges
+a pairwise wrapper stack into one Pairwise that the site, sparse race and
+sparse EO kernels take. Names mirror the JAX package (rrrmc_tpu), which
+stays the reference. This package never imports JAX.
 """
 
 from .core.model import Model, random_spins
@@ -22,16 +26,31 @@ from .models.dense import (FullyConnected, GraphSK, GraphSKNormal, densify,
                            make_fully_connected)
 from .models.pspin import PSpin3, GraphPSpin3
 from .models.sat import SATModel, GraphSAT, make_sat, export_cnf
+from .models.sat import GraphSATRE, GraphSATLE, GraphSATTLE
 from .models.perceptron import (Perceptron, GraphPercStep, GraphPercLinear,
                                 GraphPercXEntr, GraphQPercStepT,
                                 GraphQPercLinearT, GraphPercStepRE,
-                                GraphPercLinearRE)
+                                GraphPercLinearRE, GraphPercStepLE,
+                                GraphPercLinearLE)
+from .models.committee import (
+    Committee, GraphCommStep, GraphCommReLU, GraphCommQu,
+    GraphQCommStepT, GraphQCommReLUT, GraphQCommQuT,
+    GraphCommStepRE, GraphCommReLURE, GraphCommQuRE,
+    GraphCommStepLE, GraphCommReLULE, GraphCommQuLE,
+)
 from .models.composite import Double, Mixed, mixed
-from .models.replicas import (Replicated, GraphQT, four_K, transverse_mag,
-                              QuantModel, GraphQuant, GraphRE, REModel,
-                              GraphRobustEnsemble)
+from .models.replicas import (
+    Replicated, GraphQT, four_K, transverse_mag, QuantModel, GraphQuant,
+    GraphRE, REModel, GraphRobustEnsemble,
+    GraphLE, GraphLocalEntropy, LEModel,
+    GraphTLE, GraphTopologicalLocalEntropy, TLEModel,
+    GraphAF, GraphAddFields, GraphAddSubFields, Scaled,
+)
 from .models.aliases import (GraphQ0T, GraphQSKT, GraphQSKNormalT, GraphQEAT,
-                             Graph0RE, GraphSKRE, GraphEARE)
+                             Graph0RE, GraphSKRE, GraphEARE,
+                             Graph0LE, GraphSKLE, GraphEALE,
+                             Graph0TLE, GraphSKTLE, GraphEATLE)
+from .models.flatten import flatten
 from .models.graphs import (
     GraphEA, GraphEANormal, GraphEANormalDiscretized,
     GraphRRG, GraphRRGNormal, GraphRRGNormalDiscretized,
@@ -51,7 +70,8 @@ from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
 from .convert import (pairwise_from_arrays, lattice_from_arrays,
                       fully_connected_from_arrays, pspin_from_arrays,
                       sat_from_arrays, perceptron_from_arrays,
-                      replica_from_arrays, state_from_arrays)
+                      replica_from_arrays, committee_from_arrays,
+                      state_from_arrays)
 from . import observables
 from . import analysis
 from . import experiments

@@ -16,7 +16,11 @@ from .models.lattice import LatticeEA, lattice_tensors
 from .models.pairwise import Pairwise
 from .models.perceptron import Perceptron
 from .models.pspin import PSpin3
-from .models.replicas import GraphQuant, GraphRobustEnsemble
+from .models.committee import Committee
+from .models.replicas import (GraphAddFields, GraphAddSubFields,
+                              GraphLocalEntropy, GraphQuant,
+                              GraphRobustEnsemble,
+                              GraphTopologicalLocalEntropy, neighbor_lists)
 from .models.sat import SATModel, make_sat
 from .samplers.common import DEFAULT_SEED, MCState, make_generator
 
@@ -114,20 +118,73 @@ def perceptron_from_arrays(xi, loss_table, *, N: int, P: int, scale: float,
                       N=int(N), P=int(P), scale=float(scale))
 
 
-def replica_from_arrays(kind: str, base, *, M: int, coupling: float,
-                        beta: float):
-    """The port's QuantModel (kind "quant", coupling = Gamma) or REModel
-    (kind "re", coupling = gamma) over `base`, itself carried across with
-    `pairwise_from_arrays` / `fully_connected_from_arrays` (for example a
-    JAX QuantModel's `m.M`, `m.Gamma`, `m.beta`, or a JAX REModel's `m.M`,
-    `m.inner_m.gamma`, `m.inner_m.beta_p`). The wrapper tables (fourK, fk)
-    are derived from the constants as the JAX builders derive them."""
+def replica_from_arrays(kind: str, base, *, M: Optional[int] = None,
+                        coupling: Optional[float] = None,
+                        beta: Optional[float] = None,
+                        lambda_: Optional[float] = None, neighb=None,
+                        fields=None):
+    """The port's wrapper of kind `kind` over `base`, itself carried across
+    with the other converters:
+
+    * "quant": QuantModel, coupling = Gamma (a JAX QuantModel's `m.M`,
+      `m.Gamma`, `m.beta`);
+    * "re": REModel, coupling = gamma (`m.M`, `m.inner_m.gamma`,
+      `m.inner_m.beta_p`);
+    * "le": LEModel, coupling = gamma (`m.M`, and gamma / beta =
+      `m.inner_m.scale` with beta = 1);
+    * "tle": TLEModel, coupling = gamma, lambda_, and `neighb` the [Nk,
+      Kmax] site table padded with Nk (`m.inner_m.gammaT`,
+      `m.inner_m.lambdaT` with beta = 1, `np.asarray(m.inner_m.neighb)`);
+    * "af" / "addsub": GraphAddFields / GraphAddSubFields with `fields` [N]
+      in the reference's sign (minus a JAX model's `m.inner_m.h`).
+
+    The wrapper tables (fourK, fk, the LE and TLE stars, the fields) are
+    derived from the constants as the JAX builders derive them."""
+    if kind in ("af", "addsub"):
+        fields = np.asarray(fields, dtype=np.float64)
+        return (GraphAddFields if kind == "af" else GraphAddSubFields)(
+            fields, base)
+    Nk, M, coupling, beta = base.N, int(M), float(coupling), float(beta)
     if kind == "quant":
-        return GraphQuant(base.N, int(M), float(coupling), float(beta), base)
+        return GraphQuant(Nk, M, coupling, beta, base)
     if kind == "re":
-        return GraphRobustEnsemble(base.N, int(M), float(coupling),
-                                   float(beta), base)
-    raise ValueError(f"kind must be 'quant' or 're', got {kind!r}")
+        return GraphRobustEnsemble(Nk, M, coupling, beta, base)
+    if kind == "le":
+        return GraphLocalEntropy(Nk, M, coupling, beta, base)
+    if kind == "tle":
+        nb = np.asarray(neighb)
+        if nb.ndim != 2 or nb.shape[0] != Nk:
+            raise ValueError(f"neighb must be [{Nk}, Kmax], got {nb.shape}")
+        return GraphTopologicalLocalEntropy(Nk, M, coupling, float(lambda_),
+                                            beta, base,
+                                            neighb=neighbor_lists(nb))
+    raise ValueError(f"kind must be 'quant', 're', 'le', 'tle', 'af' or "
+                     f"'addsub', got {kind!r}")
+
+
+def committee_from_arrays(xi, y, c, K1: int, K2: int, kind: str,
+                          device=None) -> Committee:
+    """The port's Committee from patterns xi [P, K1 K2], labels y [P] and
+    unit weights c [K2], all +-1 and stored as int8 (for example a JAX
+    Committee's `np.asarray(m.xi)`, `np.asarray(m.y)`, `np.asarray(m.c)`,
+    `m.K1`, `m.K2`, `m.kind`)."""
+    xi, y, c = (np.asarray(a) for a in (xi, y, c))
+    P = xi.shape[0]
+    if xi.shape != (P, K1 * K2) or y.shape != (P,) or c.shape != (K2,):
+        raise ValueError(f"expected xi {(P, K1 * K2)}, y {(P,)} and c "
+                         f"{(K2,)}, got {xi.shape}, {y.shape}, {c.shape}")
+    if kind not in ("step", "relu", "qu"):
+        raise ValueError(f"kind must be 'step', 'relu' or 'qu', got "
+                         f"{kind!r}")
+    if not all(np.isin(a, (-1, 1)).all() for a in (xi, y, c)):
+        raise ValueError("xi, y and c must be +-1")
+    device = default_device(device)
+
+    def put(a):
+        return torch.tensor(a.astype(np.int8), device=device)
+
+    return Committee(xi=put(xi), y=put(y), c=put(c), N=int(K1 * K2),
+                     K1=int(K1), K2=int(K2), P=int(P), kind=kind)
 
 
 def state_from_arrays(model, sigma, E=None, accepted=None, *,

@@ -160,8 +160,6 @@ def GraphPercXEntr(N: int, P: int, lam: float, *, seed=None, xi=None,
 
 
 # --- replica-ensemble aliases ----------------------------------------------
-# GraphPercStepLE / GraphPercLinearLE wait for the local-entropy wrapper
-# (ROADMAP.md queue 1, item 10 (b)).
 
 def GraphQPercStepT(N, P, M, Gamma, beta, *, seed=None, device=None):
     from .replicas import GraphQuant
@@ -184,4 +182,16 @@ def GraphPercStepRE(N, P, M, gamma, beta, *, seed=None, device=None):
 def GraphPercLinearRE(N, P, M, gamma, beta, *, seed=None, device=None):
     from .replicas import GraphRobustEnsemble
     return GraphRobustEnsemble(
+        N, M, gamma, beta, GraphPercLinear(N, P, seed=seed, device=device))
+
+
+def GraphPercStepLE(N, P, M, gamma, beta, *, seed=None, device=None):
+    from .replicas import GraphLocalEntropy
+    return GraphLocalEntropy(N, M, gamma, beta,
+                             GraphPercStep(N, P, seed=seed, device=device))
+
+
+def GraphPercLinearLE(N, P, M, gamma, beta, *, seed=None, device=None):
+    from .replicas import GraphLocalEntropy
+    return GraphLocalEntropy(
         N, M, gamma, beta, GraphPercLinear(N, P, seed=seed, device=device))

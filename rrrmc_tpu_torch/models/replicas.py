@@ -1,15 +1,18 @@
-"""Replica-ensemble wrappers (the JAX package's rrrmc_tpu/models/replicas.py,
-Quant and RE), batch-explicit: the quantum Suzuki-Trotter model
-(`GraphQuant`, the reference's QT.jl) and the robust ensemble
-(`GraphRobustEnsemble`, RE.jl).
+"""Replica-ensemble wrappers (the JAX package's rrrmc_tpu/models/replicas.py),
+batch-explicit: the quantum Suzuki-Trotter model (`GraphQuant`, the
+reference's QT.jl), the robust ensemble (`GraphRobustEnsemble`, RE.jl), local
+entropy (`GraphLocalEntropy`, LE.jl), topological local entropy
+(`GraphTopologicalLocalEntropy`, TLE.jl) and the AddFields family
+(AddFields.jl).
 
-M replicas of one base model on Nk spins form one composite of N = Nk * M
-spins in the JAX package's REPLICA-MAJOR layout: spin (i, k) is i + k * Nk,
-replica k the contiguous block [k * Nk, (k + 1) * Nk). For the robust
-ensemble this deviates from the reference's site-major layout, as the JAX
-package does; the converters to the reference layout come with the rest of
-the replica models. Every replica shares the base model's disorder (the
-reference's aliases pass one generated instance to all replicas).
+M replicas of one base model on Nk spins form one composite spin vector in
+the JAX package's REPLICA-MAJOR block layout: spin (i, k) is i + k * Nk,
+replica k the contiguous block [k * Nk, (k + 1) * Nk); LE and TLE put the
+centre (reference) configuration first, so their replica k is block k + 1.
+For RE, LE and TLE this deviates from the reference's site-major layouts, as
+the JAX package does; `to_reference_layout` / `from_reference_layout`
+convert. Every replica shares the base model's disorder (the reference's
+aliases pass one generated instance to all replicas).
 
 Batch-explicit: a [B, N] batch of composites is a [B * M, Nk] batch of base
 configurations (a view of the same memory), so the base model's own batched
@@ -21,23 +24,31 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..core.dtypes import ftype
 from ..core.model import Model, flip_spin
-from .composite import Double
+from .composite import Double, Mixed
 from .pairwise import Pairwise, make_pairwise
 
 MAXDIGITS = 8  # fourK is rounded to 8 decimal digits (the reference's QT.jl)
 
 
 def model_device(model) -> torch.device:
-    """The device of a model's tables."""
+    """The device of a model's tables, a composite's from its parts."""
     if hasattr(model, "device"):
         return model.device
-    return next(v.device for v in vars(model).values() if torch.is_tensor(v))
+    for v in vars(model).values():
+        if torch.is_tensor(v):
+            return v.device
+    for v in vars(model).values():
+        for part in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(part, Model):
+                return model_device(part)
+    raise ValueError(f"{type(model).__name__} holds no tensor")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -110,13 +121,19 @@ class Replicated(Model):
     def flip(self, sigma, aux, i, do):
         """The base flips the replica row of spin i in every chain with do,
         through its own batched flip over all B * M rows (the other rows
-        masked), updating aux in place."""
+        masked), updating aux in place; each spin flips once. With offset
+        0 the rows are a view of sigma, so the base's flip is the
+        composite's; with centre blocks they are always a copy (a reshape
+        of one chain's rows would be a view), and the composite flips spin
+        i itself."""
         r, ii_all, is_rep = self._rows_of(i)
         rows = self.to_replicas(sigma)
+        if self.offset:
+            rows = rows.clone()
         sel = torch.zeros(rows.shape[0], dtype=torch.bool, device=i.device)
         sel[r] = do & is_rep
         self.base.flip(rows, aux, ii_all, sel)
-        if self.offset:       # rows was a copy: flip the composite itself
+        if self.offset:
             flip_spin(sigma, i, do)
         return sigma, aux
 
@@ -346,3 +363,351 @@ def GraphRobustEnsemble(Nk: int, M: int, gamma: float, beta: float,
     resid = Replicated(base=base, N=N, Nk=Nk, n_slots=M, offset=0,
                        weight=1.0)
     return REModel(inner_m=inner, resid_m=resid, N=N, M=M, Nk=Nk)
+
+
+# ---------------------------------------------------------------------------
+# GraphLE: the local-entropy star with an explicit reference (LE.jl)
+# ---------------------------------------------------------------------------
+
+def _le_classes(M: int, gammaT: float) -> Tuple[float, ...]:
+    """The |dE| classes of GraphLE (the reference's allDeltaE)."""
+    g = abs(gammaT)
+    if M % 2 == 0:
+        vals = {4.0 * d * g for d in range(M // 2 + 1)} | {2.0 * g}
+    else:
+        vals = {2.0 * (2 * d - 1) * g for d in range(1, (M + 1) // 2 + 1)}
+    return tuple(sorted(vals))
+
+
+def GraphLE(Nk: int, M: int, gammaT: float, *, device=None) -> Pairwise:
+    """E = -gammaT sum_i s^c_i sum_k s_{i,k}: a star of M edges from each
+    centre spin to its replicas, an exact integer Pairwise with scale
+    gammaT, on `device` (CUDA when none is given). Replica-major blocks:
+    the centre block is [0, Nk), replica k the block [(k+1) Nk, (k+2) Nk)."""
+    if M <= 2:
+        raise ValueError(f"M must be greater than 2, given: {M}")
+    N = Nk * (M + 1)
+    adj, J = [None] * N, [None] * N
+    for i in range(Nk):
+        adj[i] = [(k + 1) * Nk + i for k in range(M)]    # centre -> replicas
+        J[i] = [1.0] * M
+        for k in range(M):
+            adj[(k + 1) * Nk + i] = [i]                   # replica -> centre
+            J[(k + 1) * Nk + i] = [1.0]
+    le = make_pairwise(adj, J, N, integer_scale=1.0,
+                       classes=_le_classes(M, gammaT), device=device)
+    return dataclasses.replace(le, scale=gammaT)
+
+
+class _CentreMixin:
+    """The observables LE and TLE share: the centre configuration, its base
+    energy and the replicas' Hamming distances."""
+
+    def center_config(self, sigma):
+        """[B, Nk] reference configurations (the leading block)."""
+        return sigma[:, : self.Nk]
+
+    def cenergy(self, sigma):
+        """[B] base-model energies of the reference configurations (not
+        part of the Hamiltonian; LE.jl's cenergy)."""
+        base = self.resid_m.base
+        return base.to_physical(base.energy(self.center_config(sigma)))
+
+    def distances(self, sigma):
+        """[B, M, M] int32 Hamming distances between the replicas; the spin
+        products are summed exactly in float64."""
+        rows = sigma[:, self.Nk:].reshape(-1, self.M, self.Nk).to(
+            torch.float64)
+        q = rows @ rows.transpose(1, 2)
+        return torch.div(self.Nk - q.to(torch.int32), 2,
+                         rounding_mode="floor")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LEModel(_CentreMixin, Double):
+    """GraphLocalEntropy: inner = the GraphLE star, resid = M replicas of
+    the base model; the reference configuration's own base energy is not
+    part of the Hamiltonian (`cenergy` reports it)."""
+    M: int = 0
+    Nk: int = 0
+
+    def LEenergies(self, sigma):
+        """[B, M] individual replica energies."""
+        return self.resid_m.replica_energies(sigma)
+
+
+def GraphLocalEntropy(Nk: int, M: int, gamma: float, beta: float,
+                      base: Model) -> LEModel:
+    """Local-entropy replication of `base` with an explicit reference spin
+    per site, on the base's device; coupling gammaT = gamma / beta."""
+    if base.N != Nk:
+        raise ValueError(f"base model has N={base.N}, expected {Nk}")
+    N = Nk * (M + 1)
+    inner = GraphLE(Nk, M, gamma / beta, device=model_device(base))
+    resid = Replicated(base=base, N=N, Nk=Nk, n_slots=M + 1, offset=1,
+                       weight=1.0)
+    return LEModel(inner_m=inner, resid_m=resid, N=N, M=M, Nk=Nk)
+
+
+# ---------------------------------------------------------------------------
+# GraphTLE: topological local entropy (TLE.jl)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GraphTLE(Model):
+    """The LE star plus a topological 4-spin term over the base graph's
+    edges:
+
+        E = -gammaT sum_i c_i sum_k s_{i,k}
+            -lambdaT sum_{<i1,i2>} c_{i1} c_{i2} sum_k s_{i1,k} s_{i2,k}
+
+    (c the centre spins), in GraphLE's block layout. `neighb` [Nk, Kmax] is
+    the site adjacency, padded with the sentinel Nk. No aux: delta_all
+    recomputes every flip cost from sigma in one gather pass over
+    [B, M, Nk, Kmax], the JAX package's shape. Physical float32 energies."""
+    neighb: torch.Tensor   # [Nk, Kmax] int32, padded with Nk
+    N: int
+    Nk: int
+    Mr: int
+    gammaT: float = 0.0
+    lambdaT: float = 0.0
+    max_deg: int = 0
+    scale: float = 1.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.neighb.device
+
+    def _split(self, sigma):
+        """(centre [B, Nk + 1], replicas [B, M, Nk + 1]) int32, each padded
+        with a zero site for the sentinel."""
+        s = sigma.to(torch.int32)
+        B = s.shape[0]
+        zero = s.new_zeros((B, 1))
+        c = torch.cat([s[:, : self.Nk], zero], dim=1)
+        r = s[:, self.Nk:].reshape(B, self.Mr, self.Nk)
+        r = torch.cat([r, zero[:, None].expand(B, self.Mr, 1)], dim=2)
+        return c, r
+
+    def energy(self, sigma):
+        c, r = self._split(sigma)
+        nb = self.neighb.long()
+        ri = r[:, :, : self.Nk]
+        n = -(c[:, None, : self.Nk] * ri).sum(dim=(1, 2), dtype=torch.int64)
+        # each edge once: i1 < i2 over the padded table
+        i1 = torch.arange(self.Nk, device=nb.device)[:, None]
+        mask = (nb > i1) & (nb < self.Nk)
+        dots = (ri[..., None] * r[:, :, nb]).sum(1, dtype=torch.int32)
+        cc = c[:, : self.Nk, None] * c[:, nb]
+        t = -torch.where(mask, cc * dots, 0).sum(dim=(1, 2),
+                                                 dtype=torch.int64)
+        e = n.to(torch.float64) * self.gammaT \
+            + t.to(torch.float64) * self.lambdaT
+        return e.to(ftype())
+
+    def init_aux(self, sigma):
+        return ()
+
+    def delta_all(self, sigma, aux):
+        c, r = self._split(sigma)
+        nb = self.neighb.long()
+        cn = c[:, nb]                                     # [B, Nk, K]
+        rn = r[:, :, nb]                                  # [B, M, Nk, K]
+        ri = r[:, :, : self.Nk]                           # [B, M, Nk]
+        ci = c[:, : self.Nk]                              # [B, Nk]
+        dots = (ri[..., None] * rn).sum(1, dtype=torch.int32)  # [B, Nk, K]
+        # replica spin (k, i): 2 gT c_i s_ki + 2 lT c_i s_ki sum_j c_j s_kj
+        f_rep = (cn[:, None] * rn).sum(-1, dtype=torch.int32)
+        cr = (ci[:, None] * ri).to(ftype())
+        d_rep = (2.0 * self.gammaT) * cr \
+            + (2.0 * self.lambdaT) * cr * f_rep.to(ftype())
+        # centre spin i: 2 gT c_i mu_i + 2 lT c_i sum_j c_j dot_ij
+        mu = ri.sum(1, dtype=torch.int32)
+        d_ctr = (2.0 * self.gammaT) * (ci * mu).to(ftype()) \
+            + (2.0 * self.lambdaT) * ci.to(ftype()) \
+            * (cn * dots).sum(-1, dtype=torch.int32).to(ftype())
+        return torch.cat([d_ctr, d_rep.reshape(sigma.shape[0], -1)], dim=1)
+
+    def flip(self, sigma, aux, i, do):
+        return flip_spin(sigma, i, do), aux
+
+    def delta_classes(self):
+        """The instance's |dE| classes (TLE.jl's allDeltaE)."""
+        d1 = _le_classes(self.Mr, abs(self.gammaT))
+        mn = self.Mr * self.max_deg
+        d2 = [2.0 * d * self.lambdaT for d in range(-mn, mn + 1)]
+        return tuple(sorted({round(abs(a + b), 9) for a in d1 for b in d2}))
+
+    def neighbor_table(self):
+        """The spins whose flip cost a flip changes, padded with the
+        sentinel N to width max(1 + 2K, M + K + K M): a replica spin
+        (i, k) moves its centre, the neighbour centres and its replica's
+        neighbour spins; a centre spin i all replicas at i, the neighbour
+        centres and all replicas at the neighbour sites."""
+        Nk, M, K = self.Nk, self.Mr, self.neighb.shape[1]
+        nb = self.neighb.to(torch.int32)
+        pad = nb >= Nk
+        sent = self.N
+        nb_c = torch.where(pad, sent, nb)
+        width = max(1 + 2 * K, M + K + K * M)
+
+        def padded(rows):
+            return torch.cat([rows, rows.new_full(
+                (Nk, width - rows.shape[1]), sent)], dim=1)
+
+        site = torch.arange(Nk, dtype=torch.int32, device=nb.device)
+        reps_i = torch.stack([(k + 1) * Nk + site for k in range(M)], dim=1)
+        rep_nb = [torch.where(pad, sent, (k + 1) * Nk + nb) for k in range(M)]
+        out = [padded(torch.cat([reps_i, nb_c] + rep_nb, dim=1))]
+        out += [padded(torch.cat([site[:, None], nb_c, rep_nb[k]], dim=1))
+                for k in range(M)]
+        return torch.cat(out, dim=0).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TLEModel(_CentreMixin, Double):
+    """GraphTopologicalLocalEntropy: inner = GraphTLE, resid = M replicas
+    of the base model."""
+    M: int = 0
+    Nk: int = 0
+
+    def TLEenergies(self, sigma):
+        """[B, M] individual replica energies."""
+        return self.resid_m.replica_energies(sigma)
+
+
+def neighbor_lists(table) -> list:
+    """Ragged lists of sites from an [N, K] neighbour table padded with N
+    (a Pairwise's `neigh`, or a JAX TLE's `neighb`)."""
+    tbl = np.asarray(table.cpu() if torch.is_tensor(table) else table)
+    return [[int(j) for j in row if j < tbl.shape[0]] for row in tbl]
+
+
+def GraphTopologicalLocalEntropy(Nk: int, M: int, gamma: float,
+                                 lambda_: float, beta: float, base: Model,
+                                 neighb=None) -> TLEModel:
+    """TLE replication of `base`, on the base's device; the topological
+    neighbourhood `neighb` (ragged lists of sites) defaults to a Pairwise
+    base's adjacency. gammaT = gamma / beta, lambdaT = lambda_ / beta."""
+    if base.N != Nk:
+        raise ValueError(f"base model has N={base.N}, expected {Nk}")
+    if neighb is None:
+        if not isinstance(base, Pairwise):
+            raise ValueError("neighb required unless base is a Pairwise "
+                             "model")
+        neighb = neighbor_lists(base.neigh)
+    kmax = max(max((len(r) for r in neighb), default=0), 1)
+    tbl = np.full((Nk, kmax), Nk, dtype=np.int32)
+    for i, row in enumerate(neighb):
+        if i in row:
+            raise ValueError(f"neighb[{i}] contains itself")
+        tbl[i, :len(row)] = row
+    N = Nk * (M + 1)
+    inner = GraphTLE(neighb=torch.as_tensor(tbl, device=model_device(base)),
+                     N=N, Nk=Nk, Mr=M, gammaT=gamma / beta,
+                     lambdaT=lambda_ / beta, max_deg=kmax)
+    resid = Replicated(base=base, N=N, Nk=Nk, n_slots=M + 1, offset=1,
+                       weight=1.0)
+    return TLEModel(inner_m=inner, resid_m=resid, N=N, M=M, Nk=Nk)
+
+
+# ---------------------------------------------------------------------------
+# layout conversion to and from the reference's index conventions
+# ---------------------------------------------------------------------------
+
+def reference_permutation(model) -> np.ndarray:
+    """perm with sigma_internal[perm[j]] the spin at reference index j.
+    Quant is replica-major in the reference too (QT.jl); RE is site-major,
+    j = k + i M (RE.jl); LE and TLE are site-major with slot 0 the
+    reference, j = s + i (M + 1) (LE.jl)."""
+    if isinstance(model, QuantModel):
+        return np.arange(model.N)
+    if isinstance(model, REModel):
+        i, k = np.divmod(np.arange(model.N), model.M)
+        return k * model.Nk + i
+    if isinstance(model, (LEModel, TLEModel)):
+        i, s = np.divmod(np.arange(model.N), model.M + 1)
+        return s * model.Nk + i  # s = 0: the centre; s = k + 1: replica k
+    raise TypeError(type(model).__name__)
+
+
+def from_reference_layout(model, sigma_ref):
+    """Configurations [..., N] in the reference's layout -> the internal
+    block layout."""
+    sigma_ref = torch.as_tensor(sigma_ref)
+    perm = torch.as_tensor(reference_permutation(model),
+                           device=sigma_ref.device)
+    out = torch.zeros_like(sigma_ref)
+    out[..., perm] = sigma_ref
+    return out
+
+
+def to_reference_layout(model, sigma):
+    """Configurations [..., N] in the internal block layout -> the
+    reference's layout."""
+    sigma = torch.as_tensor(sigma)
+    return sigma[..., torch.as_tensor(reference_permutation(model),
+                                      device=sigma.device)]
+
+
+# ---------------------------------------------------------------------------
+# the AddFields family (AddFields.jl)
+# ---------------------------------------------------------------------------
+
+def GraphAF(fields, *, device=None) -> Pairwise:
+    """External fields with the reference's sign, E = +sum_i h_i s_i: a
+    float Pairwise with no edges and fields -h (Pairwise's E is
+    -sum h s), on `device` (CUDA when none is given)."""
+    h = -np.asarray(fields, dtype=np.float64)
+    adj = [[] for _ in range(len(h))]
+    return make_pairwise(adj, adj, len(h), h=h, device=device)
+
+
+def _fields_of(fields, base: Model) -> Pairwise:
+    af = GraphAF(fields, device=model_device(base))
+    if af.N != base.N:
+        raise ValueError(f"incompatible length, fields size={af.N} graph "
+                         f"size={base.N}")
+    return af
+
+
+def GraphAddFields(fields, base: Model) -> Double:
+    """inner = the fields (rrrMC samples them exactly), resid = the wrapped
+    model."""
+    return Double(inner_m=_fields_of(fields, base), resid_m=base, N=base.N)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Scaled(Model):
+    """`base` with its physical energy multiplied by `factor` (the
+    add-and-subtract identity of GraphAddSubFields)."""
+    base: Model
+    N: int
+    factor: float = 1.0
+    scale: float = 1.0
+
+    def energy(self, sigma):
+        return self.factor * self.base.to_physical(self.base.energy(sigma))
+
+    def init_aux(self, sigma):
+        return self.base.init_aux(sigma)
+
+    def delta_all(self, sigma, aux):
+        return self.factor * self.base.to_physical(
+            self.base.delta_all(sigma, aux))
+
+    def delta_one(self, sigma, aux, i):
+        return self.factor * self.base.to_physical(
+            self.base.delta_one(sigma, aux, i))
+
+    def flip(self, sigma, aux, i, do):
+        return self.base.flip(sigma, aux, i, do)
+
+
+def GraphAddSubFields(fields, base: Model) -> Double:
+    """The add-and-subtract identity: the total energy is the base's, but
+    rrrMC's inner part is the fields, corrected by resid = base - fields."""
+    af = _fields_of(fields, base)
+    resid = Mixed(parts=(base, Scaled(base=af, N=af.N, factor=-1.0)),
+                  N=base.N)
+    return Double(inner_m=af, resid_m=resid, N=base.N)

@@ -221,3 +221,26 @@ def export_cnf(X: SATModel, filename: str, decimate=None):
                 f.write(" ".join(str(s * (i + 1)) for i, s in cl) + " 0\n")
         for v in decimate:
             f.write(f"{v} 0\n")
+
+
+# --- replica-ensemble aliases (REAliases.jl, LEAliases.jl, TLEAliases.jl) --
+
+def GraphSATRE(N, K, alpha, M, gamma, beta, *, seed=None, device=None):
+    from .replicas import GraphRobustEnsemble
+    return GraphRobustEnsemble(N, M, gamma, beta,
+                               GraphSAT(N, K, alpha, seed=seed, device=device))
+
+
+def GraphSATLE(N, K, alpha, M, gamma, beta, *, seed=None, device=None):
+    from .replicas import GraphLocalEntropy
+    return GraphLocalEntropy(N, M, gamma, beta,
+                             GraphSAT(N, K, alpha, seed=seed, device=device))
+
+
+def GraphSATTLE(N, K, alpha, M, gamma, lambda_, beta, *, seed=None,
+                device=None):
+    """The topological neighbourhood is the variables sharing a clause."""
+    from .replicas import GraphTopologicalLocalEntropy
+    base = GraphSAT(N, K, alpha, seed=seed, device=device)
+    return GraphTopologicalLocalEntropy(N, M, gamma, lambda_, beta, base,
+                                        neighb=base.var_neighb())

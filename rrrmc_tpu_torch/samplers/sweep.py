@@ -24,14 +24,17 @@ dense sweep kernel when it is eligible (samplers/dense_sweep.py, backend
 "kernel"); else the delayed-update torch route when some spin has more than
 32 couplings; else route (c) on the colouring of J's sparsity pattern.
 
-A GraphQuant / GraphRobustEnsemble composite over a sparse Pairwise base
-takes the composite colour-mask sweep (the JAX package's plain-XLA route, in
-plain torch): masks of one replica slot times one colour class of the base,
-so no mask holds two interacting spins (the ring and the star couple only
-the replicas of one site, the base only the spins of one replica); route
-(c) then decides all members of a mask at once on the composite's
-`delta_all`.
-Composites over a dense base take `sweepMC_quant` (dense_sweep.py).
+A GraphQuant / GraphRobustEnsemble / GraphLocalEntropy /
+GraphTopologicalLocalEntropy composite over a sparse Pairwise base takes the
+composite colour-mask sweep (the JAX package's plain-XLA route, in plain
+torch): masks of one slot (a replica, or LE's and TLE's centre block) times
+one colour class of the base, so no mask holds two interacting spins (the
+ring, the star and the LE star couple only spins of one site, the base only
+the spins of one replica, TLE's 4-spin term only spins of two adjacent sites
+in two slots); route (c) then decides all members of a mask at once on the
+composite's `delta_all`. Quant and RE composites over a dense base take
+`sweepMC_quant` (dense_sweep.py); any other model raises, as the JAX
+package's sweepMC asserts a Pairwise model.
 """
 
 from __future__ import annotations
@@ -94,25 +97,31 @@ def _masks(colors: np.ndarray, device) -> torch.Tensor:
 
 
 def composite_masks(model):
-    """[C * M, N] independent-set masks of a GraphQuant /
-    GraphRobustEnsemble composite over a sparse Pairwise base (one replica
-    slot times one colour class of the base), on the base's device; None
-    for other models or a base whose greedy colouring needs more than 32
-    colours."""
-    from ..ops.replica import replica_base
+    """[C * S, N] independent-set masks of a GraphQuant /
+    GraphRobustEnsemble / GraphLocalEntropy / GraphTopologicalLocalEntropy
+    composite over a sparse Pairwise base: mask s * C + c is colour class c
+    of the base in slot s of the S = n_slots blocks (LE's and TLE's centre
+    block first), on the base's device; None for other models or a base
+    whose greedy colouring needs more than 32 colours."""
+    from ..models.replicas import (LEModel, QuantModel, Replicated, REModel,
+                                   TLEModel)
 
-    base = replica_base(model)
-    if not isinstance(base, Pairwise):
+    if not isinstance(model, (QuantModel, REModel, LEModel, TLEModel)):
         return None
+    resid = model.resid_m
+    if not (isinstance(resid, Replicated)
+            and isinstance(resid.base, Pairwise)):
+        return None
+    base = resid.base
     colors = greedy_coloring(base.neigh.cpu().numpy(), base.N)
     ncol = int(colors.max()) + 1
     if ncol > 32:
         return None
-    Nk, M = model.Nk, model.M
-    masks = np.zeros((ncol * M, Nk * M), dtype=bool)
-    for k in range(M):
+    Nk, S = resid.Nk, resid.n_slots
+    masks = np.zeros((ncol * S, Nk * S), dtype=bool)
+    for s in range(S):
         for c in range(ncol):
-            masks[k * ncol + c, k * Nk:(k + 1) * Nk] = colors == c
+            masks[s * ncol + c, s * Nk:(s + 1) * Nk] = colors == c
     return torch.as_tensor(masks, device=base.device)
 
 
@@ -223,8 +232,9 @@ def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
     takes the model. "torch": route (c). A FullyConnected model takes the
     dense routes of the module docstring ("kernel": the dense sweep kernel
     or raise; "torch": never the kernel). A GraphQuant /
-    GraphRobustEnsemble composite over a sparse base takes route (c) on
-    its replica-slot x colour masks ("kernel" raises)."""
+    GraphRobustEnsemble / GraphLocalEntropy / GraphTopologicalLocalEntropy
+    composite over a sparse base takes route (c) on its slot x colour masks
+    ("kernel" raises)."""
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if isinstance(model, FullyConnected):
@@ -234,11 +244,12 @@ def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
         masks = composite_masks(model)
         if masks is None:
             raise NotImplementedError(
-                f"sweepMC on {type(model).__name__}: the ported routes take "
-                f"Pairwise and FullyConnected models and GraphQuant / "
-                f"GraphRobustEnsemble composites over a sparse Pairwise "
-                f"base (composites over a dense base: sweepMC_quant); the "
-                f"other composites are ROADMAP.md queue 1, item 10")
+                f"sweepMC on {type(model).__name__}: sweepMC requires a "
+                f"Pairwise model, a FullyConnected one, or a GraphQuant / "
+                f"GraphRobustEnsemble / GraphLocalEntropy / "
+                f"GraphTopologicalLocalEntropy composite over a sparse "
+                f"Pairwise base (Quant and RE composites over a dense "
+                f"base: sweepMC_quant), as the JAX package's does")
         if backend == "kernel":
             raise NotImplementedError(
                 "sweepMC(backend='kernel'): no sweep kernel takes a "

@@ -1,8 +1,14 @@
 """Where a move of the generic torch path goes (rrrmc_tpu_torch/samplers/
 {bkl,wtm,rrr}.py), on one CUDA card: one call each of bklMC, wtmMC and
-rrrMC with backend="torch" on GraphRRG(1000, 3) +-J (seed 167), 128 chains
-at beta=2, of exactly MOVES moves (bkl and wtm: one chunk of MOVES moves,
-stopped by the hook; rrr: one checkpoint of MOVES moves).
+rrrMC with backend="torch" of exactly MOVES moves (bkl and wtm: one chunk
+of MOVES moves, stopped by the hook; rrr: one checkpoint of MOVES moves)
+on each case of CASES:
+
+* "rrg": GraphRRG(1000, 3) +-J (seed 167), 128 chains at beta=2;
+* "le": GraphLocalEntropy(1000, M=8, gamma=1, beta=1) over GraphRRG(1000,
+  3) +-J (seed 13), 128 chains at beta=1 (composite N = 9000; no race
+  kernel takes it);
+* "comm": GraphCommStep(65, 15, 487, seed=5), 256 chains at beta=1.
 
 Each call runs twice after a warm-up: once timed with CUDA events around
 it (the wall time a move), once under torch.profiler (CPU and CUDA
@@ -13,7 +19,8 @@ cudaEventSynchronize), the cudaMemcpy* calls (of any direction: a copy to
 the host would also show as a synchronisation), the device time summed
 over the kernels and its share of the wall time, the wall time a launch
 call, and the aten operators that take the most host time. One JSON
-object per sampler on stdout, with the card's name and power limit.
+object per case and sampler on stdout, with the card's name and power
+limit.
 
     python scripts/torch_generic_profile.py [--out profile.json]
 
@@ -31,7 +38,13 @@ import torch
 
 import rrrmc_tpu_torch as rt
 
-N, K, SEED, CHAINS, BETA, MOVES = 1000, 3, 167, 128, 2.0, 200
+MOVES = 200
+#: case -> () -> (model, chains, beta), as the module docstring lists them
+CASES = {
+    "rrg": lambda: (rt.GraphRRG(1000, 3, (-1, 1), seed=167), 128, 2.0),
+    "le": lambda: (rt.GraphLocalEntropy(
+        1000, 8, 1.0, 1.0, rt.GraphRRG(1000, 3, (-1, 1), seed=13)), 128, 1.0),
+    "comm": lambda: (rt.GraphCommStep(65, 15, 487, seed=5), 256, 1.0)}
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
          "cudaEventSynchronize")
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -46,20 +59,21 @@ def card_line() -> str:
         check=True).stdout.strip()
 
 
-def calls(X, C0):
+def calls(X, C0, beta):
     """Each sampler's generic call of exactly MOVES moves."""
     stop = lambda *a: False   # noqa: E731 (one chunk, then stop)
-    kw = dict(chains=CHAINS, C0=C0, chunk_moves=MOVES, backend="torch")
+    kw = dict(chains=C0.shape[0], C0=C0, chunk_moves=MOVES,
+              backend="torch")
     return {
-        "bklMC": lambda seed: rt.bklMC(X, BETA, 10 ** 9, step=10 ** 9,
+        "bklMC": lambda seed: rt.bklMC(X, beta, 10 ** 9, step=10 ** 9,
                                        seed=seed, hook=stop, **kw),
-        "wtmMC": lambda seed: rt.wtmMC(X, BETA, 1, step=1e9, seed=seed,
+        "wtmMC": lambda seed: rt.wtmMC(X, beta, 1, step=1e9, seed=seed,
                                        hook=stop, **kw),
-        "rrrMC": lambda seed: rt.rrrMC(X, BETA, MOVES, step=MOVES,
+        "rrrMC": lambda seed: rt.rrrMC(X, beta, MOVES, step=MOVES,
                                        seed=seed, **kw)}
 
 
-def profile(call, card: str) -> dict:
+def profile(call, chains: int, card: str) -> dict:
     """Time and profile call(seed) as set out in the module docstring."""
     call(1)                                    # warm-up
     torch.cuda.synchronize()
@@ -93,7 +107,7 @@ def profile(call, card: str) -> dict:
     top = [{"op": n, "per_move": aten[n] / MOVES,
             "host_us_per_move": aten_us[n] / MOVES}
            for n, _ in aten_us.most_common(8)]
-    return {"moves": MOVES, "chains": CHAINS, "card": card,
+    return {"moves": MOVES, "chains": chains, "card": card,
             "wall_ms": wall_ms, "wall_us_per_move": 1e3 * wall_ms / MOVES,
             "kernels_per_move": kernels / MOVES,
             "launch_calls_per_move": launches / MOVES,
@@ -115,12 +129,15 @@ def main():
         raise SystemExit("torch_generic_profile: no CUDA device is visible")
     card = card_line()
     print(card, flush=True)
-    X = rt.GraphRRG(N, K, (-1, 1), seed=SEED)
-    C0 = rt.init_state(X, CHAINS, SEED).sigma
     out = {}
-    for name, call in calls(X, C0).items():
-        out[name] = profile(call, card)
-        print(json.dumps({"sampler": name, **out[name]}), flush=True)
+    for name, build in CASES.items():
+        X, chains, beta = build()
+        C0 = rt.init_state(X, chains, 167).sigma
+        for sampler, call in calls(X, C0, beta).items():
+            rec = profile(call, chains, card)
+            out[f"{name} {sampler}"] = rec
+            print(json.dumps({"case": name, "N": X.N, "sampler": sampler,
+                              **rec}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -207,7 +207,7 @@ def test_sweepmc_rejects():
         pt.sweepMC(pt.GraphThreeSpin(**CPU), 1.0, 2, backend="kernel", **CPU)
     with pytest.raises(ValueError, match="backend"):
         pt.sweepMC(pt.GraphEA(4, 2, **CPU), 1.0, 2, backend="pallas", **CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="requires a Pairwise"):
         pt.sweepMC(object(), 1.0, 2, **CPU)
 
 
