@@ -87,8 +87,10 @@ Phases, any failure exits non-zero:
    - the generic torch paths (`generic_path`): on GraphRRG(1000, 3) +-J,
      128 chains at beta=2, equilibrated by kernel bklMC, rrrMC, bklMC and
      wtmMC with backend="torch" against the same calls on the kernel route
-     (route "torch", E == energy(sigma), second-half E/N within 5 standard
-     errors over the chains); rrrMC on GraphRRGNormalDiscretized(1000, 3)
+     (route "torch", E == energy(sigma), second-half E/N compared chain by
+     chain: the mean difference within 5 standard errors of the chains'
+     differences; generic rrrMC at LE_FAULT_BETA * beta, the control, must
+     fail it); rrrMC on GraphRRGNormalDiscretized(1000, 3)
      (a Double); a bklMC hook that stops the run; stats_overlaps with
      bklMC, 16 chains, 2 disorders (q2 and x2 finite, in [0, 1]); the
      snapshot stream of generic bklMC on GraphRRG(10_000, 3) with 128
@@ -109,6 +111,32 @@ Phases, any failure exits non-zero:
      GraphCommQu(64, 16, 487), 256 chains, beta=1) through standardMC,
      rrrMC and bklMC on the generic path, exact int32 energies. The
      replica race kernel must not launch; the path's wall time is printed.
+   - parallel tempering (`pt_path`): parallel_tempering on
+     GraphRRG(10_000, 3, +-J, seed=167), built with no device argument,
+     PT_T = 32 rungs beta_k = 1 + 0.02 k of 32 chains (1024 chains), 10
+     sweeps a round, 200 rounds, ONE site-kernel launch a round (the
+     kernel reads each chain's beta); the exact int32 energy on every
+     chain, ranks a permutation of every column after every round, E/N by
+     rung non-increasing within 3 standard errors, every adjacent pair
+     swapping; the law (`pt_law`: the ladder continued to 6000 rounds,
+     as beta = 1 lies below beta_c and both runs age from random spins;
+     rung 0's second-half E/N against sweepMC at beta 1 over as many
+     sweeps within 5 hypot of the standard errors, sweepMC at 1.1 must
+     fail it; the gap after 200 rounds printed beside it); wall time,
+     attempted flips * chains / s, launches and host syncs a round, each
+     pair's acceptance, and the device busy share of 5 rounds under the
+     port's profiling.trace.
+   - ensemble exchange (`et_path`): tempered_ensembles with sweep_kernel
+     on 8 slots flatten(GraphQuant(1000, 8, Gamma_k, beta=2, base)) over
+     GraphRRG(1000, 3, +-J, seed 13), Gamma_k = 1 + 0.02 k, 128 chains, 100
+     rounds: one site launch a slot a round, E within 1e-4 max(1, |E|) of
+     each slot's energy(sigma), walkers permutations, every pair swapping.
+   - sharding (`shard_path`): sample_sharded(standardMC) over a mesh of
+     the card repeated 4 times, sample_disorder(bklMC) over 4
+     GraphRRG(10_000, 3) instances, a one-rank NCCL group's
+     sample_distributed(sweepMC) and parallel tempering, and a PT state
+     saved after 10 rounds, loaded and continued: each EQUAL to its
+     unsharded, sequential, in-memory and one-call reference.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
@@ -119,7 +147,10 @@ Phases, any failure exits non-zero:
    for xentr) and itmin lies in [0, moves].
 
 The site and checkerboard phases of 2 hold the redesigned kernels on
-their other routes and shapes too. The site kernel (`site_cases`): the
+their other routes and shapes too. The site kernel with a beta per chain
+(`pt_site_case`): the PT path's shape, 32 distinct betas over 1024 chains,
+one sweep of the permutation schedule, EQUAL to its plain version, its
+time printed beside row 1's. The site kernel (`site_cases`): the
 row's GraphRRG(10^4, 3) +-J case and GraphRRGNormal (float32 fields, held
 bit for bit: the groups keep the serial order of every field's adds and E
 is summed in schedule order), a conflict-heavy GraphRRG(64, 3) and a
@@ -282,8 +313,10 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 167
@@ -441,6 +474,29 @@ COMM_ROWS = (("GraphCommStep", 65, 15), ("GraphCommReLU", 64, 16),
              ("GraphCommQu", 64, 16))
 COMM_P, COMM_SEED, COMM_CHAINS, COMM_BETA = 487, 5, 256, 1.0
 COMM_ITERS_MET, COMM_ITERS_RRR, COMM_BKL_MOVES = 2000, 500, 500
+#: the PT path (`pt_path`): GraphRRG(10^4, 3, +-J, seed 167), PT_T rungs
+#: beta_k = PT_BETA0 + PT_DBETA k (beta_c ~ 0.88 for K = 3), PT_CHAINS
+#: chains a rung (1024 chains, row 1's case), PT_SWEEPS sweeps a round,
+#: PT_ROUNDS rounds; the rounds traced for the device busy share
+PT_T, PT_BETA0, PT_DBETA, PT_CHAINS = 32, 1.0, 0.02, 32
+PT_SWEEPS, PT_ROUNDS, PT_TRACE_ROUNDS = 10, 200, 5
+#: the law check: rung 0 (beta = 1, below beta_c) against sweepMC at beta
+#: 1 over PT_LAW_ROUNDS rounds and as many sweeps. Both age from random
+#: spins: their gap falls from 0.0034 at 200 rounds to 0.00072 at 2000 and
+#: 0.00024 at 6000, inside its 5-sigma bound only there
+#: (scripts/torch_pt_equilibration.py); the control runs at
+#: PT_CONTROL_BETA
+PT_LAW_ROUNDS, PT_CONTROL_BETA = 6000, 1.1
+#: the ET path (`et_path`): ET_T slots flatten(GraphQuant(ET_NK, ET_M,
+#: Gamma_k, ET_BETA, base)) over GraphRRG(ET_NK, 3, +-J, seed ET_SEED) (the
+#: wrapper path's base), Gamma_k = ET_GAMMA0 + ET_DGAMMA k (spaced so that
+#: every adjacent pair swaps at this size), ET_CHAINS chains, ET_ROUNDS
+#: rounds of sweep_kernel (one sweep a slot)
+ET_T, ET_NK, ET_M, ET_BETA, ET_SEED = 8, 1000, 8, 2.0, 13
+ET_GAMMA0, ET_DGAMMA, ET_CHAINS, ET_ROUNDS = 1.0, 0.02, 128, 100
+#: the shard path (`shard_path`): standardMC's moves over 4 shards of the
+#: card, and bklMC's iterations a disorder instance
+SHARD_ITERS, DISORDER_ITERS = 100_000, 200_000
 #: the device every phase runs on (the script refuses to run without one)
 DEV = "cuda"
 #: each entry of the `kernels` line: the TPU kernel it replaces, its CUDA
@@ -694,12 +750,15 @@ def plan_of_site(plan) -> str:
             f"bytes]")
 
 
-def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None):
+def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None,
+              betas=None):
     """The site kernel against its plain version: n_moves moves of B chains
     from one random start on one schedule (uniform random sites unless
-    `sites` is given), one Philox seed; integer couplings EQUAL, float ones
-    under `_compare`'s float rule. The kernel gets the family's bound on
-    |lf| (its resident field type), as SiteSampler gives it."""
+    `sites` is given), one Philox seed, every chain at BETA or chain b at
+    betas[b] (a [B] tensor: the kernel reads beta * scale chain by chain);
+    integer couplings EQUAL, float ones under `_compare`'s float rule. The
+    kernel gets the family's bound on |lf| (its resident field type), as
+    SiteSampler gives it."""
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.ops import site
@@ -715,7 +774,9 @@ def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None):
     base = dict(sigT=st.sigma.t().contiguous(), lfT=init_lfT(model, st.sigma),
                 E=st.E.clone(), acc=torch.zeros(B, dtype=torch.int32,
                                                 device=DEV))
-    kw = dict(seed=SEED, beta_s=BETA * model.scale, move0=0, chain0=0)
+    beta_s = (BETA * model.scale if betas is None else
+              (betas.double() * model.scale).float().to(DEV))
+    kw = dict(seed=SEED, beta_s=beta_s, move0=0, chain0=0)
 
     def fresh():
         return {k: v.clone() for k, v in base.items()}
@@ -2885,10 +2946,13 @@ def generic_path(card):
     GraphRRG(1000, 3) +-J, 128 chains at beta=2, equilibrated by kernel
     bklMC; from those spins each sampler with backend="torch" and on its
     kernel route. The generic runs must report the route "torch" and an
-    energy equal to energy(sigma), and the mean E/N of each generic
-    series' second half must equal the kernel route's within 5 standard
-    errors over the chains. Then rrrMC (generic: no race kernel takes a
-    Double) on GraphRRGNormalDiscretized(1000, 3, (-1, 1)), E within 1e-4
+    energy equal to energy(sigma). Both runs start from the same spins, so
+    each chain's second-half E/N is compared chain by chain: the mean of
+    the chains' differences within 5 standard errors of those differences;
+    and as a control, generic rrrMC at LE_FAULT_BETA * beta must fail that
+    check against the kernel route at beta. Then rrrMC (generic: no race
+    kernel takes a Double) on GraphRRGNormalDiscretized(1000, 3, (-1, 1)),
+    E within 1e-4
     max(1, |E|); a bklMC hook that stops the run at its first call; and
     stats_overlaps with bklMC (generic: a snapshot observer) on
     GraphRRG(1000, 3), 16 chains, 2 disorders, q2 and x2 finite and in
@@ -2923,11 +2987,23 @@ def generic_path(card):
                                     step=step_w, chains=GEN_CHAINS, seed=4,
                                     C0=C0, backend=b)}
 
-    def half_mean(Es):
-        h = Es[:, Es.shape[1] // 2:].double().mean(1) / GEN_N
-        return float(h.mean()), float(h.std()) / h.numel() ** 0.5
+    def halves(Es):
+        """Each chain's mean E/N over the second half of its series."""
+        return Es[:, Es.shape[1] // 2:].double().mean(1) / GEN_N
+
+    def gap(label, h, h_kernel):
+        """The mean of the chains' differences of two runs from C0 and 5
+        standard errors of it (the spread of C0 cancels chain by chain),
+        printed."""
+        d = h - h_kernel
+        diff, bnd = float(d.mean()), 5 * float(d.std()) / d.numel() ** 0.5
+        print(f"generic {label}: E/N torch {float(h.mean()):.5f}, kernel "
+              f"{float(h_kernel.mean()):.5f}, chain by chain difference "
+              f"{diff:.6f} (bound {bnd:.6f})  [{card}]")
+        return diff, bnd
 
     records = []
+    kernel_halves = {}
     for name, call in runs.items():
         out = {}
         for backend in ("torch", "kernel"):
@@ -2943,19 +3019,32 @@ def generic_path(card):
                     and bool(torch.isfinite(Es).all())
                     and torch.equal(X.energy(s.sigma), s.E),
                     f"generic {name} {backend}: series or energy")
-            out[backend] = half_mean(Es) + (dt, int(s.accepted.sum()))
-        (a, sa, ta, na), (b, sb, tb, nb) = out["torch"], out["kernel"]
-        bound = 5 * math.hypot(sa, sb)
-        print(f"generic {name}: E/N torch {a:.5f} +- {sa:.5f} ({ta:.2f} s, "
-              f"{na / GEN_CHAINS:.0f} moves a chain), kernel {b:.5f} +- "
-              f"{sb:.5f} ({tb:.2f} s), |difference| {abs(a - b):.5f} "
-              f"(bound {bound:.5f})  [{card}]")
-        require(abs(a - b) <= bound, f"generic {name}: E/N {a} against the "
-                                     f"kernel route's {b}")
+            out[backend] = (halves(Es), dt, int(s.accepted.sum()))
+        (h, ta, na), (kernel_halves[name], tb, _) = out["torch"], \
+            out["kernel"]
+        print(f"generic {name}: torch {ta:.2f} s, "
+              f"{na / GEN_CHAINS:.0f} moves a chain, kernel {tb:.2f} s  "
+              f"[{card}]")
+        diff, bnd = gap(name, h, kernel_halves[name])
+        require(abs(diff) <= bnd, f"generic {name}: E/N differs from the "
+                                  f"kernel route's by {diff} > {bnd}")
         records.append({"run": f"{name} backend=torch", "seconds": ta,
-                        "chains": GEN_CHAINS, "E_per_spin": a,
+                        "chains": GEN_CHAINS, "E_per_spin": float(h.mean()),
+                        "difference": diff, "bound": bnd,
                         "moves_per_chain": na / GEN_CHAINS,
                         "moves_rate": na / ta, "energy_err": 0.0})
+    Es, s = rt.rrrMC(X, LE_FAULT_BETA * GEN_BETA, GEN_ITERS_RRR,
+                     step=GEN_ITERS_RRR // 20, chains=GEN_CHAINS, seed=12,
+                     C0=C0, backend="torch")
+    require(rt.LAST_ROUTE["backend"] == "torch"
+            and torch.equal(X.energy(s.sigma), s.E), "generic control")
+    diff, bnd = gap(f"rrrMC at {LE_FAULT_BETA} beta (control)", halves(Es),
+                    kernel_halves["rrrMC"])
+    require(abs(diff) > bnd, f"generic check: rrrMC at {LE_FAULT_BETA} beta "
+                             f"passes it ({diff} <= {bnd})")
+    records.append({"run": f"rrrMC backend=torch at {LE_FAULT_BETA} beta "
+                           f"(control)", "chains": GEN_CHAINS,
+                    "difference": diff, "bound": bnd})
 
     dbl = rt.GraphRRGNormalDiscretized(GEN_N, 3, (-1, 1), seed=SEED)
     t0 = time.perf_counter()
@@ -3320,6 +3409,377 @@ def wrapper_path(card):
     return records, counts
 
 
+def pt_betas(device=None):
+    """The PT path's ladder: beta_k = PT_BETA0 + PT_DBETA k, k < PT_T."""
+    import torch
+
+    return PT_BETA0 + PT_DBETA * torch.arange(PT_T, dtype=torch.float64,
+                                              device=device)
+
+
+def pt_site_case(model, card, row):
+    """The site kernel at the PT path's shape: PT_T rungs of PT_CHAINS
+    chains (chain t * PT_CHAINS + b at beta_t, 32 distinct betas read
+    chain by chain), N moves on the sweep schedule (one permutation, as a
+    round of the path walks it), against its plain version; its time is
+    printed beside row 1's scalar case `row`."""
+    import torch
+    from rrrmc_tpu_torch.ops.site import _perm_of
+
+    betas = pt_betas().repeat_interleave(PT_CHAINS)
+    sites = torch.as_tensor(_perm_of(SEED, 0, model.N).astype("int32"),
+                            device=DEV)
+    c = site_case(model, f"RRG+-J, {PT_T} betas per chain (PT)", card,
+                  B=PT_T * PT_CHAINS, sites=sites, betas=betas)
+    require(c["diverged"] == 0 and c["max_abs_err"] == 0.0,
+            f"site kernel with a beta per chain: {c['diverged']} chains "
+            f"diverge, max abs err {c['max_abs_err']}")
+    print(f"site_metropolis {PT_T} betas per chain: {c['ms']:.3f} ms beside "
+          f"row 1's one beta {row['ms']:.3f} ms ({row['moves']} moves, "
+          f"{row['B']} chains) [{card}]")
+    return c
+
+
+def _pair_acceptance(ranks, T: int):
+    """[T - 1] accepted share of each adjacent pair's attempts: pair
+    (k, k + 1) swapped at round r (parity r % 2) where the slot that held
+    rank k + 1 holds rank k."""
+    import torch
+
+    n, _, B = ranks.shape
+    start = torch.arange(T, dtype=ranks.dtype, device=ranks.device)
+    prev = torch.cat([start[None, :, None].expand(1, T, B), ranks[:-1]])
+    slot_now = ranks.argsort(dim=1)            # [n, T(rank), B]: slot
+    slot_prev = prev.argsort(dim=1)
+    out = []
+    for k in range(T - 1):
+        rounds = torch.arange(k % 2, n, 2, device=ranks.device)
+        hit = slot_now[rounds, k] == slot_prev[rounds, k + 1]
+        out.append(float(hit.double().mean()) if rounds.numel() else 0.0)
+    return out
+
+
+def _column_means(series):
+    """[C] per-column time averages of a [rounds, C] series, and their mean
+    and standard error."""
+    m = series.double().mean(0)
+    return float(m.mean()), float(m.std()) / m.numel() ** 0.5
+
+
+def pt_path(card):
+    """parallel_tempering at full width: GraphRRG(10^4, 3, +-J, seed 167),
+    PT_T rungs beta_k = 1 + 0.02 k, PT_CHAINS chains a rung (1024 chains),
+    PT_SWEEPS sweeps a round, PT_ROUNDS rounds, one site-kernel launch a
+    round (counts reset just before it). Holds the exact int32 energy on
+    every chain, ranks a permutation of every column after every round,
+    E/N by rung non-increasing within 3 standard errors (of the columns'
+    time averages over the second half), every adjacent pair's swap
+    acceptance above 0; and the law at beta = 1 on the ladder continued
+    to PT_LAW_ROUNDS rounds (`pt_law`). Prints the wall time, the
+    attempted flips * chains / s, launches and host syncs a round, the
+    pairs' acceptance and the device busy share of PT_TRACE_ROUNDS rounds
+    under profiling.trace. Returns (records, counts, the model)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import site
+    from rrrmc_tpu_torch.utils import profiling
+
+    X = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED)
+    betas = pt_betas().tolist()
+    T, B, N = PT_T, PT_CHAINS, X.N
+    torch.cuda.synchronize()
+    site.LAUNCHES = 0
+    t0 = time.perf_counter()
+    Es, ranks, st = rt.parallel_tempering(X, betas, PT_ROUNDS,
+                                          sweeps_per_round=PT_SWEEPS,
+                                          chains=B, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = site.LAUNCHES
+    route = dict(rt.LAST_ROUTE)
+    require(route["backend"] == "kernel-site-tempering"
+            and route["impl"] == "cuda", f"pt: route {route}")
+    require(launches == PT_ROUNDS, f"pt: {launches} launches for "
+                                   f"{PT_ROUNDS} rounds")
+    require(Es.shape == ranks.shape == (PT_ROUNDS, T, B)
+            and bool(torch.isfinite(Es).all()), f"pt: series {Es.shape}")
+    require(st.E.dtype == torch.int32 and torch.equal(
+        X.energy(st.sigma.reshape(T * B, N)).view(T, B), st.E),
+        "pt: E != energy(sigma)")
+    want = torch.arange(T, dtype=ranks.dtype, device=ranks.device)
+    require(bool((ranks.sort(dim=1).values == want[None, :, None]).all()),
+            "pt: ranks are not permutations")
+    ebr = rt.energies_by_rank(Es, ranks)[PT_ROUNDS // 2:] / N
+    rung = [_column_means(ebr[:, k]) for k in range(T)]
+    for k in range(T - 1):
+        (a, sa), (b, sb) = rung[k], rung[k + 1]
+        require(b <= a + 3 * math.hypot(sa, sb),
+                f"pt: E/N rises from rung {k} ({a}) to {k + 1} ({b})")
+    acc = _pair_acceptance(ranks, T)
+    require(min(acc) > 0, f"pt: a pair never swapped: {acc}")
+    flips = PT_ROUNDS * PT_SWEEPS * N * T * B / wall
+    print(f"pt GraphRRG({N}, 3) T={T} x {B} chains, {PT_SWEEPS} sweeps x "
+          f"{PT_ROUNDS} rounds: {wall:.2f} s, {flips:.4g} attempted "
+          f"flips*chains/s, {launches / PT_ROUNDS:g} site launches a round "
+          f"[{card}]")
+    print(f"pt E/N by rung (second half): "
+          f"{[round(m, 5) for m, _ in rung]}  [{card}]")
+    print(f"pt swap acceptance by pair: {[round(a, 4) for a in acc]}  "
+          f"[{card}]")
+
+    law, st = pt_law(X, betas, Es, ranks, st, card)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir) as prof:
+            t1 = time.perf_counter()
+            rt.parallel_tempering(X, betas, PT_TRACE_ROUNDS,
+                                  sweeps_per_round=PT_SWEEPS, chains=B,
+                                  state=st)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t1
+        trace_bytes = os.path.getsize(os.path.join(logdir, "trace.json"))
+    dev = profiling.device_summary(prof)
+    busy = dev["device_us"] / (1e6 * traced)
+    print(f"pt trace of {PT_TRACE_ROUNDS} rounds: {traced * 1e3:.1f} ms, "
+          f"device busy {busy:.3f}, {dev['kernels'] / PT_TRACE_ROUNDS:g} "
+          f"kernels, {dev['launch_calls'] / PT_TRACE_ROUNDS:g} launch calls "
+          f"and {dev['host_syncs'] / PT_TRACE_ROUNDS:g} host syncs a round "
+          f"(trace.json of {trace_bytes} bytes written)  [{card}]")
+
+    rec = {"run": "parallel_tempering", "seconds": wall, "chains": T * B,
+           "rate": flips, "rate_unit": "attempted flips*chains/s",
+           "launches": launches, "launches_per_round": launches / PT_ROUNDS,
+           "host_syncs_per_round": dev["host_syncs"] / PT_TRACE_ROUNDS,
+           "launch_calls_per_round": dev["launch_calls"] / PT_TRACE_ROUNDS,
+           "device_busy": busy, "pair_acceptance": acc,
+           "E_per_spin_by_rung": [m for m, _ in rung],
+           "law": law}
+    return [rec], {"site_metropolis": launches}, X
+
+
+def pt_law(X, betas, Es, ranks, st, card):
+    """The law at beta = 1, below beta_c: the ladder of `pt_path` (its
+    series Es, ranks and state st after PT_ROUNDS rounds) continued to
+    PT_LAW_ROUNDS rounds (a continued run equals one longer call), and
+    sweepMC at beta_0 over PT_LAW_ROUNDS * PT_SWEEPS sweeps on PT_T *
+    PT_CHAINS chains, E read every PT_SWEEPS sweeps. Rung 0's E/N over the
+    second half (the columns' time averages) must equal sweepMC's within 5
+    hypot of their standard errors; sweepMC at PT_CONTROL_BETA (PT_ROUNDS *
+    PT_SWEEPS sweeps) must fail that check. The same comparison after
+    PT_ROUNDS rounds, where both runs still age, is printed beside it.
+    Returns (the record, the ladder's final state)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    N, C = X.N, PT_T * PT_CHAINS
+    Es2, ranks2, st = rt.parallel_tempering(
+        X, betas, PT_LAW_ROUNDS - PT_ROUNDS, sweeps_per_round=PT_SWEEPS,
+        chains=PT_CHAINS, state=st)
+    rung0 = rt.energies_by_rank(torch.cat([Es, Es2]),
+                                torch.cat([ranks, ranks2]))[:, 0] / N
+
+    def second_half(series, L):
+        return _column_means(series[L // 2:L])
+
+    def ref(beta, rounds, seed):
+        return rt.sweepMC(X, beta, rounds * PT_SWEEPS, step=PT_SWEEPS,
+                          chains=C, seed=seed)[0].t() / N
+    E_ref = ref(betas[0], PT_LAW_ROUNDS, SEED + 1)
+    rec = {}
+    for L in (PT_ROUNDS, PT_LAW_ROUNDS):
+        (a, sa), (b, sb) = second_half(rung0, L), second_half(E_ref, L)
+        rec[str(L)] = {"pt": (a, sa), "sweepMC": (b, sb),
+                       "difference": abs(a - b),
+                       "five_se": 5 * math.hypot(sa, sb)}
+        note = "" if L == PT_LAW_ROUNDS else ", not held: both still age"
+        print(f"pt law after {L} rounds: rung 0 E/N {a:.6f} +- {sa:.6f}, "
+              f"sweepMC at beta {betas[0]:g} {b:.6f} +- {sb:.6f}, "
+              f"|difference| {abs(a - b):.6f} (bound "
+              f"{5 * math.hypot(sa, sb):.6f}{note})  [{card}]")
+    law = rec[str(PT_LAW_ROUNDS)]
+    require(law["difference"] <= law["five_se"],
+            f"pt law: rung 0 against sweepMC: {law}")
+    (a, sa) = law["pt"]
+    c, sc = second_half(ref(PT_CONTROL_BETA, PT_ROUNDS, SEED + 3),
+                        PT_ROUNDS)
+    ctl = {"sweepMC": (c, sc), "difference": abs(a - c),
+           "five_se": 5 * math.hypot(sa, sc)}
+    print(f"pt law control: sweepMC at beta {PT_CONTROL_BETA:g} {c:.6f} +- "
+          f"{sc:.6f}, |difference| {abs(a - c):.6f} (bound "
+          f"{ctl['five_se']:.6f})  [{card}]")
+    require(ctl["difference"] > ctl["five_se"],
+            f"pt law control: sweepMC at {PT_CONTROL_BETA} passes: {ctl}")
+    rec["control"] = ctl
+    return rec, st
+
+
+def et_gammas():
+    """The ET path's Gamma ladder."""
+    return [ET_GAMMA0 + ET_DGAMMA * k for k in range(ET_T)]
+
+
+def et_path(card):
+    """tempered_ensembles with sweep_kernel on ET_T flattened slots
+    flatten(GraphQuant(ET_NK, ET_M, Gamma_k, beta=ET_BETA, base)), base
+    GraphRRG(1000, 3, +-J, seed 13), ET_CHAINS chains, ET_ROUNDS rounds
+    (one sweep of N moves a slot a round: one site-kernel launch). Holds E
+    within 1e-4 max(1, |E|) of each slot's energy(sigma), walkers
+    permutations and every adjacent pair swapping. Returns (records,
+    counts)."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import site
+
+    base = rt.GraphRRG(ET_NK, 3, (-1, 1), seed=ET_SEED)
+    models = [rt.flatten(rt.GraphQuant(ET_NK, ET_M, g, ET_BETA, base))
+              for g in et_gammas()]
+    torch.cuda.synchronize()
+    site.LAUNCHES = 0
+    t0 = time.perf_counter()
+    Es, walkers, st = rt.tempered_ensembles(
+        models, [ET_BETA] * ET_T, ET_ROUNDS, chains=ET_CHAINS, seed=SEED,
+        kernel=rt.sweep_kernel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = site.LAUNCHES
+    require(rt.LAST_ROUTE["backend"] == "kernel-site-sweep"
+            and rt.LAST_ROUTE["impl"] == "cuda",
+            f"et: slot route {rt.LAST_ROUTE}")
+    require(launches == ET_T * ET_ROUNDS, f"et: {launches} launches")
+    errs = []
+    for m, slot in zip(models, st.slots):
+        e = float((m.energy(slot.sigma).double() - slot.E.double()).abs()
+                  .max())
+        errs.append(e)
+        require(e <= 1e-4 * max(1.0, float(slot.E.abs().max())),
+                f"et: |E - energy| {e}")
+    want = torch.arange(ET_T, dtype=walkers.dtype, device=walkers.device)
+    require(bool((walkers.sort(dim=1).values == want[None, :, None]).all()),
+            "et: walkers are not permutations")
+    acc = _pair_acceptance(_walker_ranks(walkers), ET_T)
+    require(min(acc) > 0, f"et: a pair never swapped: {acc}")
+    print(f"et {ET_T} x flatten(GraphQuant({ET_NK}, {ET_M}, Gamma, "
+          f"{ET_BETA:g})), Gamma {[round(g, 4) for g in et_gammas()]}, "
+          f"{ET_CHAINS} chains, {ET_ROUNDS} rounds: {wall:.2f} s, "
+          f"{launches} launches, |E - energy| {max(errs):.3g}, pair "
+          f"acceptance {[round(a, 4) for a in acc]}  [{card}]")
+    return [{"run": "tempered_ensembles sweep_kernel", "seconds": wall,
+             "chains": ET_CHAINS * ET_T, "launches": launches,
+             "pair_acceptance": acc, "energy_err": max(errs),
+             "E_phys_by_slot": Es[ET_ROUNDS // 2:].double().mean(
+                 dim=(0, 2)).tolist()}], {"site_metropolis": launches}
+
+
+def _walker_ranks(walkers):
+    """Walkers [n, T, B] (walker id held by each slot) as the rank table
+    `_pair_acceptance` reads: slot s "holds rank" walker[s], so a swap of
+    slots (k, k + 1) shows as the exchange of their walker ids' slots."""
+    return walkers.argsort(dim=1).to(walkers.dtype)
+
+
+def shard_path(card, X):
+    """Sharding, disorder, distribution and checkpoints on the card:
+    sample_sharded(standardMC) over a mesh of the card repeated 4 times
+    against the unsharded call; sample_disorder(bklMC) over 4 RRG
+    instances against the sequential calls; a one-rank NCCL group's
+    sample_distributed(sweepMC) and parallel tempering against the
+    unsharded runs; a PT state saved mid-run, loaded and continued against
+    the run continued in memory and against one uninterrupted call. Each
+    must be EQUAL. Returns the launches of the kernels it ran."""
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree, site
+    from rrrmc_tpu_torch.parallel import distributed as dist
+    from rrrmc_tpu_torch.parallel.mesh import (make_mesh, sample_disorder,
+                                               sample_sharded)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    torch.cuda.synchronize()
+    site.LAUNCHES = rejfree.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mesh = make_mesh({"chains": 4}, devices=[DEV] * 4)
+    kw = dict(step=SHARD_ITERS // 10, chains=CHAINS, seed=SEED,
+              backend="kernel")
+    a_Es, a_st = sample_sharded(rt.standardMC, X, mesh, BETA, SHARD_ITERS,
+                                **kw)
+    b_Es, b_st = rt.standardMC(X, BETA, SHARD_ITERS, **kw)
+    require(rt.LAST_ROUTE["backend"] == "kernel-site"
+            and same((a_Es, a_st.sigma, a_st.E, a_st.accepted),
+                     (b_Es, b_st.sigma, b_st.E, b_st.accepted)),
+            "sample_sharded(standardMC) differs from the unsharded run")
+    print(f"sample_sharded(standardMC) over 4 shards of the card: equal to "
+          f"the unsharded run ({CHAINS} chains, {SHARD_ITERS} moves)  "
+          f"[{card}]")
+
+    models = [rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=s) for s in range(4)]
+    dkw = dict(step=DISORDER_ITERS // 10, chains=HYPER_CHAINS)
+    Es_d, st_d = sample_disorder(rt.bklMC, models, BETA, DISORDER_ITERS,
+                                 seed=SEED, **dkw)
+    for d, m in enumerate(models):
+        st = rt.init_state(m, HYPER_CHAINS, SEED + 104729 * d)
+        Es, st2 = rt.bklMC(m, BETA, DISORDER_ITERS, state=st, **dkw)
+        require(rt.LAST_ROUTE["backend"] == "kernel-rejfree-sparse"
+                and same((Es_d[d], st_d.sigma[d]), (Es, st2.sigma)),
+                f"sample_disorder(bklMC) instance {d} differs")
+    print(f"sample_disorder(bklMC) over 4 GraphRRG({N_MAIN}, 3) instances: "
+          f"equal to the sequential calls  [{card}]")
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        require(tdist.get_backend() == "nccl", "one-rank group not on NCCL")
+        gmesh = dist.global_mesh()
+        skw = dict(step=5, chains=CHAINS, seed=SEED)
+        Es, st = dist.sample_distributed(rt.sweepMC, X, BETA, 20, mesh=gmesh,
+                                         **skw)
+        Es0, st0 = rt.sweepMC(X, BETA, 20, **skw)
+        require(same((dist.fetch_global(Es, gmesh), st.sigma),
+                     (Es0, st0.sigma)), "NCCL sample_distributed differs")
+        betas = pt_betas().tolist()
+        pkw = dict(sweeps_per_round=2, chains=PT_CHAINS, seed=SEED)
+        a = rt.parallel_tempering(X, betas, 10,
+                                  mesh=dist.global_mesh({"temp": 1}), **pkw)
+        b = rt.parallel_tempering(X, betas, 10, **pkw)
+        require(same(a[:2] + (a[2].sigma,), b[:2] + (b[2].sigma,)),
+                "NCCL parallel_tempering differs")
+    finally:
+        tdist.destroy_process_group()
+    print(f"one-rank NCCL group: sample_distributed(sweepMC) and "
+          f"parallel_tempering equal their unsharded runs  [{card}]")
+
+    betas = pt_betas().tolist()
+    pkw = dict(sweeps_per_round=2, chains=PT_CHAINS)
+    _, _, mid = rt.parallel_tempering(X, betas, 10, seed=SEED, **pkw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/pt.npz"
+        rt.save_state(path, mid)
+        like = rt.parallel_tempering(X, betas, 0, seed=0, **pkw)[2]
+        loaded = rt.load_state(path, like)
+    c_mem = rt.parallel_tempering(X, betas, 10, state=mid, **pkw)
+    c_load = rt.parallel_tempering(X, betas, 10, state=loaded, **pkw)
+    whole = rt.parallel_tempering(X, betas, 20, seed=SEED, **pkw)
+    require(same(c_mem[:2] + (c_mem[2].sigma,),
+                 c_load[:2] + (c_load[2].sigma,))
+            and same((whole[0][10:], whole[1][10:], whole[2].sigma),
+                     c_load[:2] + (c_load[2].sigma,)),
+            "a PT checkpoint's continuation differs")
+    print(f"PT checkpoint saved after 10 rounds, loaded and continued for "
+          f"10: equal to the run continued in memory and to one 20-round "
+          f"call ({time.perf_counter() - t0:.1f} s for the shard path)  "
+          f"[{card}]")
+    torch.cuda.synchronize()
+    return {"site_metropolis": site.LAUNCHES,
+            "rejfree_sparse": rejfree.LAUNCHES}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3346,6 +3806,7 @@ def main() -> int:
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
     cases = [site_case(m, "RRG+-J", card),
              site_case(mn, "RRGNormal", card, n_moves=SITE_MOVES // 4)]
+    cases.append(pt_site_case(m, card, cases[0]))
     cases += site_cases(card)
 
     def moves(mode):
@@ -3597,6 +4058,9 @@ def main() -> int:
     factor_records, factor_counts = factors_path(card)
     generic_records, generic_counts = generic_path(card)
     wrapper_records, wrapper_counts = wrapper_path(card)
+    pt_records, pt_counts, rrg = pt_path(card)
+    et_records, et_counts = et_path(card)
+    shard_counts = shard_path(card, rrg)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
                                 "PSpin3": ps_counts, "K-SAT": sat_counts,
@@ -3604,11 +4068,15 @@ def main() -> int:
                                 "perceptron": perc_counts,
                                 "factors": factor_counts,
                                 "generic": generic_counts,
-                                "wrappers": wrapper_counts},
+                                "wrappers": wrapper_counts,
+                                "tempering": pt_counts,
+                                "ensembles": et_counts,
+                                "shards": shard_counts},
                       "runs": rrg_records + ea_records + sk_records
                       + eo_records + ps_records + sat_records
                       + rep_records + perc_records + factor_records
-                      + generic_records + wrapper_records}))
+                      + generic_records + wrapper_records + pt_records
+                      + et_records}))
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
@@ -3720,8 +4188,11 @@ def main() -> int:
                 "bound_two_calls_ms": head["bound_two_calls_ms"],
                 "tie_groups_a_move": head["tie_groups_a_move"]}
                if "bound_two_calls_ms" in head else {}),
-            **({"site_plan": head["site_plan"]} if "site_plan" in head
-               else {}),
+            **({"site_plan": head["site_plan"],
+                "beta_per_chain_ms": next(c["ms"] for c in mine
+                                          if "(PT)" in c["case"]),
+                "tempering_launches": pt_counts["site_metropolis"]}
+               if "site_plan" in head else {}),
             **({"sweep_plan": head["sweep_plan"],
                 "equilibrium_ms": next((c["ms"] for c in mine
                                         if c.get("warm")), None)}

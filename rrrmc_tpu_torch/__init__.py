@@ -14,8 +14,13 @@ torch versions on the CPU. The other wrappers (local entropy, topological
 local entropy, AddFields) and the committee machines run on the generic
 torch paths, as they run on plain XLA in the JAX package; `flatten` merges
 a pairwise wrapper stack into one Pairwise that the site, sparse race and
-sparse EO kernels take. Names mirror the JAX package (rrrmc_tpu), which
-stays the reference. This package never imports JAX.
+sparse EO kernels take. Parallel tempering runs its whole beta ladder as
+one site-kernel launch a round (a beta per chain); `parallel.mesh` and
+`parallel.distributed` shard chains, disorder and the ladder over devices
+and torch.distributed ranks, bit for bit the unsharded run on the kernel
+routes; `save_state` / `load_state` resume any state exactly. Names mirror
+the JAX package (rrrmc_tpu), which stays the reference. This package never
+imports JAX.
 """
 
 from .core.model import Model, random_spins
@@ -71,9 +76,15 @@ from .convert import (pairwise_from_arrays, lattice_from_arrays,
                       fully_connected_from_arrays, pspin_from_arrays,
                       sat_from_arrays, perceptron_from_arrays,
                       replica_from_arrays, committee_from_arrays,
-                      state_from_arrays)
+                      state_from_arrays, pt_state_from_arrays,
+                      et_state_from_arrays)
+from .parallel.tempering import (parallel_tempering, tempered_ensembles,
+                                 energies_by_rank, sweep_kernel, PTState,
+                                 ETState)
 from . import observables
 from . import analysis
 from . import experiments
+from .utils.checkpoint import save_state, load_state
+from .utils import profiling
 
 __version__ = "0.1.0"

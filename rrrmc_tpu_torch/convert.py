@@ -203,3 +203,53 @@ def state_from_arrays(model, sigma, E=None, accepted=None, *,
                         ).to(torch.int32))
     return MCState(sigma=sigma, aux=model.init_aux(sigma), E=E, accepted=acc,
                    generator=make_generator(seed, sigma.device))
+
+
+def pt_state_from_arrays(model, sigma, E=None, rank=None, swap_acc=None, *,
+                         seed: int = DEFAULT_SEED, device=None):
+    """PTState for spins sigma [T, B, N] by slot on `device` (CUDA when none
+    is given): aux re-derived, E defaulting to the slots' energies, rank to
+    the slot index and swap_acc to zeros; the generator seeded as
+    parallel_tempering seeds it (seed ^ 0x5EED)."""
+    from .parallel.tempering import PT_SALT, PTState
+
+    device = default_device(device)
+    sig = torch.tensor(np.asarray(sigma, dtype=np.int8), device=device)
+    T, B, N = sig.shape
+    flat = sig.reshape(T * B, N)
+    e = model.energy(flat)
+    E = (e.view(T, B) if E is None else
+         torch.tensor(np.asarray(E), device=device).to(e.dtype))
+    rank = (torch.arange(T, dtype=torch.int32, device=device)[:, None]
+            .expand(T, B).contiguous() if rank is None else
+            torch.tensor(np.asarray(rank), device=device).to(torch.int32))
+    acc = (torch.zeros((T, B), dtype=torch.int32, device=device)
+           if swap_acc is None else
+           torch.tensor(np.asarray(swap_acc), device=device).to(torch.int32))
+    return PTState(sigma=sig, aux=model.init_aux(flat).view(T, B, N), E=E,
+                   rank=rank, swap_acc=acc,
+                   generator=make_generator(seed ^ PT_SALT, device))
+
+
+def et_state_from_arrays(models, sigmas, walker=None, swap_acc=None, *,
+                         seed: int = DEFAULT_SEED, device=None):
+    """ETState for the slots' spins sigmas [T, B, N] under `models` on
+    `device` (CUDA when none is given): each slot a `state_from_arrays`
+    (seeded seed + 7919 t, as tempered_ensembles seeds its slots), walker
+    defaulting to the slot index and swap_acc to zeros; the swap generator
+    seeded seed ^ 0x7E3B."""
+    from .parallel.tempering import ET_SALT, ETState
+
+    device = default_device(device)
+    slots = tuple(state_from_arrays(m, s, seed=seed + 7919 * t,
+                                    device=device)
+                  for t, (m, s) in enumerate(zip(models, sigmas)))
+    T, B = len(slots), slots[0].sigma.shape[0]
+    walker = (torch.arange(T, dtype=torch.int32, device=device)[:, None]
+              .expand(T, B).contiguous() if walker is None else
+              torch.tensor(np.asarray(walker), device=device).to(torch.int32))
+    acc = (torch.zeros((T, B), dtype=torch.int32, device=device)
+           if swap_acc is None else
+           torch.tensor(np.asarray(swap_acc), device=device).to(torch.int32))
+    return ETState(slots=slots, walker=walker, swap_acc=acc,
+                   generator=make_generator(seed ^ ET_SALT, device))

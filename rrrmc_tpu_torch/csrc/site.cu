@@ -28,9 +28,13 @@
 //   moves in order.
 //
 // Acceptance is the integer threshold test of the TPU kernel: with the f32
-// p = exp(-beta_s * dE), th = clip(p * 2^32 - 2^31) and the move is accepted
-// iff dE <= 0 or bits < th, bits being the int32 Philox word of counter
-// (0, move0 + m, DRAW_SITE, 0) under key (seed, chain0 + b).
+// p = exp(-beta_s[b] * dE), th = clip(p * 2^32 - 2^31) and the move is
+// accepted iff dE <= 0 or bits < th, bits being the int32 Philox word of
+// counter (0, move0 + m, DRAW_SITE, 0) under key (seed, chain0 + b).
+// beta_s [B] holds each chain's beta * scale, read once a chain: a launch
+// of one beta passes it B times, a tempering ladder each chain's rung, so
+// the ladder's T * B chains run as one launch with the thresholds of T
+// launches of one beta each.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -72,9 +76,10 @@ __global__ void site_global_kernel(
     const int32_t* __restrict__ neigh, const T* __restrict__ J, int N, int K,
     int B, int8_t* __restrict__ sigT, T* __restrict__ lfT,
     T* __restrict__ E, int32_t* __restrict__ acc, uint32_t seed,
-    uint32_t move0, uint32_t chain0, float beta_s) {
+    uint32_t move0, uint32_t chain0, const float* __restrict__ beta_s) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  const float bs = beta_s[b];
   T dE_sum = T(0);
   int32_t n_acc = 0;
   for (int m = 0; m < n_moves; ++m) {
@@ -82,7 +87,7 @@ __global__ void site_global_kernel(
     const size_t o = (size_t)i * B + b;
     const int s = sigT[o];
     const T dE = T(2 * s) * lfT[o];
-    const int32_t th = (int32_t)th_of(expf(-beta_s * (float)dE));
+    const int32_t th = (int32_t)th_of(expf(-bs * (float)dE));
     const int32_t bits =
         rrrmc::draw_bits(seed, chain0 + b, move0 + m, rrrmc::DRAW_SITE);
     if (dE <= T(0) || bits < th) {
@@ -175,7 +180,7 @@ __global__ void site_resident_kernel(
     int n_moves, const int32_t* __restrict__ neigh, const TC* __restrict__ J,
     int N, int K, int B, int8_t* __restrict__ sigT, TC* __restrict__ lfT,
     TC* __restrict__ E, int32_t* __restrict__ acc, uint32_t seed,
-    uint32_t move0, uint32_t chain0, float beta_s) {
+    uint32_t move0, uint32_t chain0, const float* __restrict__ beta_s) {
   constexpr bool kFloat = std::is_same<TC, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = blockDim.x >> 5;
@@ -216,6 +221,7 @@ __global__ void site_resident_kernel(
     int8_t* sig = reinterpret_cast<int8_t*>(smem + warp * stride);
     TF* lf = reinterpret_cast<TF*>(smem + warp * stride + fo);
     const uint32_t chain = chain0 + (uint32_t)(b0 + warp);
+    const float bs = __ldg(beta_s + b0 + warp);
     TC dE_sum = TC(0);  // float: the same schedule-order sum on every lane
     int32_t n_acc = 0;
     // Every global load is in flight a group before it is used: at group
@@ -251,7 +257,7 @@ __global__ void site_resident_kernel(
             rrrmc::draw_bits(seed, chain, move0 + m, rrrmc::DRAW_SITE);
         const int s = sig[i];
         dE = TC(2 * s) * TC(lf[i]);
-        const int32_t th = (int32_t)th_of(expf(-beta_s * (float)dE));
+        const int32_t th = (int32_t)th_of(expf(-bs * (float)dE));
         accepted = dE <= TC(0) || bits < th;
         if (accepted) {
           sig[i] = (int8_t)(-s);
@@ -315,7 +321,7 @@ int launch_resident(const int32_t* sites, const int32_t* glen, int n_moves,
                     const int32_t* neigh, const void* J, int N, int K, int B,
                     int8_t* sigT, void* lfT, void* E, int32_t* acc,
                     uint32_t seed, uint32_t move0, uint32_t chain0,
-                    float beta_s, int chains, cudaStream_t st) {
+                    const float* beta_s, int chains, cudaStream_t st) {
   auto k = site_resident_kernel<TF, TC>;
   const size_t smem = (size_t)chains * chain_bytes(N, (int)sizeof(TF));
   // above 48 KB a launch is refused unless the kernel opts in
@@ -370,11 +376,11 @@ extern "C" int rrrmc_site_cut(const int32_t* sites, int n_moves,
 
 // chains == 0: the global route; else the resident route with `chains`
 // warps a block, fields of type `field`, groups of at most kGroupMax moves
-// (scratch glen [n_moves])
+// (scratch glen [n_moves]); beta_s [B] float32, each chain's beta * scale
 extern "C" int rrrmc_site_metropolis(
     const int32_t* sites, int n_moves, const int32_t* neigh, const void* J,
     int N, int K, int B, int8_t* sigT, void* lfT, void* E, int32_t* acc,
-    uint32_t seed, uint32_t move0, uint32_t chain0, float beta_s,
+    uint32_t seed, uint32_t move0, uint32_t chain0, const float* beta_s,
     int field, int chains, int32_t* glen, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (chains == 0) {

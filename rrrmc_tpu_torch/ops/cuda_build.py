@@ -34,7 +34,7 @@ _P, _I, _U, _F, _Z = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 #: C signatures of the library's functions: (restype, argtypes)
 _SIGNATURES = {
     "rrrmc_site_metropolis": (_I, [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
-                                   _P, _U, _U, _U, _F, _I, _I, _P, _P]),
+                                   _P, _U, _U, _U, _P, _I, _I, _P, _P]),
     "rrrmc_site_cut": (_I, [_P, _I, _P, _I, _I, _I, _P, _P]),
     "rrrmc_site_info": (_I, [_I, _I, _Z, _I, _P]),
     "rrrmc_rejfree_sparse": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

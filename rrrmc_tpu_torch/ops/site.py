@@ -20,6 +20,10 @@ Where the state does not fit ("global"), one thread per chain keeps it in
 global memory, the moves in order (the site-major [N, B] layout makes each
 access one coalesced row segment).
 
+Each chain reads its own beta * scale (a [B] tensor), so a tempering
+ladder's T * B chains run as one launch, each with the thresholds of a
+one-beta launch at its rung (parallel/tempering.py).
+
 Semantics (as the TPU kernel): each chain is an exact Metropolis chain; the
 site schedule is shared across the chain batch, so chains are not mutually
 independent. Integer couplings keep exact int32 energies and local fields;
@@ -157,19 +161,33 @@ def group_lengths(sites, neigh, N: int, cap: int = GROUP_MAX):
     return glen
 
 
-def _check_args(sigT, lfT, E, acc, sites, neigh, J):
+def chain_betas(beta_s, B: int, device) -> torch.Tensor:
+    """[B] float32 beta * scale of every chain: `beta_s` itself when it is
+    a [B] tensor (a tempering ladder's chain by chain), else one value
+    filled B times."""
+    if torch.is_tensor(beta_s) and beta_s.ndim == 1:
+        if beta_s.shape[0] != B:
+            raise ValueError(f"beta_s: expected [{B}], got "
+                             f"{list(beta_s.shape)}")
+        return beta_s.to(device=device, dtype=torch.float32).contiguous()
+    return torch.full((B,), float(beta_s), dtype=torch.float32,
+                      device=device)
+
+
+def _check_args(sigT, lfT, E, acc, sites, neigh, J, betas):
     N, B = sigT.shape
     K = neigh.shape[1]
     dt = torch.int32 if is_integer(J) else torch.float32
     want = {"sigT": (sigT, (N, B), torch.int8), "lfT": (lfT, (N, B), dt),
             "E": (E, (B,), dt), "acc": (acc, (B,), torch.int32),
             "sites": (sites, (sites.shape[0],), torch.int32),
-            "neigh": (neigh, (N, K), torch.int32), "J": (J, (N, K), dt)}
+            "neigh": (neigh, (N, K), torch.int32), "J": (J, (N, K), dt),
+            "beta_s": (betas, (B,), torch.float32)}
     check_args(want, sigT.device)
 
 
 def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
-               beta_s: float, move0: int = 0, chain0: int = 0,
+               beta_s, move0: int = 0, chain0: int = 0,
                bits: Optional[BitsFn] = None,
                field_bound: Optional[int] = None) -> None:
     """Run the moves `sites` [n_moves] int32 on every chain, in place.
@@ -177,7 +195,9 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
     sigT [N, B] int8 and lfT [N, B] (int32 for integer J, else float32) are
     site-major; E [B] gains the sum of accepted dE, acc [B] int32 the
     accepted count. neigh/J are the model's [N, K] tables (padding == N).
-    beta_s = beta * model.scale. Move m's acceptance bits are Philox word 0
+    beta_s = beta * model.scale: one float for every chain, or a [B]
+    tensor of each chain's (`chain_betas`), which the kernel reads once a
+    chain. Move m's acceptance bits are Philox word 0
     of counter (0, move0 + m, DRAW_SITE, 0) under key (seed, chain0 + b).
     `field_bound` bounds |lf| over every configuration (the family's
     half_bound; None: int32 resident fields for integer J).
@@ -187,10 +207,11 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
     (move, draw) -> [B] int32 replaces the generator and is taken by the
     plain version only."""
     global LAUNCHES
-    _check_args(sigT, lfT, E, acc, sites, neigh, J)
+    betas = chain_betas(beta_s, sigT.shape[1], sigT.device)
+    _check_args(sigT, lfT, E, acc, sites, neigh, J, betas)
     if sigT.device.type == "cpu":
         site_chunk_reference(sigT, lfT, E, acc, sites, neigh, J, seed=seed,
-                             beta_s=beta_s, move0=move0, chain0=chain0,
+                             beta_s=betas, move0=move0, chain0=chain0,
                              bits=bits)
         return
     if sigT.device.type != "cuda":
@@ -217,7 +238,7 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
             sites.data_ptr(), sites.shape[0], neigh.data_ptr(), J.data_ptr(),
             N, neigh.shape[1], B, sigT.data_ptr(), lfT.data_ptr(),
             E.data_ptr(), acc.data_ptr(), seed & 0xFFFFFFFF,
-            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, beta_s, code,
+            move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, betas.data_ptr(), code,
             plan["chains"] if resident else 0, glen.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(err, "site_metropolis launch")
@@ -225,15 +246,17 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
 
 
 def site_chunk_reference(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
-                         beta_s: float, move0: int = 0, chain0: int = 0,
+                         beta_s, move0: int = 0, chain0: int = 0,
                          bits: Optional[BitsFn] = None) -> None:
     """Plain torch version of the site kernel, move by move (same arguments
-    and in-place contract as `site_chunk`)."""
+    and in-place contract as `site_chunk`; a [B] beta_s broadcasts over the
+    chains, so each chain's threshold is the one-beta launch's at its
+    beta)."""
     N, B = sigT.shape
     K = neigh.shape[1]
     dt = lfT.dtype
     dev = sigT.device
-    beta = torch.tensor(beta_s, dtype=torch.float32, device=dev)
+    beta = chain_betas(beta_s, B, dev)
     nb_rows = neigh.tolist()
     j_rows = J.tolist()
     dE_sum = torch.zeros(B, dtype=dt, device=dev)
@@ -287,13 +310,16 @@ class SiteSampler:
                             if is_integer(self.J) else None)
 
     def __call__(self, sigT, lfT, E, acc, *, generator: torch.Generator,
-                 seed: int, n_moves: int, move0: int = 0,
-                 sweep_schedule: bool = False) -> None:
+                 seed: int, n_moves: int, move0: int = 0, chain0: int = 0,
+                 sweep_schedule: bool = False,
+                 beta_s=None) -> None:
         """Advance every chain by `n_moves` moves, in place on the
         site-major sigT / lfT [N, B] and on E, acc [B]. The shared site
         schedule is drawn on the device from `generator`; Philox moves are
         numbered from `move0`, so consecutive calls with one seed continue
-        the stream.
+        the stream, and chain b draws under key (seed, chain0 + b). Every
+        chain runs at the sampler's beta, or at `beta_s` (beta * scale):
+        one value, or a [B] tensor of each chain's (a tempering ladder's).
 
         sweep_schedule=True makes the schedule a concatenation of random
         PERMUTATIONS of [0, N) (the JAX package's, from `seed`): every
@@ -302,6 +328,8 @@ class SiteSampler:
         move0)."""
         N = self.N
         dev = sigT.device
+        beta_s = chain_betas(self.beta_s if beta_s is None else beta_s,
+                             sigT.shape[1], dev)
         done = 0
         while done < n_moves:
             m = min(self.MAX_MOVES, n_moves - done)
@@ -317,8 +345,8 @@ class SiteSampler:
                 sites = torch.randint(0, N, (m,), generator=generator,
                                       device=dev, dtype=torch.int32)
             site_chunk(sigT, lfT, E, acc, sites, self.neigh, self.J,
-                       seed=seed, beta_s=self.beta_s, move0=move0 + done,
-                       field_bound=self.field_bound)
+                       seed=seed, beta_s=beta_s, move0=move0 + done,
+                       chain0=chain0, field_bound=self.field_bound)
             done += m
 
 

@@ -141,7 +141,8 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
         cs, es = fam.race(
             sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
             n_moves=chunk_moves, beta_s=beta * model.scale, target=target,
-            seed=seed, move0=k * chunk_moves, **race_kw)
+            seed=seed, move0=k * chunk_moves, chain0=state.chain0,
+            **race_kw)
         Es = fill_checkpoints(Es, step, x_start, e_start, cs,
                               model.to_physical(es))
         k += 1
@@ -150,7 +151,7 @@ def rejfree_mc(model, beta: float, mode: str, target, step,
               acc=acc, z_over_n=zacc, chunks=k)
     return Es, MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
                        accepted=state.accepted + acc,
-                       generator=state.generator)
+                       generator=state.generator, chain0=state.chain0)
 
 
 def make_bkl_move(model: Model, beta: float, iters: int):

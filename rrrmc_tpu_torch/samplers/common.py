@@ -41,6 +41,10 @@ class MCState:
     #: host-side draws (site choices, kernel seeds); advances in place, so a
     #: continuation run (state=) never replays an earlier segment's stream
     generator: torch.Generator
+    #: the global id of chain 0: the kernels key chain b's Philox stream by
+    #: chain0 + b, so a shard of a larger batch (parallel/mesh.py) draws
+    #: what the same chains draw unsharded
+    chain0: int = 0
 
 
 def make_generator(seed: int, device) -> torch.Generator:

@@ -45,7 +45,8 @@ def _sweeper(model, beta: float) -> SKSweeper:
                   lambda: SKSweeper(model, beta))
 
 
-def _run_sweeps(model, sweeper, tensors, sweeps, step, seed, route):
+def _run_sweeps(model, sweeper, tensors, sweeps, step, seed, route,
+                chain0=0):
     """Advances `tensors` (sigma, lf, E, then what else the sweeper takes)
     in place by `sweeps` sweeps: one launch per checkpoint (and one for a
     remainder of sweeps), continuing one Philox stream across launches.
@@ -54,11 +55,12 @@ def _run_sweeps(model, sweeper, tensors, sweeps, step, seed, route):
     n_ckpt = sweeps // step
     Es = []
     for k in range(n_ckpt):
-        sweeper(*tensors, seed=seed, n_sweeps=step, sweep0=k * step)
+        sweeper(*tensors, seed=seed, n_sweeps=step, sweep0=k * step,
+                chain0=chain0)
         Es.append(model.to_physical(E).clone())
     if sweeps % step:
         sweeper(*tensors, seed=seed, n_sweeps=sweeps % step,
-                sweep0=n_ckpt * step)
+                sweep0=n_ckpt * step, chain0=chain0)
     set_route(route, impl="cuda" if sigma.device.type == "cuda" else "plain")
     return physical_series(Es, sigma.shape[0], sigma.device)
 
@@ -68,10 +70,11 @@ def _run_kernel(model, beta, sweeps, step, state):
     sigma, E = state.sigma.clone(), state.E.clone()
     lf = model.local_fields(sigma).contiguous()
     Es = _run_sweeps(model, _sweeper(model, beta), (sigma, lf, E), sweeps,
-                     step, kernel_seed(state.generator), "kernel-sk-sweep")
+                     step, kernel_seed(state.generator), "kernel-sk-sweep",
+                     state.chain0)
     state = MCState(sigma=sigma, aux=lf, E=E,
                     accepted=state.accepted.clone(),
-                    generator=state.generator)
+                    generator=state.generator, chain0=state.chain0)
     return Es, state
 
 
@@ -127,7 +130,7 @@ def _run_delayed(model, beta, sweeps, step, state, window):
             Es.append(model.to_physical(E))
     set_route("torch", impl="torch", window=W)
     state = MCState(sigma=s.to(torch.int8), aux=lf, E=E, accepted=accepted,
-                    generator=gen)
+                    generator=gen, chain0=st.chain0)
     return physical_series(Es, B, dev), state
 
 
@@ -185,9 +188,11 @@ def sweepMC_quant(model, beta: float, sweeps: int, *, step: int = 1,
     lf, E = replica_state(model, sigma, state.E)
     acc = state.accepted.clone()
     Es = _run_sweeps(model, sweeper, (sigma, lf, E, acc), sweeps, step,
-                     kernel_seed(state.generator), "kernel-replica-sweep")
+                     kernel_seed(state.generator), "kernel-replica-sweep",
+                     state.chain0)
     state = MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
-                    accepted=acc, generator=state.generator)
+                    accepted=acc, generator=state.generator,
+                    chain0=state.chain0)
     return Es, state
 
 

@@ -83,7 +83,8 @@ def _eo_kernel(model, cdf, state: MCState, iters: int):
     emin, smin = E.clone(), sigma.clone()
     itmin = torch.zeros(E.shape, dtype=torch.int32, device=E.device)
     fam.eo(sigma, lf, E, emin, smin, itmin, *fam.tables(model), cdf,
-           n_moves=iters, seed=seed, **fam.eo_kw(model))
+           n_moves=iters, seed=seed, chain0=state.chain0,
+           **fam.eo_kw(model))
     set_route(f"kernel-eo-{fam.name}",
               impl="cuda" if sigma.device.type == "cuda" else "plain")
     return sigma, E, emin, smin, itmin
@@ -91,7 +92,7 @@ def _eo_kernel(model, cdf, state: MCState, iters: int):
 
 def _eo_torch(model, cdf, state: MCState, iters: int):
     """The generic move on `model.delta_all` / `model.flip`, with the
-    kernels' streams (chain ids 0 .. B - 1)."""
+    kernels' streams (chain ids chain0 .. chain0 + B - 1)."""
     seed = kernel_seed(state.generator)
     st = working_copy(state)
     sigma, aux, E = st.sigma, st.aux, st.E
@@ -100,7 +101,8 @@ def _eo_torch(model, cdf, state: MCState, iters: int):
     do = torch.ones(B, dtype=torch.bool, device=sigma.device)
     emin, smin = E.clone(), sigma.clone()
     itmin = torch.zeros(B, dtype=torch.int32, device=E.device)
-    rank_draws, tie_draws = eo_draws(seed, 0, B, N, 0, iters, sigma.device)
+    rank_draws, tie_draws = eo_draws(seed, state.chain0, B, N, 0, iters,
+                                     sigma.device)
     for m in range(iters):
         dE = model.delta_all(sigma, aux)
         rank = torch.searchsorted(cdf, prng.to_uniform(next(rank_draws)))

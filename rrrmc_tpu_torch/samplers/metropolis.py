@@ -99,16 +99,16 @@ def _standard_kernel(model, beta, iters, step, state):
     Es = []
     for c in range(n_ckpt):
         ps(sigT, lfT, E, acc, generator=gen, seed=seed, n_moves=step,
-           move0=c * step)
+           move0=c * step, chain0=state.chain0)
         Es.append(model.to_physical(E))
     if iters % step:
         ps(sigT, lfT, E, acc, generator=gen, seed=seed,
-           n_moves=iters % step, move0=n_ckpt * step)
+           n_moves=iters % step, move0=n_ckpt * step, chain0=state.chain0)
     B = sigT.shape[1]
     E_series = (torch.stack(Es, dim=1) if Es else
                 torch.zeros((B, 0), dtype=torch.float32, device=E.device))
     set_route("kernel-site",
               impl="cuda" if sigT.device.type == "cuda" else "plain")
     state = MCState(sigma=sigT.t().contiguous(), aux=lfT.t().contiguous(),
-                    E=E, accepted=acc, generator=gen)
+                    E=E, accepted=acc, generator=gen, chain0=state.chain0)
     return E_series, state

@@ -152,19 +152,23 @@ def _run_checkerboard(model, beta, n_ckpt, step, state):
     sigma, E = state.sigma.clone(), state.E.clone()
     Es = []
     for k in range(n_ckpt):
-        sweeper(sigma, E, seed=seed, n_sweeps=step, sweep0=k * step)
+        sweeper(sigma, E, seed=seed, n_sweeps=step, sweep0=k * step,
+                chain0=state.chain0)
         Es.append(model.to_physical(E))
     set_route("kernel-sweep", impl=_impl(sigma), table=sweeper.table)
     state = MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
                     accepted=state.accepted.clone(),
-                    generator=state.generator)
+                    generator=state.generator, chain0=state.chain0)
     return physical_series(Es, sigma.shape[0], sigma.device), state
 
 
-def _run_site_sweep(model, beta, n_ckpt, step, state):
+def _run_site_sweep(model, beta, n_ckpt, step, state, sampler=None):
     """Route (b): the single-site kernel on the permutation schedule, step
-    sweeps (step * N moves) per checkpoint."""
-    sampler = SiteSampler(model, beta)
+    sweeps (step * N moves) per checkpoint, at beta; `sampler` is a
+    SiteSampler of the model prepared earlier (tempering's sweep_kernel
+    keeps one a slot)."""
+    if sampler is None:
+        sampler = SiteSampler(model, beta)
     gen = state.generator
     seed = kernel_seed(gen)
     sigT = state.sigma.t().contiguous()
@@ -175,18 +179,23 @@ def _run_site_sweep(model, beta, n_ckpt, step, state):
     Es = []
     for k in range(n_ckpt):
         sampler(sigT, lfT, E, acc, generator=gen, seed=seed, n_moves=moves,
-                move0=k * moves, sweep_schedule=True)
+                move0=k * moves, chain0=state.chain0, sweep_schedule=True,
+                beta_s=float(beta) * model.scale)
         Es.append(model.to_physical(E))
     set_route("kernel-site-sweep", impl=_impl(sigT), acc=acc)
     state = MCState(sigma=sigT.t().contiguous(), aux=lfT.t().contiguous(),
-                    E=E, accepted=state.accepted + acc, generator=gen)
+                    E=E, accepted=state.accepted + acc, generator=gen,
+                    chain0=state.chain0)
     return physical_series(Es, sigT.shape[1], sigT.device), state
 
 
 def _run_color_masks(model, beta, n_ckpt, step, state, masks=None):
     """Route (c), and the composites' mask sweep: the colour-mask sweep in
     plain torch on the model's delta_all, uniforms from the state's
-    generator."""
+    generator; beta is a float, or a [B] tensor of each chain's (a
+    tempering ladder's)."""
+    if torch.is_tensor(beta):
+        beta = beta[:, None]
     if masks is None:
         masks = (model.sweep_masks() if hasattr(model, "sweep_masks")
                  else color_masks(model))
@@ -209,7 +218,7 @@ def _run_color_masks(model, beta, n_ckpt, step, state, masks=None):
         Es.append(model.to_physical(E))
     set_route("torch", impl="torch", n_masks=int(masks.shape[0]))
     state = MCState(sigma=sigma, aux=aux, E=E, accepted=st.accepted,
-                    generator=gen)
+                    generator=gen, chain0=st.chain0)
     return physical_series(Es, sigma.shape[0], sigma.device), state
 
 

@@ -37,6 +37,7 @@ import subprocess
 import torch
 
 import rrrmc_tpu_torch as rt
+from rrrmc_tpu_torch.utils import profiling
 
 MOVES = 200
 #: case -> () -> (model, chains, beta), as the module docstring lists them
@@ -45,10 +46,6 @@ CASES = {
     "le": lambda: (rt.GraphLocalEntropy(
         1000, 8, 1.0, 1.0, rt.GraphRRG(1000, 3, (-1, 1), seed=13)), 128, 1.0),
     "comm": lambda: (rt.GraphCommStep(65, 15, 487, seed=5), 256, 1.0)}
-SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-         "cudaEventSynchronize")
-LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-            "cuLaunchKernelEx")
 
 
 def card_line() -> str:
@@ -88,22 +85,23 @@ def profile(call, chains: int, card: str) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         call(3)
         torch.cuda.synchronize()
-    kernels, device_us = 0, 0.0
+    dev = profiling.device_summary(prof)
+    kernels, device_us = dev["kernels"], dev["device_us"]
+    launches = dev["launch_calls"]
     runtime = collections.Counter()
     aten = collections.Counter()
     aten_us = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += 1
-            device_us += e.time_range.elapsed_us()
-        elif e.name.startswith(("cuda", "cu")):
+            continue
+        if e.name.startswith(("cuda", "cu")):
             runtime[e.name] += 1
         elif e.name.startswith("aten::"):
             aten[e.name] += 1
             aten_us[e.name] += e.self_cpu_time_total
-    launches = sum(runtime[n] for n in LAUNCHES)
     copies = sum(c for n, c in runtime.items() if n.startswith("cudaMemcpy"))
-    syncs = {n: runtime[n] / MOVES for n in SYNCS if runtime[n]}
+    syncs = {n: runtime[n] / MOVES for n in profiling.SYNC_CALLS
+             if runtime[n]}
     top = [{"op": n, "per_move": aten[n] / MOVES,
             "host_us_per_move": aten_us[n] / MOVES}
            for n, _ in aten_us.most_common(8)]

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the site kernel and the checkerboard sweep kernel of the PyTorch +
 CUDA port on their kernel-table cases (PERF.md section 6: row 1, the site
-kernel on GraphRRG(10^4, 3) +-J with 1024 chains, 10 000 moves, and one
-standardMC launch of the main path, 300 000 moves; row 3, the
+kernel on GraphRRG(10^4, 3) +-J with 1024 chains, 10 000 moves, one
+standardMC launch of the main path, 300 000 moves, and where the tree's
+kernel takes a beta per chain the PT path's case, 32 betas over the 1024
+chains and one sweep of the permutation schedule; row 3, the
 checkerboard sweep on EA-3D L=16 +-J with 8192 chains, 100 sweeps), for
 the rrrmc_tpu_torch package under --root, so that two trees are timed in
 one call on one card:
@@ -58,6 +60,9 @@ BETA = 2.0
 #: row 1: GraphRRG(N, 3) +-J, its chains, the row's moves and one
 #: standardMC launch of the main path (3 * 10^6 moves in 10 launches)
 SITE_N, SITE_B, SITE_MOVES, PATH_MOVES = 10_000, 1024, 10_000, 300_000
+#: the PT path's ladder (chip_smoke.py): beta_t = PT_BETA0 + PT_DBETA t,
+#: PT_CHAINS chains a rung
+PT_BETA0, PT_DBETA, PT_CHAINS = 1.0, 0.02, 32
 #: row 3: EA-3D L=16 +-J (the bench's lattice, seed 42), chains, sweeps
 SWEEP_L, SWEEP_B, SWEEPS = 16, 8192, 100
 #: --paths: standardMC's moves and checkpoints, the site-sweep route's
@@ -82,8 +87,11 @@ def events_ms(torch, fn) -> float:
     return t0.elapsed_time(t1)
 
 
-def site_launcher(torch, rt, model, n_moves):
-    """launch() of the tree's site wrapper on a fresh copy of the start."""
+def site_launcher(torch, rt, model, n_moves, ladder=False):
+    """launch() of the tree's site wrapper on a fresh copy of the start:
+    n_moves random sites at BETA, or with `ladder` the PT path's case (one
+    sweep of the permutation schedule, chain t * PT_CHAINS + b at
+    PT_BETA0 + PT_DBETA t)."""
     from rrrmc_tpu_torch.ops import site
     from rrrmc_tpu_torch.samplers.common import init_lfT
     from rrrmc_tpu_torch.samplers.families import half_bound
@@ -92,6 +100,13 @@ def site_launcher(torch, rt, model, n_moves):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     sites = torch.randint(0, model.N, (n_moves,), generator=g,
                           device="cuda", dtype=torch.int32)
+    beta_s = BETA * model.scale
+    if ladder:
+        sites = torch.as_tensor(site._perm_of(SEED, 0, model.N).astype(
+            "int32"), device="cuda")
+        beta_s = ((PT_BETA0 + PT_DBETA * torch.arange(
+            SITE_B // PT_CHAINS, dtype=torch.float64)).repeat_interleave(
+                PT_CHAINS) * model.scale).float().cuda()
     base = [st.sigma.t().contiguous(), init_lfT(model, st.sigma),
             st.E.clone(), torch.zeros(SITE_B, dtype=torch.int32,
                                       device="cuda")]
@@ -105,7 +120,7 @@ def site_launcher(torch, rt, model, n_moves):
 
     def run(a):
         site.site_chunk(*a, sites, model.neigh, model.J, seed=SEED,
-                        beta_s=BETA * model.scale, **extra)
+                        beta_s=beta_s, **extra)
 
     return launch, run
 
@@ -156,6 +171,11 @@ def kernel_cases(torch, rt, root, card, reps):
         fresh, run = site_launcher(torch, rt, m, n)
         case_line(torch, root, card, label, 1, fresh, run, reps, site,
                   chains=SITE_B, moves=n)
+    if hasattr(site, "chain_betas"):   # a tree whose kernel takes them
+        fresh, run = site_launcher(torch, rt, m, m.N, ladder=True)
+        case_line(torch, root, card, f"RRG+-J, {SITE_B // PT_CHAINS} betas "
+                  f"a chain's rung, one sweep (the PT path's case)", 1,
+                  fresh, run, reps, site, chains=SITE_B, moves=m.N)
     lat = rt.GraphEA(SWEEP_L, 3, (-1, 1), seed=42, device="cuda")
     fresh, run, _ = sweep_launcher(torch, rt, lat)
     case_line(torch, root, card, "EA3D-L16+-J, 100 sweeps (the row)", 3,
