@@ -137,6 +137,16 @@ Phases, any failure exits non-zero:
      sample_distributed(sweepMC) and parallel tempering, and a PT state
      saved after 10 rounds, loaded and continued: each EQUAL to its
      unsharded, sequential, in-memory and one-call reference.
+   - the ported scripts (`scripts_path`) at their published shapes and
+     chain counts with short lengths: every row of the scoreboard's
+     kernels, sat, composite_sparse, sparse_chains (1024 chains),
+     disorder and perc_comm sections (scripts/torch_bench_all.py's
+     SHORT), each with its energy guard, the JAX artifact's keys for its
+     section (with the port's ADDED_KEYS) and its kernel's route;
+     QIsing's four engines for QISING_T seconds each
+     (scripts/torch_paper_quant.py), and the tempering scaling at T = 2
+     and 32 for 3 rounds (scripts/torch_tempering_scaling.py); every
+     kernel module launched, its wall time printed.
    After each run: the launch counter rose, LAST_ROUTE names the CUDA
    kernel route, the checkpoint series is finite and of the expected shape,
    and the running energy equals energy(sigma) (exactly for integer
@@ -3780,6 +3790,157 @@ def shard_path(card, X):
             "rejfree_sparse": rejfree.LAUNCHES}
 
 
+#: the kernel modules whose launch counts scripts_path reads: every one of
+#: them runs on some scoreboard row or QIsing engine
+SCRIPT_KERNELS = ("site", "rejfree", "sweep", "sk", "rejfree_dense", "eo",
+                  "eo_dense", "pspin", "eo_pspin", "sat", "eo_sat",
+                  "replica", "replica_sweep", "perc", "eo_perc")
+#: the scoreboard sections scripts_path runs (the factor sections stay out:
+#: factors_path runs equilibrated_factors)
+SCRIPT_SECTIONS = ("kernels", "sat", "composite_sparse", "sparse_chains",
+                   "disorder", "perc_comm")
+#: QIsing's engines in scripts_path: seconds each, segment target, and the
+#: generic engines' probe moves
+QISING_T, QISING_SEG_S, QISING_PROBE = 2.0, 0.5, 100
+#: the tempering scaling's ladder sizes and rounds in scripts_path
+TEMPER_T, TEMPER_ROUNDS = (2, 32), 3
+
+
+def _script(name: str):
+    """scripts/<name>.py of this checkout as a module (not run)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _row_routes(section, row) -> dict:
+    """Each route a scoreboard row names, and the route it must be: the
+    kernel route where a kernel takes the row, the generic path ("torch")
+    where none does (TLE's composite masks, the committees, Metropolis on
+    the perceptrons), as in the JAX file."""
+    if section != "perc_comm":
+        want = "torch" if row["kernel"] == "tle_rrg_sweep" else "kernel-"
+        return {"route": (row["route"], want)}
+    if row["family"] == "perc_step_eo":
+        return {"backend": (row["backend"], "kernel-eo-perc")}
+    perc = row["family"].startswith("perc_")
+    return {f"{s}_backend": (row[f"{s}_backend"],
+                             "kernel-rejfree-perc" if perc and s != "standard"
+                             else "torch")
+            for s in ("standard", "rrr", "bkl")}
+
+
+def scripts_path(card):
+    """The ported scripts at their published shapes and chain counts with
+    short run lengths: every row of the scoreboard's kernels, sat,
+    composite_sparse, sparse_chains (1024 chains), disorder and perc_comm
+    sections (scripts/torch_bench_all.py's SHORT: a probe target of a
+    fraction of a second, one rep), each holding its energy guard, with the
+    JAX artifact's keys for its section (with ADDED_KEYS) and its kernel's
+    route; QIsing's four engines for QISING_T seconds each
+    (scripts/torch_paper_quant.py): every trajectory point finite, each
+    engine's last point nearer the kernel Metropolis engine's last level
+    than random spins' Qenergy is (the estimator undershoots from random
+    spins: the other engines are still rising toward it), the kernel
+    Metropolis engine falling from its first point, wall_to_target
+    computed; the tempering scaling at T = 2 and 32 for 3
+    rounds (scripts/torch_tempering_scaling.py). Returns the launches of
+    the kernel modules, counted from 0 just before."""
+    import importlib
+    from pathlib import Path
+
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    bench = _script("torch_bench_all")
+    quant = _script("torch_paper_quant")
+    temper = _script("torch_tempering_scaling")
+    jax_rows = json.loads((Path(__file__).resolve().parent
+                           / "bench_all_results.json").read_text())
+    mods = {m: importlib.import_module(f"rrrmc_tpu_torch.ops.{m}")
+            for m in SCRIPT_KERNELS}
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/scoreboard.json"
+        for section in SCRIPT_SECTIONS:
+            ts = time.perf_counter()
+            res = bench.run(section, out, torch.device(DEV), bench.SHORT,
+                            log=lambda s: None)
+            key = bench.SECTIONS[section][0]
+            require(res["device"] == card, f"scoreboard device "
+                                           f"{res['device']!r}")
+            for row in res[key]:
+                rid = row.get("kernel", row.get("family"))
+                ref = [r for r in jax_rows[key]
+                       if r.get("kernel", r.get("family")) == rid]
+                require(bool(ref), f"{section} {rid}: no JAX row")
+                want = set(ref[0]) | bench.ADDED_KEYS.get(key, set())
+                require(set(row) == want, f"{section} {rid}: keys differ "
+                                          f"from the JAX row's by "
+                                          f"{sorted(set(row) ^ want)}")
+                for what, (got, need) in _row_routes(section, row).items():
+                    require(got.startswith(need) if need == "kernel-"
+                            else got == need,
+                            f"{section} {rid}: {what} {got}, not {need}")
+            if section == "kernels":
+                require([r["kernel"] for r in res[key]]
+                        == list(bench.KERNEL_ROWS), "kernels rows missing")
+            print(f"scoreboard {section}: {len(res[key])} rows, keys and "
+                  f"routes held, {time.perf_counter() - ts:.1f} s  [{card}]")
+    q = quant.qising(QISING_T, CHAINS, 654789, device=torch.device(DEV),
+                     seg_target_s=QISING_SEG_S, probe_torch=QISING_PROBE,
+                     log=lambda s: None)
+    X = rt.GraphQSKT(Q_NK, Q_M, Q_GAMMA, Q_BETA, seed=Q_SEED, device=DEV)
+    start = float(X.Qenergy(rt.init_state(X, CHAINS, 654789,
+                                          device=DEV).sigma)
+                  .double().mean())
+    level = q["target_deep_Qenergy"]
+    for eng in ("met_kernel", "rrr_kernel", "met_torch", "rrr_torch"):
+        traj = q[eng]["traj"]
+        vals = [p["obs_mean"] for p in traj]
+        # random spins' Qenergy lies far below the equilibrium level (the
+        # estimator's undershoot): the kernel Metropolis engine, past that
+        # transient after its first point, falls; every engine has moved
+        # from the random start toward that engine's level
+        require(all(math.isfinite(v) for v in vals)
+                and abs(vals[-1] - level) < abs(start - level)
+                and (eng != "met_kernel"
+                     or (len(vals) > 1 and vals[-1] < vals[0])),
+                f"QIsing {eng}: Qenergy {vals} from {start}, level {level}")
+        print(f"QIsing {eng}: {q[eng]['rate_iters_per_s']:.4g} iterations "
+              f"a second, Qenergy {start:.4f} (random spins) -> "
+              f"{vals[0]:.4f} -> {vals[-1]:.4f} over {len(traj)} points, "
+              f"wall_to_target {q['wall_to_target_s'][eng]}  [{card}]")
+    require(set(q["wall_to_target_s"]) == {"met_kernel", "rrr_kernel",
+                                           "met_torch", "rrr_torch"}
+            and q["wall_to_target_s"]["rrr_torch"] is not None,
+            f"QIsing wall_to_target {q['wall_to_target_s']}")
+    ladder_rows = temper.run(TEMPER_ROUNDS, device=torch.device(DEV),
+                          ladders=TEMPER_T, log=lambda s: None)["rows"]
+    for r in ladder_rows:
+        require(r["swap_acc_mean"] > 0 and r["round_s"] > 0,
+                f"tempering scaling T={r['T']}: {r}")
+        print(f"tempering scaling T={r['T']}: {r['round_s'] * 1e3:.2f} ms a "
+              f"round, {r['round_per_slot_s'] * 1e3:.3f} ms a slot, first "
+              f"call {r['first_call_s']:.3f} s, swap_acc_mean "
+              f"{r['swap_acc_mean']:.3f}  [{card}]")
+    torch.cuda.synchronize()
+    counts = {m: mod.LAUNCHES for m, mod in mods.items()}
+    for m, n in counts.items():
+        require(n > 0, f"scripts path: no {m} kernel launch")
+    print(f"scripts path: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(counts)}  [{card}]")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4061,6 +4222,7 @@ def main() -> int:
     pt_records, pt_counts, rrg = pt_path(card)
     et_records, et_counts = et_path(card)
     shard_counts = shard_path(card, rrg)
+    script_counts = scripts_path(card)
     print(json.dumps({"paths": {"RRG": rrg_counts, "EA-3D": ea_counts,
                                 "dense SK": sk_counts, "EO": eo_counts,
                                 "PSpin3": ps_counts, "K-SAT": sat_counts,
@@ -4071,7 +4233,8 @@ def main() -> int:
                                 "wrappers": wrapper_counts,
                                 "tempering": pt_counts,
                                 "ensembles": et_counts,
-                                "shards": shard_counts},
+                                "shards": shard_counts,
+                                "scripts": script_counts},
                       "runs": rrg_records + ea_records + sk_records
                       + eo_records + ps_records + sat_records
                       + rep_records + perc_records + factor_records

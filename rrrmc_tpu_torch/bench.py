@@ -39,6 +39,16 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def script_device(device: str, script: str) -> torch.device:
+    """The device a script runs on: the card unless the caller passed
+    --device cpu. Without CUDA and without that flag the script exits with
+    a message and a non-zero code: it never runs quietly on the host."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{script}: no CUDA device is visible (pass "
+                         f"--device cpu to run on the host)")
+    return torch.device(device)
+
+
 def measure():
     """Run the workload on the first CUDA device. Returns (record, extra,
     model, final MCState): record is the metric line; extra holds every
