@@ -46,6 +46,7 @@ import torch
 from . import check_args, prng, require_smem
 from .rejfree import info_fn, pair_de
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -342,6 +343,7 @@ def launch_args(sigma, lf, E, emin, smin, itmin):
             smin.data_ptr(), itmin.data_ptr())
 
 
+@spanned("rrrmc.op.eo_sparse")
 def eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *,
                     n_moves: int, seed: int, half_max: Optional[int] = None,
                     move0: int = 0, chain0: int = 0,

@@ -40,6 +40,7 @@ from .eo import (COARSE_BINS, DENSE_SITES_PER_LANE, KEY_CODES, BitsFn,
                  _check_args, coarse_map, eo_chunk_reference, hist_bins,
                  key_type, launch_args, planned)
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -56,6 +57,7 @@ def dense_select(integer: bool, half_max: Optional[int]):
                  else COARSE_BINS)
 
 
+@spanned("rrrmc.op.eo_dense")
 def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
                    seed: int, half_max: Optional[int] = None, move0: int = 0,
                    chain0: int = 0, bits: Optional[BitsFn] = None):

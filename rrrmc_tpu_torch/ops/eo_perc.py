@@ -27,6 +27,7 @@ from . import require_smem
 from .eo import (TIE_QUEUE, BitsFn, _align16, eo_chunk_reference,
                  hist_bins, launch_facts)
 from .perc import FAMILY_CODES, check_perc_args, de_flip, table_family
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -76,6 +77,7 @@ def eo_perc_plan(N: int, P: int, fam: str, info: Callable) -> dict:
     raise NotImplementedError(f"perceptron EO: no block fits ({f})")
 
 
+@spanned("rrrmc.op.eo_perc")
 def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
                   cdf, *, n_moves: int, seed: int, move0: int = 0,
                   chain0: int = 0, bits: Optional[BitsFn] = None):

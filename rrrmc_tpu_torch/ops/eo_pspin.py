@@ -20,11 +20,13 @@ import torch
 from .eo import (BitsFn, _check_args, eo_chunk_reference, key_bins,
                  sparse_launch)
 from ..models.pspin import flip_cavity
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
 
 
+@spanned("rrrmc.op.eo_pspin")
 def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
                    seed: int, move0: int = 0, chain0: int = 0,
                    bits: Optional[BitsFn] = None):

@@ -23,6 +23,7 @@ import torch
 from .eo import BitsFn, eo_chunk_reference, key_bins, planned
 from .sat import check_sat_args, de_flip
 from ..models.sat import flip_counts
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -41,6 +42,7 @@ def sat_key_type(cmax: int) -> torch.dtype:
     return torch.uint8 if cmax <= BYTE_KEY_MAX else torch.uint16
 
 
+@spanned("rrrmc.op.eo_sat")
 def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
                  n_moves: int, seed: int, move0: int = 0, chain0: int = 0,
                  bits: Optional[BitsFn] = None):

@@ -75,6 +75,7 @@ from .rejfree import (BitsFn, FUSED_THREADS, LAST_PLAN, MODES, THREADS,
                       block_sum, coord_dtype, fused_plan, info_fn,
                       race_chunk_reference)
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -263,6 +264,7 @@ def de_flip(fam: str, c: float, xi4, xiT, N: int, threads: int = THREADS):
     return de_of, delta_flipped
 
 
+@spanned("rrrmc.op.rejfree_perc")
 def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
                        xb, *, mode: str, n_moves: int, beta_s: float, target,
                        seed: int, move0: int = 0, chain0: int = 0,

@@ -39,6 +39,7 @@ from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
                       fused_plan, info_fn, race_chunk_reference,
                       resident_dtype)
 from ..models.pspin import flip_cavity
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -67,6 +68,7 @@ def _check_race(sigma, c, E, coord, acc, zacc, A, mode):
                 "A": (A, (N, K, 2), i32)}, sigma.device)
 
 
+@spanned("rrrmc.op.rejfree_pspin")
 def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
                         n_moves: int, beta_s: float, target, seed: int,
                         move0: int = 0, chain0: int = 0,

@@ -59,6 +59,7 @@ import torch
 
 from . import check_args, prng
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -218,6 +219,7 @@ def info_fn(lib_fn, *head, device: int) -> Callable:
     return info
 
 
+@spanned("rrrmc.op.rejfree_sparse")
 def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
                          mode: str, n_moves: int, beta_s: float, target,
                          seed: int, move0: int = 0, chain0: int = 0,

@@ -48,6 +48,7 @@ from .rejfree import (FIELD_CODES, FUSED_THREADS, LAST_PLAN, MODES, THREADS,
                       BitsFn, coord_dtype, fused_plan, info_fn,
                       race_chunk_reference, resident_dtype)
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -107,6 +108,7 @@ def _check_args(sigma, lf, E, coord, acc, zacc, J, mode):
     check_args(want, sigma.device)
 
 
+@spanned("rrrmc.op.rejfree_dense")
 def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
                         n_moves: int, beta_s: float, target, seed: int,
                         move0: int = 0, chain0: int = 0,

@@ -54,6 +54,7 @@ from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
                       resident_dtype, sparse_rejfree_ok)
 from .rejfree_dense import dense_rejfree_ok, kernel_couplings
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -211,6 +212,7 @@ def _check_args(sigma, lf, E, coord, acc, zacc, tab, mode):
     check_args(want, sigma.device)
 
 
+@spanned("rrrmc.op.rejfree_replica")
 def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
                           *, mode: str, n_moves: int, beta_s: float, target,
                           seed: int, move0: int = 0, chain0: int = 0,

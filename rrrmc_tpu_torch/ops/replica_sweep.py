@@ -44,6 +44,7 @@ from .replica import ReplicaTables, replica_base, replica_tables
 from .sk import (BLOCK_CHAINS, BLOCK_SPAN, check_symmetric, load_width,
                  span_stride)
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -122,6 +123,7 @@ def _check_args(sigma, lf, E, acc, tab):
     check_args(want, sigma.device)
 
 
+@spanned("rrrmc.op.replica_sweep")
 def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
                         beta: float, n_sweeps: int, seed: int,
                         sweep0: int = 0, chain0: int = 0,

@@ -47,6 +47,7 @@ from . import check_args, require_smem
 from .rejfree import (BitsFn, MODES, THREADS, coord_dtype, fused_plan,
                       info_fn, race_chunk_reference)
 from ..models.sat import delta_from_counts, flip_counts
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -106,6 +107,7 @@ def de_flip(T, TL):
     return de_of, sat_flipped
 
 
+@spanned("rrrmc.op.rejfree_sat")
 def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
                       mode: str, n_moves: int, beta_s: float, target,
                       seed: int, move0: int = 0, chain0: int = 0,

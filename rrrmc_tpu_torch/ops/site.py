@@ -40,6 +40,7 @@ import torch
 from . import check_args, prng
 from .rejfree import FIELD_CODES, info_fn, resident_dtype
 from ..core.dtypes import is_integer
+from ..utils.profiling import annotate, spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -186,6 +187,7 @@ def _check_args(sigT, lfT, E, acc, sites, neigh, J, betas):
     check_args(want, sigT.device)
 
 
+@spanned("rrrmc.op.site")
 def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
                beta_s, move0: int = 0, chain0: int = 0,
                bits: Optional[BitsFn] = None,
@@ -305,9 +307,12 @@ class SiteSampler:
         self.beta_s = float(beta) * model.scale
         # the bound on |lf| (samplers/families.py::half_bound's rule): the
         # largest row sum of |J| plus |h|; None for float couplings
-        self.field_bound = (int((self.J.abs().to(torch.int64).sum(1)
-                                 + model.h.abs().to(torch.int64)).max())
-                            if is_integer(self.J) else None)
+        self.field_bound = None
+        if is_integer(self.J):
+            rows = (self.J.abs().to(torch.int64).sum(1)
+                    + model.h.abs().to(torch.int64))
+            with annotate("rrrmc.sync.field_bound"):
+                self.field_bound = int(rows.max())
 
     def __call__(self, sigT, lfT, E, acc, *, generator: torch.Generator,
                  seed: int, n_moves: int, move0: int = 0, chain0: int = 0,
@@ -333,17 +338,18 @@ class SiteSampler:
         done = 0
         while done < n_moves:
             m = min(self.MAX_MOVES, n_moves - done)
-            if sweep_schedule:
-                g0 = move0 + done
-                s0, s1 = g0 // N, (g0 + m - 1) // N
-                stream = np.concatenate([_perm_of(seed, s, N)
-                                         for s in range(s0, s1 + 1)])
-                off = g0 - s0 * N
-                sites = torch.as_tensor(stream[off:off + m].astype(np.int32),
-                                        device=dev)
-            else:
-                sites = torch.randint(0, N, (m,), generator=generator,
-                                      device=dev, dtype=torch.int32)
+            with annotate("rrrmc.prep.site_schedule"):
+                if sweep_schedule:
+                    g0 = move0 + done
+                    s0, s1 = g0 // N, (g0 + m - 1) // N
+                    stream = np.concatenate([_perm_of(seed, s, N)
+                                             for s in range(s0, s1 + 1)])
+                    off = g0 - s0 * N
+                    sites = torch.as_tensor(
+                        stream[off:off + m].astype(np.int32), device=dev)
+                else:
+                    sites = torch.randint(0, N, (m,), generator=generator,
+                                          device=dev, dtype=torch.int32)
             site_chunk(sigT, lfT, E, acc, sites, self.neigh, self.J,
                        seed=seed, beta_s=beta_s, move0=move0 + done,
                        chain0=chain0, field_bound=self.field_bound)

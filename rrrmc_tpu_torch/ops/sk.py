@@ -39,6 +39,7 @@ import torch
 
 from . import check_args, prng
 from ..core.dtypes import is_integer
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -147,6 +148,7 @@ def _check_args(sigma, lf, E, J8, th):
     check_args(want, sigma.device)
 
 
+@spanned("rrrmc.op.sk_sweep")
 def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
                    sweep0: int = 0, chain0: int = 0,
                    bits: Optional[BitsFn] = None,

@@ -41,6 +41,7 @@ import torch
 from . import check_args, prng
 from ..core.dtypes import is_integer
 from ..models.lattice import LatticeEA, parity
+from ..utils.profiling import spanned
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -228,6 +229,7 @@ def _check_args(sigma, E, Jp, Jm, th, L, D):
     check_args(want, sigma.device)
 
 
+@spanned("rrrmc.op.sweep")
 def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
                 beta2s: float, seed: int, sweep0: int = 0, chain0: int = 0,
                 bits: Optional[BitsFn] = None,

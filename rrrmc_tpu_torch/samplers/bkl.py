@@ -31,9 +31,11 @@ import torch
 
 from ..core.model import Model
 from ..ops.rejfree import coord_dtype
+from ..utils.profiling import annotate, spanned
 from .common import (DEFAULT_SEED, MCState, default_observer, init_state,
                      kernel_seed, set_route, working_copy)
-from .families import ELIGIBLE, family_of, inexact_reason, resident_state
+from .families import (ELIGIBLE, Family, family_of, inexact_reason,
+                       resident_state)
 from .moves import acceptance_weights, categorical_from_weights, geometric_skip
 
 #: iteration targets above this would overflow the kernels' int32
@@ -48,17 +50,17 @@ STREAM_BYTES = 1 << 28
 
 
 def kernel_route(sampler: str, model, *, backend: str, hook, observer,
-                 iters=None) -> bool:
-    """True where the call runs on a race kernel, False where it takes the
-    generic torch path. backend "kernel" raises unless the model's family
-    has a race kernel, the call has no hook or observer and `iters` fits
-    the kernels' coordinates; "torch" forces the generic path; "auto" takes
-    the kernel for an eligible model with no hook or observer, and the
-    generic path otherwise. An eligible call that "auto" would run on the
-    kernel raises, as "kernel" does, where `iters` does not fit: it is not
-    moved to the far slower generic path. A model whose own delta_all and
-    flip are inexact (`families.inexact_reason`) is refused on every
-    route."""
+                 iters=None) -> Optional[Family]:
+    """The model's family where the call runs on its race kernel, None
+    where it takes the generic torch path. backend "kernel" raises unless
+    the model's family has a race kernel, the call has no hook or observer
+    and `iters` fits the kernels' coordinates; "torch" forces the generic
+    path; "auto" takes the kernel for an eligible model with no hook or
+    observer, and the generic path otherwise. An eligible call that "auto"
+    would run on the kernel raises, as "kernel" does, where `iters` does
+    not fit: it is not moved to the far slower generic path. A model whose
+    own delta_all and flip are inexact (`families.inexact_reason`) is
+    refused on every route."""
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"{sampler}: unknown backend {backend!r}")
     why = inexact_reason(model)
@@ -66,7 +68,8 @@ def kernel_route(sampler: str, model, *, backend: str, hook, observer,
         raise NotImplementedError(
             f"{sampler}: {type(model).__name__} is refused on every route; "
             f"the samplers take {why}")
-    eligible = family_of(model) is not None
+    fam = family_of(model)
+    eligible = fam is not None
     plain_call = hook is None and observer is None
     if backend == "kernel":
         if not plain_call:
@@ -79,12 +82,12 @@ def kernel_route(sampler: str, model, *, backend: str, hook, observer,
                 f"{sampler}: {type(model).__name__} is not eligible for the "
                 f"race kernels ({ELIGIBLE})")
     elif backend == "torch" or not (eligible and plain_call):
-        return False
+        return None
     if iters is not None and iters > MAX_ITERS:
         raise ValueError(f"{sampler}: iters must be <= {MAX_ITERS} on the "
                          f"kernel route (backend 'torch' runs the generic "
                          f"path at any length)")
-    return True
+    return fam
 
 
 def fill_checkpoints(S, step, x_start, o_start, xs, os_):
@@ -96,8 +99,10 @@ def fill_checkpoints(S, step, x_start, o_start, xs, os_):
     os_ [chunk, B, ...]: the post-move observable stream; x_start [B] and
     o_start [B, ...]: the values at the chunk start."""
     B, n_ckpt = S.shape[:2]
+    with annotate("rrrmc.sync.checkpoint_step"):    # a copy from the host
+        step_t = torch.tensor(step, dtype=xs.dtype, device=xs.device)
     ns = (torch.arange(1, n_ckpt + 1, dtype=xs.dtype, device=xs.device)
-          * torch.tensor(step, dtype=xs.dtype, device=xs.device))
+          * step_t)
     xb = xs.t().contiguous()
     idx = torch.searchsorted(xb, ns.expand(B, n_ckpt).contiguous(),
                              right=False)        # moves strictly before ns
@@ -112,44 +117,56 @@ def fill_checkpoints(S, step, x_start, o_start, xs, os_):
     return torch.where(newly.view(newly.shape + trail), vals.to(S.dtype), S)
 
 
-def rejfree_mc(model, beta: float, mode: str, target, step,
+@spanned("rrrmc.sync.chunk_test")
+def chains_below(coord, target) -> bool:
+    """Whether some chain's coordinate is still below `target`: the chunk
+    loops' test, a host sync."""
+    return bool(coord.min() < target)
+
+
+def rejfree_mc(model, fam: Family, beta: float, mode: str, target, step,
                state: MCState, n_ckpt: int, chunk_moves: int):
     """Run the race kernel in chunks of `chunk_moves` moves until every
     chain's coordinate reaches `target`; one host sync per chunk.
     Returns (Es [B, n_ckpt] physical energies, final MCState); `accepted`
     gains the applied flips, and LAST_ROUTE holds acc and the summed z/N.
-    The model's family picks the kernel (samplers/families.py)."""
-    fam = family_of(model)
+    The model's family `fam` (`kernel_route`'s) picks the kernel
+    (samplers/families.py)."""
     B = state.sigma.shape[0]
     dev = state.sigma.device
-    seed = kernel_seed(state.generator)
-    sigma = state.sigma.clone()
-    lf, E = resident_state(fam, model, sigma, state.E)
-    ct = coord_dtype(mode)
-    coord = torch.zeros(B, dtype=ct, device=dev)
-    acc = torch.zeros(B, dtype=torch.int32, device=dev)
-    zacc = torch.zeros(B, dtype=torch.float32, device=dev)
-    Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
-    tables = fam.tables(model)
-    race_kw = fam.race_kw(model)
+    with annotate("rrrmc.prep.resident_state"):
+        seed = kernel_seed(state.generator)
+        sigma = state.sigma.clone()
+        lf, E = resident_state(fam, model, sigma, state.E)
+        ct = coord_dtype(mode)
+        coord = torch.zeros(B, dtype=ct, device=dev)
+        acc = torch.zeros(B, dtype=torch.int32, device=dev)
+        zacc = torch.zeros(B, dtype=torch.float32, device=dev)
+        Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
+        tables = fam.tables(model)
+        race_kw = fam.race_kw(model)
     k = 0
-    while bool(coord.min() < target):
-        if fam.resync is not None:
-            fam.resync(model, lf, E)
-        x_start = coord.clone()
-        e_start = model.to_physical(E)
-        cs, es = fam.race(
-            sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
-            n_moves=chunk_moves, beta_s=beta * model.scale, target=target,
-            seed=seed, move0=k * chunk_moves, chain0=state.chain0,
-            **race_kw)
-        Es = fill_checkpoints(Es, step, x_start, e_start, cs,
-                              model.to_physical(es))
+    while chains_below(coord, target):
+        with annotate("rrrmc.chunk"):
+            if fam.resync is not None:
+                fam.resync(model, lf, E)
+            x_start = coord.clone()
+            e_start = model.to_physical(E)
+            cs, es = fam.race(
+                sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
+                n_moves=chunk_moves, beta_s=beta * model.scale,
+                target=target, seed=seed, move0=k * chunk_moves,
+                chain0=state.chain0, **race_kw)
+            with annotate("rrrmc.post.fill_checkpoints"):
+                Es = fill_checkpoints(Es, step, x_start, e_start, cs,
+                                      model.to_physical(es))
         k += 1
     set_route(f"kernel-rejfree-{fam.name}",
               impl="cuda" if dev.type == "cuda" else "plain", mode=mode,
               acc=acc, z_over_n=zacc, chunks=k)
-    return Es, MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
+    with annotate("rrrmc.post.init_aux"):
+        aux = model.init_aux(sigma)
+    return Es, MCState(sigma=sigma, aux=aux, E=E,
                        accepted=state.accepted + acc,
                        generator=state.generator, chain0=state.chain0)
 
@@ -201,7 +218,7 @@ def stream_mc(model, st: MCState, move, coord, target, step, n_ckpt: int,
     chunk = max(1, min(chunk_moves, STREAM_BYTES // per_move))
     xs = coord.new_empty((chunk,) + tuple(coord.shape))
     os_ = o0.new_empty((chunk,) + tuple(o0.shape))
-    while bool(coord.min() < target):
+    while chains_below(coord, target):
         x_start = coord.clone()
         o_start = obs(model, st.sigma, st.aux, st.E).clone()
         for m in range(chunk):
@@ -234,6 +251,7 @@ def _bkl_torch(model, beta, iters, step, state, chunk_moves, observer,
     return S, st
 
 
+@spanned("rrrmc.call.bklMC")
 def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           chunk_moves: int = 1024, hook=None, observer=None,
@@ -255,12 +273,12 @@ def bklMC(model: Model, beta: float, iters: int, *, step: int = 1,
     (`make_bkl_move`) on any model; "auto": the kernel for an eligible
     model with no hook or observer (raising for iters > MAX_ITERS as
     "kernel" does), else the generic path."""
-    on_kernel = kernel_route("bklMC", model, backend=backend, hook=hook,
-                             observer=observer, iters=iters)
+    fam = kernel_route("bklMC", model, backend=backend, hook=hook,
+                       observer=observer, iters=iters)
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
-    if on_kernel:
-        return rejfree_mc(model, float(beta), "bkl", int(iters), int(step),
-                          state, iters // step, chunk_moves)
+    if fam is not None:
+        return rejfree_mc(model, fam, float(beta), "bkl", int(iters),
+                          int(step), state, iters // step, chunk_moves)
     return _bkl_torch(model, float(beta), int(iters), int(step), state,
                       chunk_moves, observer, hook)

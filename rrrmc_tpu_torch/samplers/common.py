@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..core.model import Model, default_device, random_spins
+from ..utils.profiling import spanned
 
 #: arbitrary default seed, mirroring the reference's
 DEFAULT_SEED = 167432777111 % (2 ** 31)
@@ -105,6 +106,7 @@ def init_lfT(model: Model, sigma: torch.Tensor) -> torch.Tensor:
     return model.local_fields(sigma).t().contiguous()
 
 
+@spanned("rrrmc.sync.kernel_seed")
 def kernel_seed(generator: torch.Generator) -> int:
     """A 31-bit Philox seed drawn from the state's generator, so every
     sampler call (and every continuation) gets fresh kernel streams."""

@@ -34,9 +34,10 @@ import torch
 from ..core.model import Model
 from ..ops import prng
 from ..ops.eo import eo_draws, select_rank_with_ties, sort_key
+from ..utils.profiling import annotate, spanned
 from .common import (DEFAULT_SEED, MCState, init_state, kernel_seed,
                      set_route, working_copy)
-from .families import ELIGIBLE, family_of, resident_state
+from .families import ELIGIBLE, Family, family_of, resident_state
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -71,20 +72,27 @@ def eo_kernel_route(model) -> Optional[str]:
     chain-block rule (the shared-memory limit is checked at launch). A
     family without an EO kernel (the replica composites) gives None: such a
     model takes the torch route."""
-    fam = family_of(model)
-    return None if fam is None or fam.eo is None else fam.name
+    fam = _eo_family(model)
+    return None if fam is None else fam.name
 
 
-def _eo_kernel(model, cdf, state: MCState, iters: int):
+def _eo_family(model) -> Optional[Family]:
+    """The family whose EO kernel takes `model`, else None."""
     fam = family_of(model)
-    seed = kernel_seed(state.generator)
-    sigma = state.sigma.clone()
-    lf, E = resident_state(fam, model, sigma, state.E)
-    emin, smin = E.clone(), sigma.clone()
-    itmin = torch.zeros(E.shape, dtype=torch.int32, device=E.device)
-    fam.eo(sigma, lf, E, emin, smin, itmin, *fam.tables(model), cdf,
-           n_moves=iters, seed=seed, chain0=state.chain0,
-           **fam.eo_kw(model))
+    return None if fam is None or fam.eo is None else fam
+
+
+def _eo_kernel(model, fam: Family, cdf, state: MCState, iters: int):
+    with annotate("rrrmc.prep.resident_state"):
+        seed = kernel_seed(state.generator)
+        sigma = state.sigma.clone()
+        lf, E = resident_state(fam, model, sigma, state.E)
+        emin, smin = E.clone(), sigma.clone()
+        itmin = torch.zeros(E.shape, dtype=torch.int32, device=E.device)
+        tables = fam.tables(model)
+        eo_kw = fam.eo_kw(model)
+    fam.eo(sigma, lf, E, emin, smin, itmin, *tables, cdf, n_moves=iters,
+           seed=seed, chain0=state.chain0, **eo_kw)
     set_route(f"kernel-eo-{fam.name}",
               impl="cuda" if sigma.device.type == "cuda" else "plain")
     return sigma, E, emin, smin, itmin
@@ -117,6 +125,7 @@ def _eo_torch(model, cdf, state: MCState, iters: int):
     return sigma, E, emin, smin, itmin
 
 
+@spanned("rrrmc.call.extremal_opt")
 def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
                  chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
                  state: Optional[MCState] = None, backend: str = "auto",
@@ -144,16 +153,18 @@ def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
         raise ValueError(f"iters must be in [0, 2^31), given {iters}")
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
-    route = eo_kernel_route(model) if backend != "torch" else None
-    if backend == "kernel" and route is None:
+    fam = _eo_family(model) if backend != "torch" else None
+    if backend == "kernel" and fam is None:
         raise NotImplementedError(
             f"extremal_opt(backend='kernel'): {type(model).__name__} is not "
             f"eligible for the EO kernels ({ELIGIBLE})")
-    cdf = rank_table(model.N, float(tau), state.sigma.device)
-    if route is None:
+    with annotate("rrrmc.prep.rank_table"):
+        cdf = rank_table(model.N, float(tau), state.sigma.device)
+    if fam is None:
         sigma, E, emin, smin, itmin = _eo_torch(model, cdf, state, iters)
     else:
-        sigma, E, emin, smin, itmin = _eo_kernel(model, cdf, state, iters)
+        sigma, E, emin, smin, itmin = _eo_kernel(model, fam, cdf, state,
+                                                 iters)
     return EOResult(sigma=sigma, E=model.to_physical(E),
                     Emin=model.to_physical(emin), sigma_min=smin,
                     itmin=itmin)

@@ -40,6 +40,7 @@ from ..ops.replica import (rejfree_replica_chunk, replica_base,
                            replica_dense_ok, replica_sparse_ok,
                            replica_state, replica_tables)
 from ..ops.sat import rejfree_sat_chunk, sat_rejfree_ok, sat_tables
+from ..utils.profiling import annotate, spanned
 
 #: the models the kernels take, as the samplers' errors state it
 ELIGIBLE = ("a Pairwise model with N >= 8, a FullyConnected one with N >= 8 "
@@ -98,7 +99,8 @@ def half_bound(model) -> Optional[int]:
         return None
     rows = model.J.abs().to(torch.int64).sum(1) + model.h.abs().to(
         torch.int64)
-    return int(rows.max())
+    with annotate("rrrmc.sync.field_bound"):
+        return int(rows.max())
 
 
 def _pairwise_kw(model) -> dict:
@@ -144,6 +146,7 @@ FAMILIES = (
 )
 
 
+@spanned("rrrmc.prep.route")
 def family_of(model) -> Optional[Family]:
     """The first family whose kernels take `model`, or None: then bklMC,
     wtmMC and rrrMC take the generic torch path."""

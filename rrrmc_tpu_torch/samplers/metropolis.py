@@ -14,6 +14,7 @@ import torch
 
 from ..core.model import Model
 from ..core.dtypes import is_integer
+from ..utils.profiling import annotate, spanned
 from .common import (DEFAULT_SEED, MCState, init_state, init_lfT,
                      kernel_seed, run_with_hook, series_to_chain_major,
                      set_route, working_copy)
@@ -42,6 +43,7 @@ def make_metropolis_step(model: Model, beta: float):
     return step
 
 
+@spanned("rrrmc.call.standardMC")
 def standardMC(model: Model, beta: float, iters: int, *, step: int = 1,
                chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
                observer=None, hook=None, hook_every: int = 10,
@@ -87,20 +89,23 @@ def standardMC(model: Model, beta: float, iters: int, *, step: int = 1,
 def _standard_kernel(model, beta, iters, step, state):
     from ..ops.site import SiteSampler
 
-    ps = SiteSampler(model, beta)
+    with annotate("rrrmc.prep.site_sampler"):
+        ps = SiteSampler(model, beta)
     gen = state.generator
-    seed = kernel_seed(gen)
-    sigT = state.sigma.t().contiguous()
-    lfT = init_lfT(model, state.sigma)
-    E = state.E.to(torch.int32 if is_integer(model.J)
-                   else torch.float32).clone()
-    acc = state.accepted.clone()
+    with annotate("rrrmc.prep.init_lfT"):
+        seed = kernel_seed(gen)
+        sigT = state.sigma.t().contiguous()
+        lfT = init_lfT(model, state.sigma)
+        E = state.E.to(torch.int32 if is_integer(model.J)
+                       else torch.float32).clone()
+        acc = state.accepted.clone()
     n_ckpt = iters // step
     Es = []
     for c in range(n_ckpt):
         ps(sigT, lfT, E, acc, generator=gen, seed=seed, n_moves=step,
            move0=c * step, chain0=state.chain0)
-        Es.append(model.to_physical(E))
+        with annotate("rrrmc.post.checkpoint"):
+            Es.append(model.to_physical(E))
     if iters % step:
         ps(sigT, lfT, E, acc, generator=gen, seed=seed,
            n_moves=iters % step, move0=n_ckpt * step, chain0=state.chain0)

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..core.model import Model
+from ..utils.profiling import spanned
 from .bkl import kernel_route, rejfree_mc
 from .common import (DEFAULT_SEED, MCState, clone_aux, init_state,
                      run_with_hook, series_to_chain_major, set_route,
@@ -95,6 +96,7 @@ def make_rrr_step(model: Model, beta: float):
     return step
 
 
+@spanned("rrrmc.call.rrrMC")
 def rrrMC(model: Model, beta: float, iters: int, *, step: int = 1,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           observer=None, hook=None, hook_every: int = 10,
@@ -112,13 +114,13 @@ def rrrMC(model: Model, beta: float, iters: int, *, step: int = 1,
     where it takes the call)."""
     if not math.isfinite(beta):
         raise ValueError(f"beta must be finite, given: {beta}")
-    on_kernel = kernel_route("rrrMC", model, backend=backend, hook=hook,
-                             observer=observer, iters=iters)
+    fam = kernel_route("rrrMC", model, backend=backend, hook=hook,
+                       observer=observer, iters=iters)
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
-    if on_kernel:
-        return rejfree_mc(model, float(beta), "rrr", int(iters), int(step),
-                          state, iters // step, chunk_moves)
+    if fam is not None:
+        return rejfree_mc(model, fam, float(beta), "rrr", int(iters),
+                          int(step), state, iters // step, chunk_moves)
     state, series = run_with_hook(model, working_copy(state), float(beta),
                                   make_rrr_step, iters // step, step,
                                   observer, hook, hook_every)

@@ -49,6 +49,7 @@ from ..models.pairwise import Pairwise
 from ..ops.site import SiteSampler
 from ..ops.sk import sk_sweep_eligible
 from ..ops.sweep import Sweeper, sweep_eligible
+from ..utils.profiling import annotate, spanned
 from .common import (DEFAULT_SEED, MCState, cached, init_lfT, init_state,
                      kernel_seed, physical_series, set_route, working_copy)
 from .dense_sweep import sweepMC_dense
@@ -147,16 +148,20 @@ def _sweeper(model, beta: float) -> Sweeper:
 def _run_checkerboard(model, beta, n_ckpt, step, state):
     """Route (a): one kernel launch per checkpoint; the sweeps continue one
     Philox stream across launches."""
-    sweeper = _sweeper(model, beta)
-    seed = kernel_seed(state.generator)
-    sigma, E = state.sigma.clone(), state.E.clone()
+    with annotate("rrrmc.prep.sweeper"):
+        sweeper = _sweeper(model, beta)
+        seed = kernel_seed(state.generator)
+        sigma, E = state.sigma.clone(), state.E.clone()
     Es = []
     for k in range(n_ckpt):
         sweeper(sigma, E, seed=seed, n_sweeps=step, sweep0=k * step,
                 chain0=state.chain0)
-        Es.append(model.to_physical(E))
+        with annotate("rrrmc.post.checkpoint"):
+            Es.append(model.to_physical(E))
     set_route("kernel-sweep", impl=_impl(sigma), table=sweeper.table)
-    state = MCState(sigma=sigma, aux=model.init_aux(sigma), E=E,
+    with annotate("rrrmc.post.init_aux"):
+        aux = model.init_aux(sigma)
+    state = MCState(sigma=sigma, aux=aux, E=E,
                     accepted=state.accepted.clone(),
                     generator=state.generator, chain0=state.chain0)
     return physical_series(Es, sigma.shape[0], sigma.device), state
@@ -181,7 +186,8 @@ def _run_site_sweep(model, beta, n_ckpt, step, state, sampler=None):
         sampler(sigT, lfT, E, acc, generator=gen, seed=seed, n_moves=moves,
                 move0=k * moves, chain0=state.chain0, sweep_schedule=True,
                 beta_s=float(beta) * model.scale)
-        Es.append(model.to_physical(E))
+        with annotate("rrrmc.post.checkpoint"):
+            Es.append(model.to_physical(E))
     set_route("kernel-site-sweep", impl=_impl(sigT), acc=acc)
     state = MCState(sigma=sigT.t().contiguous(), aux=lfT.t().contiguous(),
                     E=E, accepted=state.accepted + acc, generator=gen,
@@ -222,6 +228,7 @@ def _run_color_masks(model, beta, n_ckpt, step, state, masks=None):
     return physical_series(Es, sigma.shape[0], sigma.device), state
 
 
+@spanned("rrrmc.call.sweepMC")
 def sweepMC(model, beta: float, sweeps: int, *, step: int = 1,
             chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
             state: Optional[MCState] = None, backend: str = "auto",

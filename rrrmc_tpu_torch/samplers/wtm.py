@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..core.model import Model
+from ..utils.profiling import spanned
 from .bkl import kernel_route, rejfree_mc, stream_mc
 from .common import (DEFAULT_SEED, MCState, init_state, set_route,
                      working_copy)
@@ -118,6 +119,7 @@ def _wtm_torch(model, beta, tmax, step_t, samples, state, chunk_moves,
     return S, st
 
 
+@spanned("rrrmc.call.wtmMC")
 def wtmMC(model: Model, beta: float, samples: int, *, step: float = 1.0,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           chunk_moves: int = 1024, hook=None, observer=None,
@@ -130,14 +132,14 @@ def wtmMC(model: Model, beta: float, samples: int, *, step: float = 1.0,
     replaces the checkpoint energies with any per-chain observable. The
     routes are bklMC's: "kernel" (the race kernel), "torch" (the generic
     path, `make_wtm_move`), "auto" (the kernel where it takes the call)."""
-    on_kernel = kernel_route("wtmMC", model, backend=backend, hook=hook,
-                             observer=observer)
+    fam = kernel_route("wtmMC", model, backend=backend, hook=hook,
+                       observer=observer)
     if state is None:
         state = init_state(model, chains, seed, C0, device=device)
     step_t = float(step) / model.N
     tmax = step_t * samples
-    if on_kernel:
-        return rejfree_mc(model, float(beta), "wtm", tmax, step_t, state,
-                          samples, chunk_moves)
+    if fam is not None:
+        return rejfree_mc(model, fam, float(beta), "wtm", tmax, step_t,
+                          state, samples, chunk_moves)
     return _wtm_torch(model, float(beta), tmax, step_t, samples, state,
                       chunk_moves, observer, hook)

@@ -1,35 +1,39 @@
 """Tracing and profiling (the JAX package's rrrmc_tpu/utils/profiling.py).
 
-Three layers, all free unless used:
+Two pieces, both free unless used:
 
 1. ``trace(logdir)``: torch.profiler over the block (CPU and, where there
    is a card, CUDA activities), written to ``logdir/trace.json`` (Chrome
    trace format) at its end; it yields the profiler, whose events
    `device_summary` reads: kernels, their device time, launch calls and
    host syncs.
-2. ``annotate(name)``: a named span (torch.profiler.record_function, and
-   an NVTX range when CUDA is present) that groups the block's launches
-   in a trace.
-3. ``DispatchCounters``: per-label counts and synchronized times of host
-   calls: wall time on the host clock, and on the card the device time
-   between CUDA events recorded around the call.
+2. ``annotate(name)``: a named span, torch.profiler.record_function
+   while a profiler records (under ``torch.autograd.profiler.emit_nvtx()``
+   that also pushes an NVTX range), else one shared null context. The
+   profiler is the span store: a span is one of its CPU events, on the
+   clock of its CUDA activity. ``spanned(name)`` decorates a function so
+   that each call runs inside ``annotate(name)``.
+
+The program's spans all start with ``rrrmc.`` and nest, one layer inside
+the next: ``rrrmc.call.<sampler>`` (a public sampler call: the spans of
+one call are the events nested in its span, the profiler's
+``cpu_parent``), ``rrrmc.prep.*`` and ``rrrmc.post.*`` (the host
+work before and after the launches), ``rrrmc.chunk`` (a pass of the race
+kernel's chunk loop), ``rrrmc.sync.*`` (the program's own waits for the
+card) and ``rrrmc.op.<kernel>`` (a kernel wrapper, from its entry to the
+launch's return, or its plain version on the CPU). No span lies inside a
+per-move loop.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
-from collections import defaultdict
-from dataclasses import dataclass, field
-from typing import Dict
 
 import torch
 
-from ..parallel.mesh import leaves
-
-__all__ = ["trace", "annotate", "DispatchCounters", "dispatch_counters",
-           "sync", "device_summary"]
+__all__ = ["trace", "annotate", "spanned", "sync", "device_summary"]
 
 #: the runtime calls that launch a kernel, and those that wait for the card
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -41,6 +45,8 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 def sync(x=None) -> None:
     """Wait for the card: synchronize the device of the first tensor of
     `x` (every CUDA device when x is None); nothing on the CPU."""
+    from ..parallel.mesh import leaves   # mesh imports the samplers
+
     t = next(leaves(x), None)
     if t is None:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -80,99 +86,26 @@ def device_summary(prof) -> dict:
             "launch_calls": launches, "host_syncs": syncs}
 
 
+#: the span `annotate` gives while no profiler records: built once
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named span over the block: record_function, plus an NVTX range
-    when CUDA is present."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.profiler.record_function(name))
-    if torch.cuda.is_available():
-        stack.enter_context(torch.cuda.nvtx.range(name))
-    return stack
+    """A named span over the block: torch.profiler.record_function(name)
+    while a profiler records, else the one shared null context (a check of
+    a flag: nothing is built)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
-@dataclass
-class _Stat:
-    count: int = 0
-    wall_s: float = 0.0
-    device_s: float = 0.0
-    synced: int = 0
-
-
-class _Timer:
-    """Host clock, and CUDA events on the current device where a card is
-    present, around a block."""
-
-    def __init__(self):
-        self.events = None
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-            self.events[0].record()
-        self.t0 = time.perf_counter()
-
-    def stop(self, value) -> tuple:
-        """(wall s, device s) once `value`'s device is synchronized."""
-        if self.events is not None:
-            self.events[1].record()
-        sync(value)
-        wall = time.perf_counter() - self.t0
-        if self.events is None:
-            return wall, 0.0
-        self.events[1].synchronize()
-        return wall, self.events[0].elapsed_time(self.events[1]) / 1e3
-
-
-@dataclass
-class DispatchCounters:
-    """Per-label dispatch counters with optional synchronized timing.
-
-    `timed(label, fn, *a, sync_out=True, **kw)` calls fn, syncs on its
-    output where sync_out (true end-to-end latency: use it only to
-    measure, it stops the host from running ahead) and adds the call's
-    wall time and, on the card, its CUDA-event time; `measure(label,
-    sync_value=...)` does the same for a with-block; `tick` counts
-    without timing."""
-
-    stats: Dict[str, _Stat] = field(
-        default_factory=lambda: defaultdict(_Stat))
-
-    def tick(self, label: str, n: int = 1) -> None:
-        self.stats[label].count += n
-
-    def _add(self, label, timer, value, synced: bool) -> None:
-        s = self.stats[label]
-        s.count += 1
-        if synced:
-            wall, dev = timer.stop(value)
-            s.device_s += dev
-        else:
-            wall = time.perf_counter() - timer.t0
-        s.wall_s += wall
-        s.synced += int(synced)
-
-    def timed(self, label: str, fn, *args, sync_out: bool = True, **kw):
-        timer = _Timer()
-        out = fn(*args, **kw)
-        self._add(label, timer, out, sync_out)
-        return out
-
-    @contextlib.contextmanager
-    def measure(self, label: str, *, sync_value=None):
-        """Times the with-block; with sync_value, syncs on it at the end so
-        that the time covers the card's work."""
-        timer = _Timer()
-        yield
-        self._add(label, timer, sync_value, sync_value is not None)
-
-    def summary(self) -> Dict[str, Dict]:
-        return {k: {"count": v.count, "wall_s": v.wall_s,
-                    "device_s": v.device_s, "synced": v.synced,
-                    "mean_s": (v.wall_s / v.count if v.count else 0.0)}
-                for k, v in sorted(self.stats.items())}
-
-    def reset(self) -> None:
-        self.stats.clear()
-
-
-#: process-global default registry
-dispatch_counters = DispatchCounters()
+def spanned(name: str):
+    """Decorator: every call of the function, from its entry to its return,
+    runs inside ``annotate(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
