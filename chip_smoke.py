@@ -180,9 +180,13 @@ B=8192 row, the field column, the exp path, a ragged batch, an EA-2D
 lattice, EA-4D and EA-1D lattices (the kernel's run-time-D instantiation),
 one chain a lane on +-J couplings and four chains a lane on the exp path;
 each prints its plan (chains a block, threads, lanes, shared
-bytes, blocks a SM, registers). `site_sweep_instantiations` prints every
-instantiation of both kernels with its registers and spill bytes (ptxas)
-and local bytes (the CUDA runtime) and fails on a spill or a local byte.
+bytes, blocks a SM, registers), and each launches once more with the fields
+epilogue of a call's last launch (`aux`), whose fields must equal the
+model's local_fields with the spins and E unchanged; the main path's
+sweepMC row holds its state's aux to local_fields the same way.
+`site_sweep_instantiations` prints every instantiation of both kernels
+with its registers and spill bytes (ptxas) and local bytes (the CUDA
+runtime) and fails on a spill or a local byte.
 
 The wrapper phase of 2 holds the site kernel (SITE_CMP_MOVES moves), the
 sparse race kernel (bkl, wtm, rrr; CMP_MOVES moves) and the sparse EO
@@ -949,6 +953,15 @@ def sweep_case(model, label, B, card, one_lane=False):
     run(sweep.sweep_chunk, **rows)                        # warm-up
     ks, kE, ms = run(sweep.sweep_chunk, **rows)
     plan = dict(sweep.LAST_PLAN)
+    # a call's last launch: the fields epilogue, the spins and E unchanged
+    aux = torch.empty_like(st.sigma, dtype=torch.int32)
+    fs, fE, _ = run(sweep.sweep_chunk, aux=aux, **rows)
+    require(torch.equal(fs, ks) and torch.equal(fE, kE)
+            and sweep.LAST_PLAN == plan,
+            f"sweep {label}: a launch with aux moves sigma, E or the plan")
+    require(torch.equal(aux, model.local_fields(ks)),
+            f"sweep {label}: the epilogue's fields differ from local_fields "
+            f"({int((aux != model.local_fields(ks)).sum())} sites)")
     ps, pE, plain_ms = run(sweep.sweep_chunk_reference)
     require(torch.equal(ks, ps) and torch.equal(kE, pE),
             f"sweep {label}: kernel and plain differ "
@@ -962,7 +975,8 @@ def sweep_case(model, label, B, card, one_lane=False):
         B * model.N * SWEEPS * (PHILOX_OPS / 4 + 4 * model.D + 3))
     print(f"sweep_checkerboard {label} B={B} sweeps={SWEEPS} table="
           f"{sw.table}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.3g} ms ({bound_by}), equal {plan_of_sweep(plan)} "
+          f"{bound_ms:.3g} ms ({bound_by}), equal, epilogue's fields equal "
+          f"{plan_of_sweep(plan)} "
           f"[{card}]")
     return {"kernel": "sweep_checkerboard", "case": label, "B": B,
             "sweeps": SWEEPS, "table": sw.table, "ms": ms,
@@ -2185,6 +2199,11 @@ def _drive(runs, card, mods):
         else:
             err = 0.0
             require(torch.equal(E_re, st.E), f"{name}: E != energy(sigma)")
+        if route == "kernel-sweep":      # the fields of the last launch
+            require(rt.LAST_ROUTE["aux"] == "kernel"
+                    and torch.equal(st.aux, model.local_fields(st.sigma)),
+                    f"{name}: aux from {rt.LAST_ROUTE['aux']} differs from "
+                    f"local_fields(sigma)")
         chains = st.sigma.shape[0]
         rec = {"run": name, "seconds": dt, "launches": launched,
                "chains": chains,

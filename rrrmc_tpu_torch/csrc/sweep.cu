@@ -40,6 +40,12 @@
 // clip(expf(-beta2s*half)*2^32 - 2^31) (no FMA contraction: -fmad=false).
 // The accepted half values are summed mod 2^32 per lane and chain and
 // reduced per chain into E += 2*sum, exact int32 arithmetic in any order.
+//
+// Given aux (a call's last launch), the block ends with a fields epilogue:
+// every site's local field for each of its chains, from the final spins in
+// shared memory and the site's row, by the sweep loop's arithmetic, written
+// to aux [B][N] int32. The fields then cost one write, and no pass over the
+// state after the launch.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -74,15 +80,16 @@ __device__ __forceinline__ int32_t threshold(int32_t half, const int32_t* th,
 }
 
 // kD: the lattice's D (2 or 3), or 0 for any D, given at run time as D.
-// D is the last parameter: placed after N, ptxas spilled 8 bytes in the
+// D comes after the scalars: placed after N, ptxas spilled 8 bytes in the
 // D = 3 four-chains-a-lane instantiations at the 64 registers of 1024
-// threads.
+// threads. aux: the fields' output, or null (no epilogue).
 template <bool kTable, bool kSwar, int kD>
 __global__ void __launch_bounds__(kMaxThreads) sweep_kernel(
     int8_t* __restrict__ sigma, int32_t* __restrict__ E_g,
     const int32_t* __restrict__ rows, const int32_t* __restrict__ th_g,
     int N, int n_th, int B, int log_c, int n_sweeps, uint32_t seed,
-    uint32_t sweep0, uint32_t chain0, float beta2s, int D) {
+    uint32_t sweep0, uint32_t chain0, float beta2s, int D,
+    int32_t* __restrict__ aux) {
   const int nb = 2 * (kD ? kD : D), len = row_len(kD ? kD : D);
   constexpr int kPer = kSwar ? 4 : 1;  // chains a lane
   extern __shared__ __align__(16) unsigned char smem[];
@@ -223,6 +230,52 @@ __global__ void __launch_bounds__(kMaxThreads) sweep_kernel(
     }
     __syncthreads();
   }
+
+  // the fields epilogue: a thread takes a site, reads its row once and
+  // takes the block's chains kPer at a time; the threads walk the sites, so
+  // each chain's row of aux is written coalesced. Site i lies in pair i / 2,
+  // in the colour-0 row when that row's site is i.
+  if (aux == nullptr) return;
+  for (int i = tid; i < N; i += T) {
+    const int32_t* row = rows + (size_t)(i >> 1) * len;
+    if (__ldg(row) != i) row += (size_t)P * len;
+    int v[kD ? row_len(kD) : 1];
+    if constexpr (kD > 0) {
+#pragma unroll
+      for (int u = 0; u < row_len(kD) / 4; ++u) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(row) + u);
+        v[4 * u] = w.x;
+        v[4 * u + 1] = w.y;
+        v[4 * u + 2] = w.z;
+        v[4 * u + 3] = w.w;
+      }
+    }
+    auto at = [&](int j) -> int32_t {
+      if constexpr (kD > 0) return v[j];
+      else return __ldg(row + j);
+    };
+    for (int c = 0; c < nc; c += kPer) {
+      int32_t lf[kPer];
+      if constexpr (kSwar) {
+        uint32_t acc = (uint32_t)at(2 + 2 * nb);  // K * 0x01010101
+#pragma unroll
+        for (int d = 0; d < nb; ++d)
+          acc += (uint32_t)at(1 + nb + d) *
+                 *reinterpret_cast<const uint32_t*>(sig + at(1 + d) * S + c);
+#pragma unroll
+        for (int cc = 0; cc < kPer; ++cc)
+          lf[cc] = at(1 + 2 * nb) - 2 * (int32_t)((acc >> (8 * cc)) & 0xFFu);
+      } else {
+        lf[0] = at(1 + 2 * nb);  // h
+#pragma unroll
+        for (int d = 0; d < nb; ++d)
+          lf[0] += at(1 + nb + d) * (int32_t)(int8_t)sig[at(1 + d) * S + c];
+      }
+#pragma unroll
+      for (int cc = 0; cc < kPer; ++cc)
+        if (c + cc < nc) aux[(size_t)(b0 + c + cc) * N + i] = lf[cc];
+    }
+  }
 }
 
 template <bool kTable, bool kSwar>
@@ -239,9 +292,9 @@ const void* kernel_of(int table, int swar, int D) {
 
 template <bool kTable, bool kSwar, int kD>
 int launch(int8_t* sigma, int32_t* E, const int32_t* rows, const int32_t* th,
-           int N, int D, int n_th, int B, int log_c, int threads, int n_sweeps,
-           uint32_t seed, uint32_t sweep0, uint32_t chain0, float beta2s,
-           size_t smem, cudaStream_t st) {
+           int32_t* aux, int N, int D, int n_th, int B, int log_c,
+           int threads, int n_sweeps, uint32_t seed, uint32_t sweep0,
+           uint32_t chain0, float beta2s, size_t smem, cudaStream_t st) {
   auto kern = sweep_kernel<kTable, kSwar, kD>;
   // above 48 KB a launch is refused unless the kernel opts in
   cudaError_t err = cudaFuncSetAttribute(
@@ -250,7 +303,7 @@ int launch(int8_t* sigma, int32_t* E, const int32_t* rows, const int32_t* th,
   const int C = 1 << log_c;
   kern<<<(B + C - 1) / C, threads, smem, st>>>(
       sigma, E, rows, th, N, n_th, B, log_c, n_sweeps, seed, sweep0,
-      chain0, beta2s, D);
+      chain0, beta2s, D, aux);
   return (int)cudaGetLastError();
 }
 
@@ -269,12 +322,13 @@ extern "C" int rrrmc_sweep_info(int threads, int D, int table, int swar,
 // n_th > 0: threshold-table path with that many entries; n_th == 0: exp
 // path. rows: [2][N/2][row_len(D)] int32 (ops/sweep.py::site_rows, built for
 // `swar` or not); 2^log_c chains and `threads` threads a block (the
-// plan's; swar needs at least 4 chains)
+// plan's; swar needs at least 4 chains); aux: [B][N] int32 that receives
+// the final spins' local fields, or null
 extern "C" int rrrmc_sweep(int8_t* sigma, int32_t* E, const int32_t* rows,
-                           const int32_t* th, int L, int D, int B, int n_th,
-                           int swar, int log_c, int threads, int n_sweeps,
-                           uint32_t seed, uint32_t sweep0, uint32_t chain0,
-                           float beta2s, void* stream) {
+                           const int32_t* th, int32_t* aux, int L, int D,
+                           int B, int n_th, int swar, int log_c, int threads,
+                           int n_sweeps, uint32_t seed, uint32_t sweep0,
+                           uint32_t chain0, float beta2s, void* stream) {
   const int log_l = swar ? log_c - 2 : log_c;
   if (D < 1 || log_c > 5 || log_l < 0 || threads % 32 ||
       threads > kMaxThreads || (threads >> log_l) < 1)
@@ -284,7 +338,7 @@ extern "C" int rrrmc_sweep(int8_t* sigma, int32_t* E, const int32_t* rows,
   // the threshold table [n_th] int32 and the spins [N][site_bytes(C)]
   const size_t smem = (size_t)n_th * 4 + (size_t)N * site_bytes(1 << log_c);
   cudaStream_t st = (cudaStream_t)stream;
-#define RRRMC_ARGS sigma, E, rows, th, N, D, n_th, B, log_c, threads, \
+#define RRRMC_ARGS sigma, E, rows, th, aux, N, D, n_th, B, log_c, threads, \
                    n_sweeps, seed, sweep0, chain0, beta2s, smem, st
 #define RRRMC_D(T, S)                                                  \
   (D == 2   ? launch<T, S, 2>(RRRMC_ARGS)                              \

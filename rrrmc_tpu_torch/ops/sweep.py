@@ -15,7 +15,8 @@ and field, `site_rows`, built once a launch with no division left for the
 sweep loop) serves all of them. D = 2 and 3 take the row into registers
 with D a constant; any other D reads it entry by entry. `sweep_plan`
 picks C and the lane layout from the chains and the card; global memory
-sees one read and one write of sigma per launch. Random bits come from a
+sees one read and one write of sigma per launch, and the last launch of a
+call one write of the local fields. Random bits come from a
 counter-based Philox in place of the TPU's hardware generator. It does not
 copy the TPU layout (chains on lanes, sublane rolls with wrap masks):
 neighbours are addressed directly.
@@ -27,7 +28,10 @@ th from the int32 `accept_thresholds` table when max_half <= 64, else
 clip(exp(-beta2s*half)*2^32 - 2^31, -2^31, 2147483520). E gains the summed
 2*half of the accepted moves in int32. Random bits: ops/prng.py::sweep_bits,
 with sweeps numbered from `sweep0`, so a run split into launches draws the
-bits of one launch of all its sweeps.
+bits of one launch of all its sweeps. Given `aux` [B, N] int32, a launch
+also writes the final spins' local fields h + sum J s into it (the kernel's
+epilogue, from the spins still in shared memory), the model's
+`local_fields` bit for bit; sigma and E do not depend on it.
 """
 
 from __future__ import annotations
@@ -214,7 +218,7 @@ def sweep_plan(N: int, B: int, n_th: int, n_sm: int, info: Callable,
             "spill_bytes": f[2]}
 
 
-def _check_args(sigma, E, Jp, Jm, th, L, D):
+def _check_args(sigma, E, Jp, Jm, th, L, D, aux):
     B, N = sigma.shape
     if L % 2 or L <= 2 or N != L ** D:
         raise ValueError(f"the checkerboard sweep needs an even L > 2 and "
@@ -226,6 +230,8 @@ def _check_args(sigma, E, Jp, Jm, th, L, D):
             "E": (E, (B,), torch.int32),
             "Jp": (Jp, (N, DP), torch.int32), "Jm": (Jm, (N, D), torch.int32),
             "th": (th, (th.shape[0],), torch.int32)}
+    if aux is not None:
+        want["aux"] = (aux, (B, N), torch.int32)
     check_args(want, sigma.device)
 
 
@@ -233,7 +239,8 @@ def _check_args(sigma, E, Jp, Jm, th, L, D):
 def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
                 beta2s: float, seed: int, sweep0: int = 0, chain0: int = 0,
                 bits: Optional[BitsFn] = None,
-                rows: Optional[SiteRows] = None) -> None:
+                rows: Optional[SiteRows] = None,
+                aux: Optional[torch.Tensor] = None) -> None:
     """Advance every chain by `n_sweeps` checkerboard sweeps, in place on
     sigma [B, N] int8 and E [B] int32. Jp / Jm are the `dir_tables` (a field
     column in Jp when it has D + 1 columns); th [max_half] int32 holds the
@@ -244,13 +251,16 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
     on `rows`, these tables' `site_rows` in either lane layout (built
     here, for one chain a lane, when not given); on a CPU tensor it runs
     the plain version. `bits` (sweep, colour) -> [B, N]
-    int32 replaces the generator and is taken by the plain version only."""
+    int32 replaces the generator and is taken by the plain version only.
+    `aux` [B, N] int32, when given, receives the final spins' local
+    fields."""
     global LAUNCHES
-    _check_args(sigma, E, Jp, Jm, th, L, D)
+    _check_args(sigma, E, Jp, Jm, th, L, D, aux)
     if sigma.device.type == "cpu":
         sweep_chunk_reference(sigma, E, Jp, Jm, th, L=L, D=D,
                               n_sweeps=n_sweeps, beta2s=beta2s, seed=seed,
-                              sweep0=sweep0, chain0=chain0, bits=bits)
+                              sweep0=sweep0, chain0=chain0, bits=bits,
+                              aux=aux)
         return
     if sigma.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {sigma.device}")
@@ -285,7 +295,7 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
     with torch.cuda.device(dev):
         err = lib.rrrmc_sweep(
             sigma.data_ptr(), E.data_ptr(), rows.data.data_ptr(),
-            th.data_ptr(),
+            th.data_ptr(), None if aux is None else aux.data_ptr(),
             L, D, B, n_th, int(plan["swar"]), plan["chains"].bit_length() - 1,
             plan["threads"], n_sweeps,
             seed & 0xFFFFFFFF, sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
@@ -297,7 +307,8 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
 def sweep_chunk_reference(sigma, E, Jp, Jm, th, *, L: int, D: int,
                           n_sweeps: int, beta2s: float, seed: int,
                           sweep0: int = 0, chain0: int = 0,
-                          bits: Optional[BitsFn] = None) -> None:
+                          bits: Optional[BitsFn] = None,
+                          aux: Optional[torch.Tensor] = None) -> None:
     """Plain torch version of the sweep kernel, one colour step at a time
     over [B, N] tensors (same arguments and in-place contract as
     `sweep_chunk`)."""
@@ -312,18 +323,20 @@ def sweep_chunk_reference(sigma, E, Jp, Jm, th, *, L: int, D: int,
     n_th = th.shape[0]
     s = sigma.to(torch.int32)
     dE = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def fields(s):
+        sv = s.view(lat)
+        lf = None
+        for d in range(D):
+            t = (jp[d] * torch.roll(sv, -1, d + 1)
+                 + jm[d] * torch.roll(sv, 1, d + 1))
+            lf = t if lf is None else lf + t
+        lf = lf.reshape(B, N)
+        return lf if h is None else lf + h
+
     for sw in range(sweep0, sweep0 + n_sweeps):
         for colour, mask in ((0, even), (1, ~even)):
-            sv = s.view(lat)
-            lf = None
-            for d in range(D):
-                t = (jp[d] * torch.roll(sv, -1, d + 1)
-                     + jm[d] * torch.roll(sv, 1, d + 1))
-                lf = t if lf is None else lf + t
-            lf = lf.reshape(B, N)
-            if h is not None:
-                lf = lf + h
-            half = s * lf
+            half = s * fields(s)
             if n_th:
                 thresh = th[(half.clamp(1, n_th) - 1).long()]
             else:
@@ -337,6 +350,8 @@ def sweep_chunk_reference(sigma, E, Jp, Jm, th, *, L: int, D: int,
             dE += 2 * torch.where(acc, half, 0).sum(dim=1, dtype=torch.int32)
     sigma.copy_(s.to(torch.int8))
     E += dE
+    if aux is not None:
+        aux.copy_(fields(s))
 
 
 class Sweeper:
@@ -368,12 +383,15 @@ class Sweeper:
 
     def __call__(self, sigma, E, *, seed: int, n_sweeps: int,
                  sweep0: int = 0, chain0: int = 0,
-                 bits: Optional[BitsFn] = None) -> None:
+                 bits: Optional[BitsFn] = None,
+                 aux: Optional[torch.Tensor] = None) -> None:
         """Advance sigma [B, N] int8 / E [B] int32 by n_sweeps sweeps, in
-        place (sweeps numbered from sweep0 in the Philox stream)."""
+        place (sweeps numbered from sweep0 in the Philox stream); `aux`
+        [B, N] int32, when given, receives the final local fields."""
         sweep_chunk(sigma, E, self.Jp, self.Jm, self.th, L=self.L, D=self.D,
                     n_sweeps=n_sweeps, beta2s=self.beta2s, seed=seed,
-                    sweep0=sweep0, chain0=chain0, bits=bits, rows=self.rows)
+                    sweep0=sweep0, chain0=chain0, bits=bits, rows=self.rows,
+                    aux=aux)
 
 
 def sweep_eligible(model) -> bool:

@@ -5,7 +5,8 @@ Pairwise models take three routes, chosen as the JAX package's
 
 (a) the checkerboard kernel (ops/sweep.py) for a LatticeEA with integer
     couplings and fields and an even L: one launch per checkpoint, exact
-    int32 energies, the spins resident for the whole checkpoint;
+    int32 energies, the spins resident for the whole checkpoint, the last
+    launch writing the final local fields (`MCState.aux`);
 (b) the site-sweep route for every other sparse Pairwise model with N >= 8
     (RRG, float or odd-L lattices, EA L=2): the single-site kernel
     (ops/site.py) on a schedule of random permutations, so every sweep
@@ -147,20 +148,27 @@ def _sweeper(model, beta: float) -> Sweeper:
 
 def _run_checkerboard(model, beta, n_ckpt, step, state):
     """Route (a): one kernel launch per checkpoint; the sweeps continue one
-    Philox stream across launches."""
+    Philox stream across launches, and the last launch writes the local
+    fields of the final spins into `aux` (LAST_ROUTE["aux"] "kernel"). A
+    call with no checkpoint launches nothing and computes them with
+    `init_aux` ("torch")."""
     with annotate("rrrmc.prep.sweeper"):
         sweeper = _sweeper(model, beta)
         seed = kernel_seed(state.generator)
         sigma, E = state.sigma.clone(), state.E.clone()
+        aux = torch.empty_like(sigma, dtype=torch.int32)
+    assert aux.dtype == model.Jd.dtype
     Es = []
     for k in range(n_ckpt):
         sweeper(sigma, E, seed=seed, n_sweeps=step, sweep0=k * step,
-                chain0=state.chain0)
+                chain0=state.chain0, aux=aux if k == n_ckpt - 1 else None)
         with annotate("rrrmc.post.checkpoint"):
             Es.append(model.to_physical(E))
-    set_route("kernel-sweep", impl=_impl(sigma), table=sweeper.table)
-    with annotate("rrrmc.post.init_aux"):
-        aux = model.init_aux(sigma)
+    set_route("kernel-sweep", impl=_impl(sigma), table=sweeper.table,
+              aux="kernel" if n_ckpt else "torch")
+    if not n_ckpt:
+        with annotate("rrrmc.post.init_aux"):
+            aux = model.init_aux(sigma)
     state = MCState(sigma=sigma, aux=aux, E=E,
                     accepted=state.accepted.clone(),
                     generator=state.generator, chain0=state.chain0)

@@ -5,7 +5,10 @@ kernel on GraphRRG(10^4, 3) +-J with 1024 chains, 10 000 moves, one
 standardMC launch of the main path, 300 000 moves, and where the tree's
 kernel takes a beta per chain the PT path's case, 32 betas over the 1024
 chains and one sweep of the permutation schedule; row 3, the
-checkerboard sweep on EA-3D L=16 +-J with 8192 chains, 100 sweeps), for
+checkerboard sweep on EA-3D L=16 +-J with 8192 chains, 100 sweeps, and a
+launch of the benchmark's sweepMC call, 10 sweeps, without and, where the
+tree's Sweeper takes `aux`, with the fields epilogue of a call's last
+launch), for
 the rrrmc_tpu_torch package under --root, so that two trees are timed in
 one call on one card:
 
@@ -63,8 +66,9 @@ SITE_N, SITE_B, SITE_MOVES, PATH_MOVES = 10_000, 1024, 10_000, 300_000
 #: the PT path's ladder (chip_smoke.py): beta_t = PT_BETA0 + PT_DBETA t,
 #: PT_CHAINS chains a rung
 PT_BETA0, PT_DBETA, PT_CHAINS = 1.0, 0.02, 32
-#: row 3: EA-3D L=16 +-J (the bench's lattice, seed 42), chains, sweeps
-SWEEP_L, SWEEP_B, SWEEPS = 16, 8192, 100
+#: row 3: EA-3D L=16 +-J (the bench's lattice, seed 42), chains, sweeps;
+#: the sweeps of one launch of the benchmark's sweepMC call
+SWEEP_L, SWEEP_B, SWEEPS, CALL_SWEEPS = 16, 8192, 100, 10
 #: --paths: standardMC's moves and checkpoints, the site-sweep route's
 #: sweeps and checkpoint step (chip_smoke.py's RRG and EA-3D paths)
 MET_ITERS, MET_STEP, RRG_SWEEPS, RRG_STEP = 3_000_000, 300_000, 100, 10
@@ -125,7 +129,9 @@ def site_launcher(torch, rt, model, n_moves, ladder=False):
     return launch, run
 
 
-def sweep_launcher(torch, rt, model):
+def sweep_launcher(torch, rt, model, sweeps=SWEEPS, aux=False):
+    """launch() of the tree's Sweeper on a fresh copy of the start, `sweeps`
+    sweeps; with `aux` it also writes the fields (a call's last launch)."""
     from rrrmc_tpu_torch.ops import sweep
 
     sw = sweep.Sweeper(model, BETA)
@@ -133,11 +139,14 @@ def sweep_launcher(torch, rt, model):
 
     def launch():
         a = [st.sigma.clone(), st.E.clone()]
+        if aux:
+            a.append(torch.empty_like(st.sigma, dtype=torch.int32))
         torch.cuda.synchronize()
         return a
 
     def run(a):
-        sw(*a, seed=SEED, n_sweeps=SWEEPS)
+        sw(*a[:2], seed=SEED, n_sweeps=sweeps,
+           **({"aux": a[2]} if aux else {}))
 
     return launch, run, sw
 
@@ -180,6 +189,13 @@ def kernel_cases(torch, rt, root, card, reps):
     fresh, run, _ = sweep_launcher(torch, rt, lat)
     case_line(torch, root, card, "EA3D-L16+-J, 100 sweeps (the row)", 3,
               fresh, run, reps, sweep, chains=SWEEP_B, sweeps=SWEEPS)
+    takes_aux = "aux" in inspect.signature(sweep.Sweeper.__call__).parameters
+    for aux in (False, True) if takes_aux else (False,):
+        fresh, run, _ = sweep_launcher(torch, rt, lat, CALL_SWEEPS, aux)
+        case_line(torch, root, card, f"EA3D-L16+-J, {CALL_SWEEPS} sweeps (a "
+                  f"launch of the benchmark's call){', with aux' * aux}", 3,
+                  fresh, run, reps, sweep, chains=SWEEP_B,
+                  sweeps=CALL_SWEEPS, aux=aux)
 
 
 def path_lines(torch, rt, root, card, reps):
@@ -272,9 +288,9 @@ def sweep_pinned(torch, sw, chains, threads, four):
         sigma, E = a
         err = lib.rrrmc_sweep(
             sigma.data_ptr(), E.data_ptr(), rows.data_ptr(),
-            sw.th.data_ptr(), sw.L, sw.D, sigma.shape[0], n_th, int(four),
-            chains.bit_length() - 1, threads, SWEEPS, SEED, 0, 0, sw.beta2s,
-            torch.cuda.current_stream().cuda_stream)
+            sw.th.data_ptr(), None, sw.L, sw.D, sigma.shape[0], n_th,
+            int(four), chains.bit_length() - 1, threads, SWEEPS, SEED, 0, 0,
+            sw.beta2s, torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "sweep launch")
 
     return run, facts

@@ -80,9 +80,10 @@ SAMPLERS = {
                "rrrmc.sync.field_bound", "rrrmc.sync.chunk_test",
                "rrrmc.chunk", "rrrmc.post.fill_checkpoints",
                "rrrmc.sync.checkpoint_step", "rrrmc.post.init_aux"}),
+    # the last launch writes the fields: no init_aux span
     "sweepMC": (_sweep, "rrrmc.op.sweep",
                 {"rrrmc.prep.sweeper", "rrrmc.sync.kernel_seed",
-                 "rrrmc.post.checkpoint", "rrrmc.post.init_aux"}),
+                 "rrrmc.post.checkpoint"}),
     "extremal_opt": (_eo, "rrrmc.op.eo_sparse",
                      {"rrrmc.prep.route", "rrrmc.prep.rank_table",
                       "rrrmc.sync.kernel_seed",
@@ -123,6 +124,22 @@ def test_sampler_spans_nest_in_one_call(sampler, tmp_path):
         for e in rest:
             if e.name in (op, "rrrmc.post.fill_checkpoints"):
                 assert e.cpu_parent.name == "rrrmc.chunk"
+
+
+@pytest.mark.parametrize("sweeps,fallback", [(4, False), (1, True)])
+def test_sweep_fields_span_only_without_a_launch(sweeps, fallback, tmp_path):
+    """The checkerboard route's `rrrmc.post.init_aux` span is its fallback:
+    a call with a checkpoint takes the fields from its last launch, one
+    with none (sweeps < step) launches nothing and runs init_aux."""
+    m = pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU)
+    with trace(str(tmp_path)) as prof:
+        _, st = pt.sweepMC(m, 1.0, sweeps, step=2, chains=4, seed=3,
+                           backend="kernel", **CPU)
+    names = [e.name for e in _spans(prof)]
+    assert names.count("rrrmc.post.init_aux") == fallback
+    assert names.count("rrrmc.op.sweep") == sweeps // 2
+    assert LAST_ROUTE["aux"] == ("torch" if fallback else "kernel")
+    assert torch.equal(st.aux, m.local_fields(st.sigma))
 
 
 @pytest.mark.parametrize("sampler", sorted(SAMPLERS))

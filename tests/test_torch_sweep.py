@@ -331,10 +331,23 @@ def test_site_rows_give_local_fields(L, D, swar):
         assert torch.equal(lf[:, c], want[:, site[c]].long())
 
 
+def _epilogue(rows, D, s, swar):
+    """The kernel's fields epilogue in torch: site i takes the row of pair
+    i // 2 of colour 0 when that row's site is i, else colour 1's; its
+    field from the row (`_row_fields`), written in [B, N] order."""
+    i = torch.arange(s.shape[1])
+    first = rows[0, i >> 1]
+    row = torch.where((first[:, 0] == i)[:, None], first, rows[1, i >> 1])
+    lf, site = _row_fields(row, D, s, swar)
+    assert torch.equal(site.long(), i)
+    return lf
+
+
 def _emulate(rows, D, swar, sigma, E, th, n_sweeps, beta2s, seed):
     """The kernel's loop in torch: per colour every row's site at once,
     its field from the rows (`_row_fields`), its bits the word of its pair,
-    the acceptance of the table or exp path."""
+    the acceptance of the table or exp path; then the fields epilogue of a
+    call's last launch (`_epilogue`). Returns spins, E and the fields."""
     s = sigma.clone()
     dE = torch.zeros(s.shape[0], dtype=torch.int64)
     n_th = th.shape[0]
@@ -355,23 +368,28 @@ def _emulate(rows, D, swar, sigma, E, th, n_sweeps, beta2s, seed):
             acc = (half <= 0) | (bits < thr)
             s[:, site] = torch.where(acc, -s[:, site], s[:, site])
             dE += torch.where(acc, half, 0).sum(1)
-    return s, (E.long() + 2 * dE).to(torch.int32)
+    return s, (E.long() + 2 * dE).to(torch.int32), _epilogue(rows, D, s,
+                                                             swar)
 
 
-@pytest.mark.parametrize("case", ["table-3d", "field-2d", "exp-3d",
-                                  "table-4d", "field-1d", "exp-4d"])
+#: the kernel's code paths (threshold table, field column, exp) at D = 1-4
+LOOP_CASES = {
+    "table-3d": lambda: pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU),
+    "field-2d": lambda: _fields_lattice(6, 2, 4),
+    "exp-3d": lambda: pt.GraphEA(4, 3, (-1.5, 0.5), seed=6, **CPU),
+    "table-4d": lambda: pt.GraphEA(4, 4, (-1, 1), seed=5, **CPU),
+    "field-1d": lambda: _fields_lattice(16, 1, 4),
+    "exp-4d": lambda: pt.GraphEA(4, 4, (-1.5, 0.5), seed=6, **CPU)}
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
 def test_kernel_loop_equals_plain(case):
     """The kernel's arithmetic, emulated from its rows on both lane layouts
     where the couplings allow four chains a lane, gives the plain version's
     spins and energies bit for bit over 6 sweeps (5 chains: a ragged group
-    of four); D = 1 and 4 take the kernel's run-time-D instantiation."""
-    m = {"table-3d": lambda: pt.GraphEA(4, 3, (-1, 1), seed=5, **CPU),
-         "field-2d": lambda: _fields_lattice(6, 2, 4),
-         "exp-3d": lambda: pt.GraphEA(4, 3, (-1.5, 0.5), seed=6, **CPU),
-         "table-4d": lambda: pt.GraphEA(4, 4, (-1, 1), seed=5, **CPU),
-         "field-1d": lambda: _fields_lattice(16, 1, 4),
-         "exp-4d": lambda: pt.GraphEA(4, 4, (-1.5, 0.5), seed=6, **CPU)}[
-             case]()
+    of four), and its fields epilogue the final spins' local_fields; D = 1
+    and 4 take the kernel's run-time-D instantiation."""
+    m = LOOP_CASES[case]()
     sw = Sweeper(m, 1.5)
     exp = case.startswith("exp")
     assert sw.table == (not exp) and sw.rows.swar == (not exp)
@@ -381,10 +399,87 @@ def test_kernel_loop_equals_plain(case):
                                 n_sweeps=6, beta2s=sw.beta2s, seed=SEED)
     for swar in ({False, sw.rows.swar}):
         rows = sweep.site_rows(sw.Jp, sw.Jm, sw.L, sw.D, swar).data
-        es, eE = _emulate(rows, sw.D, swar, st.sigma, st.E, sw.th, 6,
-                          sw.beta2s, SEED)
+        es, eE, ea = _emulate(rows, sw.D, swar, st.sigma, st.E, sw.th, 6,
+                              sw.beta2s, SEED)
         assert torch.equal(es, s) and torch.equal(eE, E)
+        assert torch.equal(ea, m.local_fields(s).long())
     assert not torch.equal(s, st.sigma)
+
+
+@pytest.mark.parametrize("L,D", [(4, 2), (6, 2), (6, 3), (16, 3), (8, 1),
+                                 (4, 4)])
+@pytest.mark.parametrize("swar", [False, True])
+def test_epilogue_gives_local_fields(L, D, swar):
+    """The fields epilogue's site-to-row lookup and arithmetic give every
+    site's local field on random spins, integer fields included, for 11
+    chains (a ragged group of four)."""
+    m = _fields_lattice(L, D, 5)
+    Jp, Jm = sweep.dir_tables(m)
+    rows = sweep.site_rows(torch.as_tensor(Jp), torch.as_tensor(Jm), L, D,
+                           swar)
+    s = torch.as_tensor(random_sigma(np.random.default_rng(L * D), 11, m.N))
+    assert torch.equal(_epilogue(rows.data, D, s, swar),
+                       m.local_fields(s).long())
+
+
+@pytest.mark.parametrize("case", ["table-3d", "field-2d", "exp-3d"])
+def test_plain_version_writes_the_fields(case):
+    """sweep_chunk_reference (and the CPU wrapper, through the Sweeper)
+    with `aux` fills it with the final spins' local_fields, and leaves
+    their spins and energies as a call without it gives them."""
+    m = LOOP_CASES[case]()
+    sw = Sweeper(m, 1.5)
+    st = pt.init_state(m, 5, seed=2, **CPU)
+    kw = dict(L=sw.L, D=sw.D, n_sweeps=3, beta2s=sw.beta2s, seed=SEED)
+    s0, E0 = st.sigma.clone(), st.E.clone()
+    sweep.sweep_chunk_reference(s0, E0, sw.Jp, sw.Jm, sw.th, **kw)
+    s1, E1 = st.sigma.clone(), st.E.clone()
+    a1 = torch.full(s1.shape, 7, dtype=torch.int32)
+    sweep.sweep_chunk_reference(s1, E1, sw.Jp, sw.Jm, sw.th, aux=a1, **kw)
+    s2, E2 = st.sigma.clone(), st.E.clone()
+    a2 = torch.zeros_like(a1)
+    sw(s2, E2, seed=SEED, n_sweeps=3, aux=a2)
+    for s, E in ((s1, E1), (s2, E2)):
+        assert torch.equal(s, s0) and torch.equal(E, E0)
+    assert torch.equal(a1, m.local_fields(s0)) and torch.equal(a2, a1)
+    assert not torch.equal(s0, st.sigma)
+
+
+@pytest.mark.parametrize("sweeps,source", [(7, "kernel"), (2, "torch")])
+def test_sweepmc_names_the_fields_source(sweeps, source):
+    """Route (a) takes the final fields from its last launch
+    (LAST_ROUTE["aux"] "kernel"); a call with no checkpoint (sweeps <
+    step) launches nothing and takes them from init_aux ("torch"). Either
+    way they are the model's local_fields of the final spins."""
+    m = _field_lattice(pt)
+    Es, st = pt.sweepMC(m, 1.0, sweeps, step=3, chains=5, seed=3, **CPU)
+    assert pt.LAST_ROUTE["backend"] == "kernel-sweep"
+    assert pt.LAST_ROUTE["aux"] == source
+    assert Es.shape == (5, sweeps // 3)
+    assert st.aux.dtype == m.Jd.dtype == torch.int32
+    assert torch.equal(st.aux, m.local_fields(st.sigma))
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "strides"])
+def test_wrapper_checks_aux(bad):
+    """sweep_chunk refuses an `aux` of another shape, dtype or device, or
+    not contiguous, before it touches the state."""
+    pm = pt.GraphEA(4, 2, seed=1, **CPU)
+    psw = Sweeper(pm, 1.0)
+    st = pt.init_state(pm, 4, seed=2, **CPU)
+    B, N = st.sigma.shape
+    aux, match = {
+        "shape": (torch.zeros(B, N + 1, dtype=torch.int32), "aux"),
+        "dtype": (torch.zeros(B, N, dtype=torch.int64), "aux"),
+        "device": (torch.zeros(B, N, dtype=torch.int32, device="meta"),
+                   "meta"),
+        "strides": (torch.zeros(N, B, dtype=torch.int32).t(),
+                    "contiguous")}[bad]
+    sigma, E = st.sigma.clone(), st.E.clone()
+    with pytest.raises(ValueError, match=match):
+        sweep_chunk(sigma, E, psw.Jp, psw.Jm, psw.th, L=4, D=2, n_sweeps=1,
+                    beta2s=2.0, seed=1, aux=aux)
+    assert torch.equal(sigma, st.sigma) and torch.equal(E, st.E)
 
 
 def test_swar_bound():
