@@ -166,9 +166,13 @@ def inexact_reason(model) -> Optional[str]:
     from ..ops.perc import plus_minus_one
     from ..ops.sat import distinct_variables
 
-    if isinstance(model, SATModel) and not distinct_variables(model):
-        return ("a SATModel whose clauses hold distinct variables (a "
-                "repeated variable's slots count its clause twice)")
+    if isinstance(model, SATModel):
+        # a sort of the clause table and a wait for it, once a call
+        with annotate("rrrmc.prep.route"):
+            distinct = distinct_variables(model)
+        if not distinct:
+            return ("a SATModel whose clauses hold distinct variables (a "
+                    "repeated variable's slots count its clause twice)")
     if isinstance(model, Perceptron) and not plus_minus_one(model.xi):
         return ("a Perceptron with +-1 patterns (delta_all assumes a flip "
                 "moves every stability by 2)")
