@@ -16,9 +16,11 @@ Phases, any failure exits non-zero:
    sweep kernel on GraphEA(16, 3, +-1, seed=42) with 8192 chains at beta=2,
    and at 1024 chains on its field column and its exp path; the race kernel
    on the same lattice (the port of the TPU lattice race kernel), 1024
-   chains, one 1024-move chunk per mode. Integer couplings must agree
-   exactly; float couplings within the tolerances stated in `_compare`.
-   Both times are printed.
+   chains, one 1024-move chunk per mode. The class kernel (bklMC's on
+   integer sparse models, csrc/rejfree_classes.cu) on the same RRG and
+   lattice and on its other paths (`classes_cases`), its own line.
+   Integer couplings must agree exactly; float couplings within the
+   tolerances stated in `_compare`. Both times are printed.
 3. Main paths, through the public API, each run with every launch count set
    to 0 just before it and read just after:
    - RRG: standardMC(backend="kernel"), rrrMC, bklMC and wtmMC on
@@ -349,6 +351,9 @@ RRG_SWEEPS = 100
 #: takes ~0.3 ms per move); the sweep kernel 100 sweeps (its plain version
 #: takes ~20 ms per sweep at 8192 chains)
 SITE_MOVES, RACE_MOVES, SWEEPS = 10_000, 1024, 100
+#: the class kernel's comparisons (`classes_cases`): beta, and the kernel
+#: bklMC iterations that equilibrate the RRG's chains for one of them
+CLASS_BETA, CLASS_WARM_ITERS = 4.0, 1_000_000
 #: the site kernel's other cases: a ragged batch, the moves of the cases
 #: beside the row, a graph above the resident route's shared memory (int8
 #: fields: N > 116 224) and its chains, and the moves of one standardMC
@@ -1147,6 +1152,114 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
             "moves": n_moves, "target": target, "ms": ms, "ms_full": ms_full,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "diverged": bad, "max_abs_err": err, "errs": errs, "plan": plan}
+
+
+def classes_case(model, label, card, B=CHAINS, beta=CLASS_BETA,
+                 n_moves=RACE_MOVES, sigma=None):
+    """The class kernel (rejfree_classes.cu, bklMC's kernel on integer
+    sparse models) against its plain version on one chunk of n_moves moves
+    of B chains from one input and one Philox seed: every output EQUAL, bit
+    for bit (spins, fields, energies, flips, coordinates, z/N sums and both
+    streams), once with every chain active and once with half of them
+    stopping mid-chunk at the median coordinate. `sigma` [B, N] replaces
+    the random start. Times both launches with CUDA events; the bound
+    counts the kernel's bytes and K + 3 operations an applied flip."""
+    import torch
+    import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import rejfree_classes as rc
+    from rrrmc_tpu_torch.samplers.families import half_bound
+
+    bound_lf = half_bound(model)
+    st = rt.init_state(model, B, seed=SEED, device=DEV)
+    sig0 = st.sigma if sigma is None else sigma
+    E0 = st.E if sigma is None else model.energy(sigma)
+    z = dict(device=DEV)
+    base = dict(sigma=sig0.clone(), lf=model.init_aux(sig0), E=E0.clone(),
+                coord=torch.zeros(B, dtype=torch.int32, **z),
+                acc=torch.zeros(B, dtype=torch.int32, **z),
+                zacc=torch.zeros(B, dtype=torch.float32, **z))
+    kw = dict(mode="bkl", n_moves=n_moves, seed=SEED, move0=0, chain0=0,
+              beta_s=beta * model.scale, field_bound=bound_lf)
+
+    def fresh():
+        return {k: v.clone() for k, v in base.items()}
+
+    def run(fn, a, target):
+        a["cs"], a["es"] = fn(a["sigma"], a["lf"], a["E"], a["coord"],
+                              a["acc"], a["zacc"], model.neigh, model.J,
+                              target=target, **kw)
+
+    out = {}
+    for what in ("every chain", "half stopping"):
+        target = 2 ** 30
+        if what == "half stopping":
+            target = max(int(out["every chain"][0]["coord"].double()
+                             .median().item()), 1)
+        k = fresh()
+        ms = _events_ms(lambda: run(rc.rejfree_classes_chunk, k, target))
+        p = fresh()
+        plain_ms = _events_ms(
+            lambda: run(rc.rejfree_classes_chunk_reference, p, target))
+        _compare(f"classes {label} ({what})", True, k, p, B, model.N)
+        out[what] = (k, ms, plain_ms)
+    k, ms, plain_ms = out["half stopping"]
+    plan = dict(rc.LAST_PLAN)
+    require(plan["spill_bytes"] == 0, f"classes {label}: {plan}")
+    applied = float(k["acc"].double().sum())
+    bound_ms, bound_by = bound(
+        2 * _nbytes(*base.values())
+        + _nbytes(model.neigh, model.J, k["cs"], k["es"]),
+        applied * (model.neigh.shape[1] + 3))
+    print(f"rejfree_classes bkl {label} B={B} moves={n_moves}: kernel "
+          f"{ms:.3f} ms ({out['every chain'][1]:.3f} ms with every chain "
+          f"active), plain {plain_ms:.1f} ms, bound {bound_ms:.3g} ms "
+          f"({bound_by}), equal bit for bit [{plan['classes']} classes, "
+          f"{plan['groups']} groups, {plan['blocks_per_sm']} blocks/SM, "
+          f"{plan['smem']} shared bytes, {plan['registers']} registers, "
+          f"{plan['spill_bytes']} local bytes] [{card}]")
+    return {"kernel": "rejfree_classes", "case": f"bkl {label}", "B": B,
+            "moves": n_moves, "ms": ms, "ms_full": out["every chain"][1],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": 0.0, "classes_plan": plan}
+
+
+def classes_cases(card):
+    """The class kernel against its plain version at the benchmark's
+    shapes and on every path through it: GraphRRG(10^4, 3, +-J) with 1024
+    chains from random spins at beta = 2 (the race row's case, first: it
+    gives the kernel's row) and at CLASS_BETA from spins that
+    CLASS_WARM_ITERS iterations of kernel bklMC reached (the cell's
+    regime), GraphEA(16, 3, +-J) with 1024 chains at beta = 2, a +-J RRG
+    with integer fields in -2..2 (six classes), and the ferromagnetic RRG
+    from all spins up, where every flip raises E (the least occupied class
+    above 0), and the L = 2 lattice, whose rows hold each neighbour twice
+    (lane 0 applies the slots in order). Returns the cases."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import rrrmc_tpu_torch as rt
+
+    rrg = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
+    _, warm = rt.bklMC(rrg, CLASS_BETA, CLASS_WARM_ITERS,
+                       step=CLASS_WARM_ITERS, chains=CHAINS, seed=SEED)
+    require(rt.LAST_ROUTE["pick"] == "classes",
+            f"bklMC on the +-J RRG: pick {rt.LAST_ROUTE}")
+    lat = rt.GraphEA(16, 3, (-1, 1), seed=42, device=DEV)
+    fielded = dataclasses.replace(rrg, h=torch.as_tensor(
+        np.random.default_rng(SEED).integers(-2, 3, N_MAIN),
+        dtype=rrg.h.dtype, device=DEV))
+    ferro = rt.GraphRRG(N_MAIN, 3, (1,), seed=SEED, device=DEV)
+    up = torch.ones((HYPER_CHAINS, N_MAIN), dtype=torch.int8, device=DEV)
+    return [classes_case(rrg, "RRG+-J", card, beta=BETA),
+            classes_case(rrg, "RRG+-J equilibrated", card, sigma=warm.sigma),
+            classes_case(lat, "EA3D-L16+-J", card, beta=2.0),
+            classes_case(fielded, "RRG+-J fields", card, n_moves=CMP_MOVES),
+            classes_case(ferro, "ferro RRG all up", card, B=HYPER_CHAINS,
+                         n_moves=CMP_MOVES, sigma=up),
+            classes_case(rt.GraphEA(2, 3, (-1, 1), seed=42, device=DEV),
+                         "EA3D-L2+-J (each neighbour twice)", card,
+                         beta=1.0, n_moves=CMP_MOVES)]
 
 
 def sk_case(model, label, B, n_sweeps, card, kernel, warm=0, beta=BETA):
@@ -2236,7 +2349,7 @@ def rrg_path(card):
     """The RRG main path (the factor table's samplers) on GraphRRG(10^4,
     3)."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, site
+    from rrrmc_tpu_torch.ops import rejfree, rejfree_classes, site
 
     m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
@@ -2251,7 +2364,7 @@ def rrg_path(card):
          10,
          lambda: rt.rrrMC(m, BETA, iters_rrr, step=iters_rrr // 10,
                           chains=CHAINS, seed=2, device=DEV)),
-        ("bklMC", m, "kernel-rejfree-sparse", rejfree, iters_bkl,
+        ("bklMC", m, "kernel-rejfree-sparse", rejfree_classes, iters_bkl,
          "virtual iterations", 10,
          lambda: rt.bklMC(m, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=3, device=DEV)),
@@ -2265,7 +2378,8 @@ def rrg_path(card):
                           chains=CHAINS, seed=5, device=DEV)),
     ]
     return _drive(runs, card, {"site_metropolis": site,
-                               "rejfree_sparse": rejfree})
+                               "rejfree_sparse": rejfree,
+                               "rejfree_classes": rejfree_classes})
 
 
 def ea_path(card):
@@ -2273,7 +2387,7 @@ def ea_path(card):
     site-sweep route of sweepMC on GraphRRG(10^4, 3)."""
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch import bench
-    from rrrmc_tpu_torch.ops import rejfree, site, sweep
+    from rrrmc_tpu_torch.ops import rejfree, rejfree_classes, site, sweep
 
     lat = rt.GraphEA(bench.L, bench.D, (-1, 1), seed=bench.SEED, device=DEV)
     rrg = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
@@ -2296,7 +2410,7 @@ def ea_path(card):
          iters_rrr, "moves", 8,
          lambda: rt.rrrMC(lat, BETA, iters_rrr, step=iters_rrr // 8,
                           chains=CHAINS, seed=12, device=DEV)),
-        ("bklMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+        ("bklMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree_classes,
          iters_bkl, "virtual iterations", 10,
          lambda: rt.bklMC(lat, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=13, device=DEV)),
@@ -2311,6 +2425,7 @@ def ea_path(card):
     ]
     records, counts = _drive(runs, card, {"sweep_checkerboard": sweep,
                                           "rejfree_lattice": rejfree,
+                                          "rejfree_classes": rejfree_classes,
                                           "site_metropolis": site})
     record = bench_out["record"]
     print(bench.card_line())
@@ -2324,10 +2439,11 @@ def ea_path(card):
 def dense_path(card, sk1, sk8, skn, drrg, rrg):
     """The dense SK path: sweepMC on both SK sizes, the race samplers on
     GraphSK(1024) and GraphSKNormal(4096), and bklMC on a densified RRG
-    beside the sparse race on the same graph, same seed. Returns the run
-    records, the path's launch counts and the launches of each run."""
+    beside bklMC on the sparse graph (the class kernel, whose draws differ:
+    the two are printed side by side), same seed. Returns the run records,
+    the path's launch counts and the launches of each run."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, rejfree_dense, sk
+    from rrrmc_tpu_torch.ops import rejfree_classes, rejfree_dense, sk
 
     b4 = 4.0
     n1 = sk1.N
@@ -2363,21 +2479,19 @@ def dense_path(card, sk1, sk8, skn, drrg, rrg):
                           step=DRRG_ITERS_BKL // 10, chains=CHAINS, seed=27,
                           device=DEV)),
         ("bklMC GraphRRG(10^4) beta=4 (sparse)", rrg,
-         "kernel-rejfree-sparse", rejfree, DRRG_ITERS_BKL,
+         "kernel-rejfree-sparse", rejfree_classes, DRRG_ITERS_BKL,
          "virtual iterations", 10,
          lambda: rt.bklMC(rrg, b4, DRRG_ITERS_BKL, step=DRRG_ITERS_BKL // 10,
                           chains=CHAINS, seed=27, device=DEV)),
     ]
     records, counts = _drive(runs, card, {"sk_sweep": sk,
                                           "rejfree_dense": rejfree_dense,
-                                          "rejfree_sparse": rejfree})
+                                          "rejfree_classes": rejfree_classes})
     d, s = records[-2], records[-1]
-    same = (d["E_per_spin"] == s["E_per_spin"]
-            and d["mean_z_over_n"] == s["mean_z_over_n"])
     print(f"one factor table, bklMC beta=4 on GraphRRG(10^4): dense race E/N "
-          f"{d['E_per_spin']!r} mean z/N {d['mean_z_over_n']!r}; sparse race "
-          f"E/N {s['E_per_spin']!r} mean z/N {s['mean_z_over_n']!r}; "
-          f"identical {same}  [{card}]")
+          f"{d['E_per_spin']!r} mean z/N {d['mean_z_over_n']!r}; sparse class "
+          f"kernel E/N {s['E_per_spin']!r} mean z/N "
+          f"{s['mean_z_over_n']!r}  [{card}]")
     per_run = [r["launches"] for r in records]
     return records, counts, {
         "sk_sweep": per_run[0], "sk_sweep_hbm": per_run[1],
@@ -3811,7 +3925,8 @@ def shard_path(card, X):
 
 #: the kernel modules whose launch counts scripts_path reads: every one of
 #: them runs on some scoreboard row or QIsing engine
-SCRIPT_KERNELS = ("site", "rejfree", "sweep", "sk", "rejfree_dense", "eo",
+SCRIPT_KERNELS = ("site", "rejfree", "rejfree_classes", "sweep", "sk",
+                  "rejfree_dense", "eo",
                   "eo_dense", "pspin", "eo_pspin", "sat", "eo_sat",
                   "replica", "replica_sweep", "perc", "eo_perc")
 #: the scoreboard sections scripts_path runs (the factor sections stay out:
@@ -3997,6 +4112,7 @@ def main() -> int:
                                   n_moves=moves(mode)))
         cases.append(rejfree_case(mn, "RRGNormal", mode, card,
                                   n_moves=CMP_MOVES))
+    class_cases = classes_cases(card)
     lat = rt.GraphEA(16, 3, (-1, 1), seed=42, device=DEV)
     field = dataclasses.replace(lat, h=torch.as_tensor(
         np.random.default_rng(SEED).integers(-2, 3, lat.N),
@@ -4259,6 +4375,9 @@ def main() -> int:
                       + rep_records + perc_records + factor_records
                       + generic_records + wrapper_records + pt_records
                       + et_records}))
+    launches_classes = rrg_counts["rejfree_classes"]
+    require(launches_classes > 0 and ea_counts["rejfree_classes"] > 0,
+            "the class kernel: not launched on the RRG and EA-3D paths")
     launches = {"site_metropolis": rrg_counts["site_metropolis"],
                 "rejfree_sparse": rrg_counts["rejfree_sparse"],
                 "rejfree_lattice": ea_counts["rejfree_lattice"],
@@ -4381,6 +4500,13 @@ def main() -> int:
                if "sweep_plan" in head else {})})
         require(launches[name] > 0, f"{name}: not launched on the main path")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"class kernel": {
+        "source": "rrrmc_tpu_torch/csrc/rejfree_classes.cu",
+        "replaces": None, "launches": launches_classes,
+        "cases": [{k: c[k] for k in ("case", "B", "moves", "ms", "ms_full",
+                                     "plain_ms", "bound_ms", "bound_by")}
+                  for c in class_cases],
+        "plan": class_cases[0]["classes_plan"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ constexpr uint32_t DRAW_SK = 4;
 constexpr uint32_t DRAW_EO_RANK = 5;
 constexpr uint32_t DRAW_EO_TIE = 6;
 constexpr uint32_t DRAW_REPLICA_SWEEP = 7;
+constexpr uint32_t DRAW_CLASS = 8;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;

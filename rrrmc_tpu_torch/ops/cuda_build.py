@@ -42,6 +42,10 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _P]),
     "rrrmc_rejfree_sparse_smem": (_Z, [_I, _I, _I]),
     "rrrmc_rejfree_sparse_info": (_I, [_I, _I, _I, _Z, _I, _P]),
+    "rrrmc_rejfree_classes": (_I, [_P] * 10 + [_I] * 5 + [_U, _U, _U, _F,
+                                                         _I, _P]),
+    "rrrmc_rejfree_classes_smem": (_Z, [_I, _I]),
+    "rrrmc_rejfree_classes_info": (_I, [_Z, _I, _P]),
     "rrrmc_sweep": (_I, [_P] * 5 + [_I] * 8 + [_U, _U, _U, _F, _P]),
     "rrrmc_sweep_info": (_I, [_I, _I, _I, _I, _Z, _I, _P]),
     "rrrmc_sk_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _U,

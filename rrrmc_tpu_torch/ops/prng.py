@@ -29,7 +29,10 @@ Stream layout, shared by every kernel and its plain version:
 * the replica composites' sweep (DRAW_REPLICA_SWEEP = 7) gives spin j of
   sweep t word j % 4 of counter (j // 4, t, DRAW_REPLICA_SWEEP, 0), the
   race's layout with the sweep in place of the move, sweeps counted across
-  launches. The composites' race moves use the race's draws.
+  launches. The composites' race moves use the race's draws;
+* BKL by energy classes (DRAW_CLASS = 8) takes word 0 (the class) and word
+  1 (the site within it) of counter (0, move, DRAW_CLASS, 0), and its skip
+  from DRAW_SKIP as the race does.
 
 Torch arithmetic: words are int64 tensors holding values in [0, 2^32). The
 product of two such values wraps int64, but `(p >> 32) & 0xFFFFFFFF` still
@@ -49,6 +52,7 @@ DRAW_SK = 4
 DRAW_EO_RANK = 5
 DRAW_EO_TIE = 6
 DRAW_REPLICA_SWEEP = 7
+DRAW_CLASS = 8
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -97,6 +101,16 @@ def draw_bits(seed: int, chain0: int, B: int, move0: int, n: int, draw: int,
     k0, k1 = chain_keys(seed, chain0, B, device)
     mv = _moves(move0, n, device)[:, None]
     return as_int32(philox4x32_10((0, mv, draw, 0), (k0, k1))[0])
+
+
+def class_bits(seed: int, chain0: int, B: int, move0: int, n: int,
+               device) -> torch.Tensor:
+    """[n, B, 2] int32: words 0 and 1 of counter (0, move, DRAW_CLASS, 0)
+    for the moves move0 .. move0 + n - 1 of each chain."""
+    k0, k1 = chain_keys(seed, chain0, B, device)
+    mv = _moves(move0, n, device)[:, None]
+    w = philox4x32_10((0, mv, DRAW_CLASS, 0), (k0, k1))
+    return as_int32(torch.stack(w[:2], dim=-1))
 
 
 def race_bits(seed: int, chain0: int, B: int, N: int, move0: int, n: int,

@@ -14,13 +14,15 @@ by a batched searchsorted over the stream: the batch generalization of the
 reference's checkpoint drain loop.
 
 Two routes. The race kernel of the model's family (samplers/families.py):
-the sparse one (ops/rejfree.py) for Pairwise models, the dense one
-(ops/rejfree_dense.py) for FullyConnected models, the hypergraph ones
-(ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, the perceptrons'
-(ops/perc.py) and the replica composites' (ops/replica.py); it records
-energies only. The generic torch path (`make_bkl_move`, a batched step of
-plain tensor ops on [B, N]) runs any model, takes hooks and observers, and
-is what backend="torch" asks for (the JAX package's "xla").
+the sparse one (ops/rejfree.py) for Pairwise models (for bkl on integer
+fields within int8 the class kernel of ops/rejfree_classes.py takes its
+place), the dense one (ops/rejfree_dense.py) for FullyConnected models,
+the hypergraph ones (ops/pspin.py, ops/sat.py) for PSpin3 and K-SAT, the
+perceptrons' (ops/perc.py) and the replica composites' (ops/replica.py);
+it records energies only. The generic torch path (`make_bkl_move`, a
+batched step of plain tensor ops on [B, N]) runs any model, takes hooks
+and observers, and is what backend="torch" asks for (the JAX package's
+"xla").
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from ..core.model import Model
 from ..ops.rejfree import coord_dtype
+from ..ops.rejfree_classes import classes_ok
 from ..utils.profiling import annotate, spanned
 from .common import (DEFAULT_SEED, MCState, default_observer, init_state,
                      kernel_seed, set_route, working_copy)
@@ -129,9 +132,11 @@ def rejfree_mc(model, fam: Family, beta: float, mode: str, target, step,
     """Run the race kernel in chunks of `chunk_moves` moves until every
     chain's coordinate reaches `target`; one host sync per chunk.
     Returns (Es [B, n_ckpt] physical energies, final MCState); `accepted`
-    gains the applied flips, and LAST_ROUTE holds acc and the summed z/N.
-    The model's family `fam` (`kernel_route`'s) picks the kernel
-    (samplers/families.py)."""
+    gains the applied flips, and LAST_ROUTE holds acc, the summed z/N and
+    `pick`. The model's family `fam` (`kernel_route`'s) picks the kernel
+    (samplers/families.py): bkl takes the family's class kernel where its
+    rule holds (`classes_ok`: integer sparse Pairwise fields within int8),
+    pick "classes", and the race otherwise, pick "race"."""
     B = state.sigma.shape[0]
     dev = state.sigma.device
     with annotate("rrrmc.prep.resident_state"):
@@ -145,6 +150,10 @@ def rejfree_mc(model, fam: Family, beta: float, mode: str, target, step,
         Es = torch.zeros((B, n_ckpt), dtype=torch.float32, device=dev)
         tables = fam.tables(model)
         race_kw = fam.race_kw(model)
+        race, pick = fam.race, "race"
+        if fam.classes is not None and classes_ok(
+                model, mode, race_kw.get("field_bound"), dev):
+            race, pick = fam.classes, "classes"
     k = 0
     while chains_below(coord, target):
         with annotate("rrrmc.chunk"):
@@ -152,7 +161,7 @@ def rejfree_mc(model, fam: Family, beta: float, mode: str, target, step,
                 fam.resync(model, lf, E)
             x_start = coord.clone()
             e_start = model.to_physical(E)
-            cs, es = fam.race(
+            cs, es = race(
                 sigma, lf, E, coord, acc, zacc, *tables, mode=mode,
                 n_moves=chunk_moves, beta_s=beta * model.scale,
                 target=target, seed=seed, move0=k * chunk_moves,
@@ -163,7 +172,7 @@ def rejfree_mc(model, fam: Family, beta: float, mode: str, target, step,
         k += 1
     set_route(f"kernel-rejfree-{fam.name}",
               impl="cuda" if dev.type == "cuda" else "plain", mode=mode,
-              acc=acc, z_over_n=zacc, chunks=k)
+              acc=acc, z_over_n=zacc, chunks=k, pick=pick)
     with annotate("rrrmc.post.init_aux"):
         aux = model.init_aux(sigma)
     return Es, MCState(sigma=sigma, aux=aux, E=E,

@@ -34,6 +34,7 @@ from ..ops.perc import (perc_rejfree_ok, perc_resync, perc_state,
                         perc_tables, rejfree_perc_chunk)
 from ..ops.pspin import pspin_rejfree_ok, rejfree_pspin_chunk
 from ..ops.rejfree import rejfree_sparse_chunk, sparse_rejfree_ok
+from ..ops.rejfree_classes import rejfree_classes_chunk
 from ..ops.rejfree_dense import (dense_rejfree_ok, kernel_couplings,
                                  rejfree_dense_chunk)
 from ..ops.replica import (rejfree_replica_chunk, replica_base,
@@ -66,7 +67,9 @@ class Family(NamedTuple):
     it off their tables), and the resident fields one applied flip
     updates; the kernels' resident state (`aux_state` when None); and
     the resync of a drifting float32 E at chunk boundaries (None: none);
-    and the race wrapper's further keyword arguments."""
+    the race wrapper's further keyword arguments; and the wrapper that
+    runs bkl by energy classes in place of the race where its rule holds
+    (`classes_ok` of ops/rejfree_classes.py; None: the race always)."""
     name: str
     eligible: Callable
     race: Callable
@@ -78,6 +81,7 @@ class Family(NamedTuple):
     state: Optional[Callable] = None
     resync: Optional[Callable] = None
     race_kw: Callable = _no_kw
+    classes: Optional[Callable] = None
 
 
 def aux_state(model, sigma, E):
@@ -120,7 +124,8 @@ FAMILIES = (
     Family("sparse", sparse_rejfree_ok, rejfree_sparse_chunk,
            eo_sparse_chunk, lambda m: (m.neigh, m.J), _pairwise_kw,
            half_bound, lambda m: m.K,
-           race_kw=lambda m: {"field_bound": half_bound(m)}),
+           race_kw=lambda m: {"field_bound": half_bound(m)},
+           classes=rejfree_classes_chunk),
     # key sigma_i c_i, |c_i| <= K; a flip moves the 2K partners' sums
     Family("pspin", pspin_rejfree_ok, rejfree_pspin_chunk, eo_pspin_chunk,
            lambda m: (m.A,), _no_kw, lambda m: m.K, lambda m: 2 * m.K,

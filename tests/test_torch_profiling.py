@@ -52,7 +52,7 @@ def _bkl():
     m = pt.GraphRRG(64, 3, (-1, 1), seed=3, **CPU)
     pt.bklMC(m, 1.0, 40, step=10, chains=4, seed=5, chunk_moves=4,
              backend="kernel", **CPU)
-    return LAST_ROUTE["chunks"]      # a race launch a chunk
+    return LAST_ROUTE["chunks"]      # a class-kernel launch a chunk
 
 
 def _sweep():
@@ -74,7 +74,7 @@ SAMPLERS = {
                    {"rrrmc.prep.site_sampler", "rrrmc.sync.field_bound",
                     "rrrmc.sync.kernel_seed", "rrrmc.prep.init_lfT",
                     "rrrmc.prep.site_schedule", "rrrmc.post.checkpoint"}),
-    "bklMC": (_bkl, "rrrmc.op.rejfree_sparse",
+    "bklMC": (_bkl, "rrrmc.op.rejfree_classes",
               {"rrrmc.prep.route", "rrrmc.sync.kernel_seed",
                "rrrmc.prep.resident_state",
                "rrrmc.sync.field_bound", "rrrmc.sync.chunk_test",

@@ -269,17 +269,24 @@ FAMILY_BOUNDS = {
 
 @pytest.mark.parametrize("name", list(FAMILY_BOUNDS))
 def test_samplers_pass_family_bound(monkeypatch, name):
-    """bklMC hands the fused race wrapper its family's bound on |lf| at
-    every chunk."""
+    """bklMC hands the fused race wrapper, or the class kernel's that
+    takes its place (the +-J RRG), its family's bound on |lf| at every
+    chunk."""
     build, want = FAMILY_BOUNDS[name]
     m = build()
     seen = []
     spied = []
-    for f in families.FAMILIES:
-        def spy(*a, _race=f.race, **kw):
+
+    def spy(op):
+        def call(*a, **kw):
             seen.append(kw.get("field_bound", "absent"))
-            return _race(*a, **kw)
-        spied.append(f._replace(race=spy))
+            return op(*a, **kw)
+        return call
+
+    for f in families.FAMILIES:
+        spied.append(f._replace(
+            race=spy(f.race),
+            classes=f.classes if f.classes is None else spy(f.classes)))
     monkeypatch.setattr(families, "FAMILIES", tuple(spied))
     pt.bklMC(m, 1.0, 600, step=100, chains=4, chunk_moves=64, **CPU)
     assert len(seen) >= 2 and set(seen) == {want}
