@@ -659,12 +659,31 @@ def _reference(chunk):
                    chunk.__name__ + "_reference")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
+def launched(kernels) -> int:
+    """The launches so far of a kernel, or of a tuple of kernels, by their
+    names in ops/launch.py's LAUNCHES."""
+    from rrrmc_tpu_torch.ops.launch import LAUNCHES
+
+    return sum(LAUNCHES[k] for k in
+               ((kernels,) if isinstance(kernels, str) else kernels))
+
+
+def reset_launches(*kernels) -> None:
+    """Set the launch counts of `kernels` (names, or tuples of names) to
+    0."""
+    from rrrmc_tpu_torch.ops.launch import LAUNCHES
+
+    for k in kernels:
+        for name in ((k,) if isinstance(k, str) else k):
+            LAUNCHES[name] = 0
+
+
+def only_plan() -> dict:
+    """The one plan recorded since ops/launch.py's PLANS was cleared."""
+    from rrrmc_tpu_torch.ops.launch import PLANS
+
+    (plan,) = PLANS.values()
+    return plan
 
 
 def _events_ms(fn) -> float:
@@ -761,7 +780,8 @@ def padded_graph(N, seed):
 
 
 def plan_of_site(plan) -> str:
-    """The site kernel's launch plan (ops/site.py's LAST_PLAN) as printed."""
+    """The site kernel's launch plan (ops/launch.py's PLANS["site"]) as
+    printed."""
     return (f"[route {plan['route']}, {plan['field']} fields, "
             f"{plan['chains']} chains a block, {plan['warps']} warps, "
             f"{plan['smem']} shared bytes, {plan['blocks_per_sm']} blocks/SM, "
@@ -780,7 +800,7 @@ def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None,
     SiteSampler gives it."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import site
+    from rrrmc_tpu_torch.ops import launch, site
     from rrrmc_tpu_torch.samplers.common import init_lfT
     from rrrmc_tpu_torch.samplers.families import half_bound
 
@@ -808,7 +828,7 @@ def site_case(model, label, card, n_moves=SITE_MOVES, B=CHAINS, sites=None,
     run(site.site_chunk, fresh(), **bound_kw)           # warm-up
     k = fresh()
     ms = _events_ms(lambda: run(site.site_chunk, k, **bound_kw))
-    plan = dict(site.LAST_PLAN)
+    plan = dict(launch.PLANS["site"])
     p = fresh()
     plain_ms = _events_ms(lambda: run(site.site_chunk_reference, p))
     kern = {"sigma": k["sigT"].t(), "lf": k["lfT"].t(), "E": k["E"],
@@ -927,7 +947,8 @@ def site_groups_case(model, card):
 
 
 def plan_of_sweep(plan) -> str:
-    """The checkerboard kernel's launch plan (ops/sweep.py's LAST_PLAN)."""
+    """The checkerboard kernel's launch plan (ops/launch.py's
+    PLANS["sweep"])."""
     return (f"[{plan['chains']} chains a block, {plan['threads']} threads, "
             f"{plan['lanes']} a lane, {plan['smem']} shared bytes, "
             f"{plan['blocks_per_sm']} blocks/SM, {plan['registers']} "
@@ -942,7 +963,7 @@ def sweep_case(model, label, B, card, one_lane=False):
     chain a lane where the Sweeper's rows take four."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import sweep
+    from rrrmc_tpu_torch.ops import launch, sweep
 
     sw = sweep.Sweeper(model, BETA)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
@@ -957,12 +978,12 @@ def sweep_case(model, label, B, card, one_lane=False):
 
     run(sweep.sweep_chunk, **rows)                        # warm-up
     ks, kE, ms = run(sweep.sweep_chunk, **rows)
-    plan = dict(sweep.LAST_PLAN)
+    plan = dict(launch.PLANS["sweep"])
     # a call's last launch: the fields epilogue, the spins and E unchanged
     aux = torch.empty_like(st.sigma, dtype=torch.int32)
     fs, fE, _ = run(sweep.sweep_chunk, aux=aux, **rows)
     require(torch.equal(fs, ks) and torch.equal(fE, kE)
-            and sweep.LAST_PLAN == plan,
+            and launch.PLANS["sweep"] == plan,
             f"sweep {label}: a launch with aux moves sigma, E or the plan")
     require(torch.equal(aux, model.local_fields(ks)),
             f"sweep {label}: the epilogue's fields differ from local_fields "
@@ -994,10 +1015,9 @@ def site_sweep_instantiations(log: str, card: str) -> None:
     of the checkerboard kernel: registers and spill bytes from the ptxas
     report (when this run built the library) and local bytes a thread from
     the CUDA runtime's attributes. Fails on a spill or a local byte."""
-    import ctypes
     import re
 
-    from rrrmc_tpu_torch.ops import cuda_build
+    from rrrmc_tpu_torch.ops import launch
 
     names = ("site_resident_kernel", "site_global_kernel", "site_cut_kernel",
              "sweep_kernel")
@@ -1023,22 +1043,19 @@ def site_sweep_instantiations(log: str, card: str) -> None:
               f"{rec.get('registers')}, spill bytes {rec.get('spill')} "
               f"(ptxas)  [{card}]")
         require(rec.get("spill", 0) == 0, f"{demangled[f]} spills")
-    lib = cuda_build.library()
-    out = (ctypes.c_int * 5)()
     local = {}
     for field, name in enumerate(("int8", "int16", "int32", "float32")):
         for chains in (0, 1, 2, 4, 8):
-            cuda_build.check(lib.rrrmc_site_info(chains, field, 0, 0, out),
-                             "site_info")
             local[f"site {'global' if chains == 0 else 'resident'} "
-                  f"{name} W={chains}"] = out[2]
+                  f"{name} W={chains}"] = launch.facts(
+                      "rrrmc_site_info", (field,), chains, 0, 0)[2]
     for D in (2, 3, 4):   # D = 4: the run-time-D instantiation
         for table in (0, 1):
             for swar in (0, 1):
-                cuda_build.check(lib.rrrmc_sweep_info(
-                    1024, D, table, swar, 0, 0, out), "sweep_info")
                 local[f"sweep D={D if D < 4 else 'any'} table={table} "
-                      f"swar={swar}"] = out[2]
+                      f"swar={swar}"] = launch.facts(
+                          "rrrmc_sweep_info", (D, table, swar), 1024, 0,
+                          0)[2]
     print(f"site and sweep instantiations' local bytes a thread: "
           f"{json.dumps(local)}  [{card}]")
     require(not any(local.values()), f"site/sweep kernels use local "
@@ -1059,7 +1076,7 @@ def _fused():
 
 
 def plan_text(plan) -> str:
-    """A fused launch's plan (ops/rejfree.py's LAST_PLAN) as printed."""
+    """A fused launch's plan (ops/rejfree.py::fused_plan's) as printed."""
     if not plan:
         return ""
     where = (f", patterns in {plan['patterns']} memory"
@@ -1086,7 +1103,7 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     as integer ones are (`_compare`)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree
+    from rrrmc_tpu_torch.ops import launch, rejfree
     from rrrmc_tpu_torch.samplers.families import family_of
 
     fam = family_of(model)
@@ -1129,8 +1146,9 @@ def rejfree_case(model, label, mode, card, kernel="rejfree_sparse",
     target = {"wtm": float(target), "bkl": max(int(target), 1),
               "rrr": n_moves // 2}[mode]
     k = fresh()
+    launch.PLANS.clear()
     ms = _events_ms(lambda: run(chunk, k, target, **kernel_kw))
-    plan = dict(rejfree.LAST_PLAN) if fused else None
+    plan = only_plan() if fused else None
     ref_kw = {"threads": plan["threads"]} if fused else {}
     p = fresh()
     plain_ms = _events_ms(lambda: run(ref, p, target, **ref_kw))
@@ -1166,6 +1184,7 @@ def classes_case(model, label, card, B=CHAINS, beta=CLASS_BETA,
     counts the kernel's bytes and K + 3 operations an applied flip."""
     import torch
     import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.ops import launch
     from rrrmc_tpu_torch.ops import rejfree_classes as rc
     from rrrmc_tpu_torch.samplers.families import half_bound
 
@@ -1203,7 +1222,7 @@ def classes_case(model, label, card, B=CHAINS, beta=CLASS_BETA,
         _compare(f"classes {label} ({what})", True, k, p, B, model.N)
         out[what] = (k, ms, plain_ms)
     k, ms, plain_ms = out["half stopping"]
-    plan = dict(rc.LAST_PLAN)
+    plan = dict(launch.PLANS["rejfree_classes"])
     require(plan["spill_bytes"] == 0, f"classes {label}: {plan}")
     applied = float(k["acc"].double().sum())
     bound_ms, bound_by = bound(
@@ -1270,7 +1289,7 @@ def sk_case(model, label, B, n_sweeps, card, kernel, warm=0, beta=BETA):
     arithmetic, one threshold table)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import sk
+    from rrrmc_tpu_torch.ops import launch, sk
 
     sw = sk.SKSweeper(model, beta)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
@@ -1292,7 +1311,7 @@ def sk_case(model, label, B, n_sweeps, card, kernel, warm=0, beta=BETA):
     run(sk.sk_sweep_chunk)                                # warm-up
     kern = functools.partial(sk.sk_sweep_chunk, checked=True)
     ks, klf, kE, ms = run(kern)
-    plan = dict(sk.LAST_PLAN)
+    plan = dict(launch.PLANS["sk_sweep"])
     from rrrmc_tpu_torch.ops.cuda_build import library
     require(library().rrrmc_sk_smem(model.N, plan["hmax_bytes"])
             == plan["smem"],
@@ -1376,16 +1395,12 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
     count of two Philox calls a move."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo
+    from rrrmc_tpu_torch.ops import eo, launch
     from rrrmc_tpu_torch.samplers.eo import rank_table
     from rrrmc_tpu_torch.samplers.families import family_of, resident_state
 
     fam = family_of(model)
     chunk, ref, tables = fam.eo, _reference(fam.eo), fam.tables(model)
-    # every EO kernel records its plan: the sparse and PSpin3 ones in
-    # ops/eo.py, the others in their wrappers' modules
-    plans = (eo if kernel in ("eo_sparse", "eo_lattice", "eo_pspin")
-             else sys.modules[chunk.__module__])
     kw = fam.eo_kw(model)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
     integer = not st.E.dtype.is_floating_point
@@ -1402,8 +1417,9 @@ def eo_case(model, label, B, card, kernel, ops=None, warps=None,
 
     run(chunk, fresh())                                   # warm-up
     k = fresh()
+    launch.PLANS.clear()
     ms = _events_ms(lambda: run(chunk, k))
-    plan = dict(plans.LAST_PLAN) if plans else None
+    plan = only_plan()
     if warps is not None:
         require(plan["warps"] == warps, f"{kernel} {label}: the plan gives "
                 f"{plan['warps']} warps a chain, not {warps}")
@@ -1590,10 +1606,9 @@ def eo_instantiations(log: str, card: str) -> None:
     type; eo_perc.cu: family, select, pattern memory): its registers and
     spill bytes (ptxas, when this run built the library) and its local
     bytes a thread (the CUDA runtime). Fails on a spill or a local byte."""
-    import ctypes
     import re
 
-    from rrrmc_tpu_torch.ops import cuda_build, eo, eo_sat
+    from rrrmc_tpu_torch.ops import eo, eo_sat, launch
 
     names = ("eo_chain_kernel", "eo_perc_kernel")
     ptx, fn = {}, None
@@ -1621,32 +1636,28 @@ def eo_instantiations(log: str, card: str) -> None:
     require(not log or len(ptx) == 24 + 16 + 8 + 10,
             f"{len(ptx)} EO instantiations in the ptxas report, expected 24 "
             f"sparse, 16 dense, 8 K-SAT and 10 perceptron ones")
-    lib = cuda_build.library()
-    out = (ctypes.c_int * 5)()
     local = {}
     for w in eo.EO_WARPS:
         for key, code in eo.KEY_CODES.items():
             for pspin in ((0, 1) if code < 2 else (0,)):
-                cuda_build.check(lib.rrrmc_eo_sparse_info(
-                    w, code, pspin, 0, 0, out), "eo_sparse_info")
                 local[f"eo_sparse {w} warps {str(key)[6:]}"
-                      f"{' pspin' if pspin else ''}"] = out[1], out[2]
+                      f"{' pspin' if pspin else ''}"] = launch.facts(
+                          "rrrmc_eo_sparse_info", (code, pspin), w, 0,
+                          0)[1:3]
     for w in eo.EO_WARPS:
         for key, code in eo.KEY_CODES.items():
-            cuda_build.check(lib.rrrmc_eo_dense_info(w, code, 0, 0, out),
-                             "eo_dense_info")
-            local[f"eo_dense {w} warps {str(key)[6:]}"] = out[1], out[2]
+            local[f"eo_dense {w} warps {str(key)[6:]}"] = launch.facts(
+                "rrrmc_eo_dense_info", (code,), w, 0, 0)[1:3]
         for key, code in eo_sat.SAT_KEY_CODES.items():
-            cuda_build.check(lib.rrrmc_eo_sat_info(w, code, 0, 0, out),
-                             "eo_sat_info")
-            local[f"eo_sat {w} warps {str(key)[6:]}"] = out[1], out[2]
+            local[f"eo_sat {w} warps {str(key)[6:]}"] = launch.facts(
+                "rrrmc_eo_sat_info", (code,), w, 0, 0)[1:3]
     for fam in (0, 1, 2):
         for hist in ((1, 0) if fam < 2 else (0,)):
             for sx in (1, 0):
-                cuda_build.check(lib.rrrmc_eo_perc_info(
-                    256, fam, hist, sx, 0, 0, out), "eo_perc_info")
                 local[f"eo_perc fam {fam} {'hist' if hist else 'radix'} "
-                      f"{'shared' if sx else 'global'}"] = out[1], out[2]
+                      f"{'shared' if sx else 'global'}"] = launch.facts(
+                          "rrrmc_eo_perc_info", (fam, hist, sx), 256, 0,
+                          0)[1:3]
     print(f"EO instantiations' (registers, local bytes a thread): "
           f"{json.dumps(local)}  [{card}]")
     require(not any(v[1] for v in local.values()),
@@ -1738,12 +1749,10 @@ def sweep_instantiations(log: str, card: str) -> None:
     whether the built library's SASS (cuobjdump -sass) holds IMMA or IGMMA,
     the commit's tensor-core product. Fails on a spill or local byte, or an
     integer instantiation without a tensor-core instruction."""
-    import ctypes
     import re
 
-    from rrrmc_tpu_torch.ops import cuda_build
+    from rrrmc_tpu_torch.ops import cuda_build, launch
 
-    lib = cuda_build.library()
     ptx, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1788,20 +1797,20 @@ def sweep_instantiations(log: str, card: str) -> None:
     require(sum("float_kernel" not in f for f in tensor) == 12,
             f"{len(tensor)} sweep instantiations in the SASS, expected the "
             f"12 integer ones and the float ones")
-    out = (ctypes.c_int * 5)()
+    # these entries' out[5]: registers, local bytes a thread, ...
     local = {}
     for hb in (2, 4):
         for vec in (16, 4, 1):
-            cuda_build.check(lib.rrrmc_sk_info(hb, vec, 0, out), "sk_info")
-            local[f"sk_sweep hmax {hb} bytes, loads {vec}"] = out[1]
+            local[f"sk_sweep hmax {hb} bytes, loads {vec}"] = launch.facts(
+                "rrrmc_sk_info", (hb, vec), None, None, 0)[1]
     for is_float in (0, 1):
         for star in (0, 1):
             for vec in ((16, 4, 1) if not is_float else (4,)):
-                cuda_build.check(lib.rrrmc_replica_sweep_info(
-                    is_float, star, vec, 0, out), "replica_sweep_info")
                 local[f"replica_sweep {'float' if is_float else 'int'} "
                       f"{'star' if star else 'ring'}"
-                      f"{'' if is_float else f', loads {vec}'}"] = out[1]
+                      f"{'' if is_float else f', loads {vec}'}"] = \
+                    launch.facts("rrrmc_replica_sweep_info",
+                                 (is_float, star, vec), None, None, 0)[1]
     print(f"sweep instantiations' local bytes a thread: "
           f"{json.dumps(local)}  [{card}]")
     require(not any(local.values()), f"sweep kernels use local memory: "
@@ -1814,30 +1823,29 @@ def fused_local_bytes() -> dict:
     resident type, coordinate type, term, perceptron family and pattern
     memory}, from the CUDA runtime's function attributes: known whether or
     not this run built the library."""
-    from rrrmc_tpu_torch.ops import cuda_build, rejfree
+    from rrrmc_tpu_torch.ops import launch, rejfree
     from rrrmc_tpu_torch.ops.perc import FAMILY_CODES
 
-    lib = cuda_build.library()
     out = {"rejfree_sparse_kernel": 0, "rejfree_dense_kernel": 0,
            "rejfree_replica_kernel": 0, "rejfree_sat_kernel": 0,
            "rejfree_perc_kernel": 0}
     for t in rejfree.FUSED_THREADS:
         for wtm in (0, 1):
-            heads = [("rejfree_sat_kernel", lib.rrrmc_rejfree_sat_info,
+            heads = [("rejfree_sat_kernel", "rrrmc_rejfree_sat_info",
                       (wtm,))]
-            heads += [("rejfree_perc_kernel", lib.rrrmc_rejfree_perc_info,
+            heads += [("rejfree_perc_kernel", "rrrmc_rejfree_perc_info",
                        (fam, wtm, sx)) for fam in FAMILY_CODES.values()
                       for sx in (0, 1)]
             for field in rejfree.FIELD_CODES.values():
                 heads += [("rejfree_sparse_kernel",
-                           lib.rrrmc_rejfree_sparse_info, (field, wtm)),
+                           "rrrmc_rejfree_sparse_info", (field, wtm)),
                           ("rejfree_dense_kernel",
-                           lib.rrrmc_rejfree_dense_info, (field, wtm))]
+                           "rrrmc_rejfree_dense_info", (field, wtm))]
                 heads += [("rejfree_replica_kernel",
-                           lib.rrrmc_rejfree_replica_info, (field, star, wtm))
+                           "rrrmc_rejfree_replica_info", (field, star, wtm))
                           for star in (0, 1)]
             for fn, entry, head in heads:
-                local = rejfree.info_fn(entry, *head, device=0)(t, 0)[2]
+                local = launch.facts(entry, head, t, 0, 0)[2]
                 out[fn] = max(out[fn], local)
     return out
 
@@ -2116,7 +2124,7 @@ def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves,
     replaces the random start."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, replica
+    from rrrmc_tpu_torch.ops import launch, rejfree, replica
     from rrrmc_tpu_torch.samplers.families import family_of, resident_state
 
     fam = family_of(model)
@@ -2154,9 +2162,10 @@ def replica_race_case(model, label, mode, card, kernel, B, beta, n_moves,
     target = {"wtm": float(target), "bkl": max(int(target), 1),
               "rrr": n_moves // 2}[mode]
     k = fresh()
+    launch.PLANS.clear()
     ms = _events_ms(lambda: run(replica.rejfree_replica_chunk, k, target,
                                 **kernel_kw))
-    plan = dict(rejfree.LAST_PLAN)
+    plan = only_plan()
     p = fresh()
     plain_ms = _events_ms(lambda: run(
         replica.rejfree_replica_chunk_reference, p, target,
@@ -2195,7 +2204,7 @@ def replica_sweep_case(model, label, B, beta, card, warm=0):
     tolerances; the same sweeps split over two launches equal one."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import replica, replica_sweep
+    from rrrmc_tpu_torch.ops import launch, replica, replica_sweep
 
     sw = replica_sweep.ReplicaSweeper(model, beta)
     st = rt.init_state(model, B, seed=SEED, device=DEV)
@@ -2222,7 +2231,7 @@ def replica_sweep_case(model, label, B, beta, card, warm=0):
     run(replica_sweep.replica_sweep_chunk)                  # warm-up
     kern = functools.partial(replica_sweep.replica_sweep_chunk, checked=True)
     k, ms = run(kern)
-    plan = dict(replica_sweep.LAST_PLAN)
+    plan = dict(launch.PLANS["replica_sweep"])
     from rrrmc_tpu_torch.ops.cuda_build import library
     require(library().rrrmc_replica_sweep_smem(
         sw.tab.Nk, int(plan["path"] == "scalar")) == plan["smem"],
@@ -2266,28 +2275,28 @@ def replica_sweep_case(model, label, B, beta, card, warm=0):
             "sweep_plan": plan}
 
 
-def _drive(runs, card, mods):
-    """Run each (name, model, route, module, nominal, unit, n_ckpt, call)
-    through the public API with every launch count of `mods` set to 0 just
-    before the first run; returns the per-run records and the counts just
-    after the last. A run whose `nominal` is None gets no rate here (one
-    that times itself)."""
+def _drive(runs, card, kernels):
+    """Run each (name, model, route, kernel, nominal, unit, n_ckpt, call)
+    through the public API with every launch count of `kernels` ({label:
+    a kernel's name or a tuple of names}) set to 0 just before the first
+    run; returns the per-run records and the counts just after the last. A
+    run whose `nominal` is None gets no rate here (one that times
+    itself)."""
     import torch
     import rrrmc_tpu_torch as rt
 
     torch.cuda.synchronize()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    reset_launches(*kernels.values())
     records = []
-    for name, model, route, mod, nominal, unit, n_ckpt, call in runs:
-        before = mod.LAUNCHES
+    for name, model, route, kernel, nominal, unit, n_ckpt, call in runs:
+        before = launched(kernel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         Es, st = call()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launched = mod.LAUNCHES - before
-        require(launched > 0, f"{name}: no kernel launch")
+        n_launched = launched(kernel) - before
+        require(n_launched > 0, f"{name}: no kernel launch")
         require(rt.LAST_ROUTE["backend"] == route
                 and rt.LAST_ROUTE["impl"] == "cuda",
                 f"{name}: route {rt.LAST_ROUTE}")
@@ -2318,7 +2327,7 @@ def _drive(runs, card, mods):
                     f"{name}: aux from {rt.LAST_ROUTE['aux']} differs from "
                     f"local_fields(sigma)")
         chains = st.sigma.shape[0]
-        rec = {"run": name, "seconds": dt, "launches": launched,
+        rec = {"run": name, "seconds": dt, "launches": n_launched,
                "chains": chains,
                "E_per_spin": float(Es[:, -1].double().mean()) / model.N,
                "energy_err": err}
@@ -2338,48 +2347,47 @@ def _drive(runs, card, mods):
             print(f"{name}: mean z/N {rec['mean_z_over_n']:.5f}  [{card}]")
         if "rate" in rec:
             print(f"{name}: {rec['rate']:.4g} {unit}*chains/s ({dt:.2f} s, "
-                  f"{launched} launches)  [{card}]")
+                  f"{n_launched} launches)  [{card}]")
         else:
-            print(f"{name}: {dt:.2f} s, {launched} launches  [{card}]")
+            print(f"{name}: {dt:.2f} s, {n_launched} launches  [{card}]")
     torch.cuda.synchronize()
-    return records, {name: mod.LAUNCHES for name, mod in mods.items()}
+    return records, {name: launched(k) for name, k in kernels.items()}
 
 
 def rrg_path(card):
     """The RRG main path (the factor table's samplers) on GraphRRG(10^4,
     3)."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, rejfree_classes, site
 
     m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
     mn = rt.GraphRRGNormal(N_MAIN, 3, seed=SEED, device=DEV)
     iters_met, iters_rrr, iters_bkl = ITERS_MET, ITERS_RRR, ITERS_BKL
     wtm_samples, wtm_step = WTM_SAMPLES, float(N_MAIN)
     runs = [
-        ("standardMC", m, "kernel-site", site, iters_met, "moves", 10,
+        ("standardMC", m, "kernel-site", "site", iters_met, "moves", 10,
          lambda: rt.standardMC(m, BETA, iters_met, step=iters_met // 10,
                                chains=CHAINS, seed=1, backend="kernel",
                                device=DEV)),
-        ("rrrMC", m, "kernel-rejfree-sparse", rejfree, iters_rrr, "moves",
-         10,
+        ("rrrMC", m, "kernel-rejfree-sparse", "rejfree_sparse", iters_rrr,
+         "moves", 10,
          lambda: rt.rrrMC(m, BETA, iters_rrr, step=iters_rrr // 10,
                           chains=CHAINS, seed=2, device=DEV)),
-        ("bklMC", m, "kernel-rejfree-sparse", rejfree_classes, iters_bkl,
-         "virtual iterations", 10,
+        ("bklMC", m, "kernel-rejfree-sparse", "rejfree_classes",
+         iters_bkl, "virtual iterations", 10,
          lambda: rt.bklMC(m, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=3, device=DEV)),
-        ("wtmMC", m, "kernel-rejfree-sparse", rejfree,
+        ("wtmMC", m, "kernel-rejfree-sparse", "rejfree_sparse",
          int(wtm_samples * wtm_step), "virtual iterations", wtm_samples,
          lambda: rt.wtmMC(m, BETA, wtm_samples, step=wtm_step,
                           chains=CHAINS, seed=4, device=DEV)),
-        ("bklMC GraphRRGNormal", mn, "kernel-rejfree-sparse", rejfree,
-         iters_bkl, "virtual iterations", 10,
+        ("bklMC GraphRRGNormal", mn, "kernel-rejfree-sparse",
+         "rejfree_sparse", iters_bkl, "virtual iterations", 10,
          lambda: rt.bklMC(mn, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=5, device=DEV)),
     ]
-    return _drive(runs, card, {"site_metropolis": site,
-                               "rejfree_sparse": rejfree,
-                               "rejfree_classes": rejfree_classes})
+    return _drive(runs, card, {"site_metropolis": "site",
+                               "rejfree_sparse": "rejfree_sparse",
+                               "rejfree_classes": "rejfree_classes"})
 
 
 def ea_path(card):
@@ -2387,7 +2395,6 @@ def ea_path(card):
     site-sweep route of sweepMC on GraphRRG(10^4, 3)."""
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch import bench
-    from rrrmc_tpu_torch.ops import rejfree, rejfree_classes, site, sweep
 
     lat = rt.GraphEA(bench.L, bench.D, (-1, 1), seed=bench.SEED, device=DEV)
     rrg = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED, device=DEV)
@@ -2404,29 +2411,30 @@ def ea_path(card):
 
     runs = [
         # the bench times its own runs: its rate is its metric, below
-        ("sweepMC EA-3D L=16 (bench)", lat, "kernel-sweep", sweep, None,
+        ("sweepMC EA-3D L=16 (bench)", lat, "kernel-sweep", "sweep", None,
          None, 1, run_bench),
-        ("rrrMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+        ("rrrMC EA-3D L=16", lat, "kernel-rejfree-sparse", "rejfree_sparse",
          iters_rrr, "moves", 8,
          lambda: rt.rrrMC(lat, BETA, iters_rrr, step=iters_rrr // 8,
                           chains=CHAINS, seed=12, device=DEV)),
-        ("bklMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree_classes,
-         iters_bkl, "virtual iterations", 10,
+        ("bklMC EA-3D L=16", lat, "kernel-rejfree-sparse",
+         "rejfree_classes", iters_bkl, "virtual iterations", 10,
          lambda: rt.bklMC(lat, BETA, iters_bkl, step=iters_bkl // 10,
                           chains=CHAINS, seed=13, device=DEV)),
-        ("wtmMC EA-3D L=16", lat, "kernel-rejfree-sparse", rejfree,
+        ("wtmMC EA-3D L=16", lat, "kernel-rejfree-sparse", "rejfree_sparse",
          wtm_samples * n, "virtual iterations", wtm_samples,
          lambda: rt.wtmMC(lat, BETA, wtm_samples, step=float(n),
                           chains=CHAINS, seed=14, device=DEV)),
-        ("sweepMC GraphRRG (site sweeps)", rrg, "kernel-site-sweep", site,
+        ("sweepMC GraphRRG (site sweeps)", rrg, "kernel-site-sweep", "site",
          RRG_SWEEPS, "sweeps", 10,
          lambda: rt.sweepMC(rrg, BETA, RRG_SWEEPS, step=RRG_SWEEPS // 10,
                             chains=CHAINS, seed=15, device=DEV)),
     ]
-    records, counts = _drive(runs, card, {"sweep_checkerboard": sweep,
-                                          "rejfree_lattice": rejfree,
-                                          "rejfree_classes": rejfree_classes,
-                                          "site_metropolis": site})
+    records, counts = _drive(runs, card,
+                             {"sweep_checkerboard": "sweep",
+                              "rejfree_lattice": "rejfree_sparse",
+                              "rejfree_classes": "rejfree_classes",
+                              "site_metropolis": "site"})
     record = bench_out["record"]
     print(bench.card_line())
     print(json.dumps(record))
@@ -2443,50 +2451,50 @@ def dense_path(card, sk1, sk8, skn, drrg, rrg):
     the two are printed side by side), same seed. Returns the run records,
     the path's launch counts and the launches of each run."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree_classes, rejfree_dense, sk
 
     b4 = 4.0
     n1 = sk1.N
     runs = [
-        ("sweepMC GraphSK(1024)", sk1, "kernel-sk-sweep", sk,
+        ("sweepMC GraphSK(1024)", sk1, "kernel-sk-sweep", "sk_sweep",
          SK_SWEEPS * n1, "attempted flips", 10,
          lambda: rt.sweepMC(sk1, BETA, SK_SWEEPS, step=SK_SWEEPS // 10,
                             chains=8192, seed=21)),
-        ("sweepMC GraphSK(8192)", sk8, "kernel-sk-sweep", sk,
+        ("sweepMC GraphSK(8192)", sk8, "kernel-sk-sweep", "sk_sweep",
          SK8_SWEEPS * sk8.N, "attempted flips", 10,
          lambda: rt.sweepMC(sk8, BETA, SK8_SWEEPS, step=SK8_SWEEPS // 10,
                             chains=2048, seed=22, device=DEV)),
         ("bklMC GraphSK(1024) beta=4", sk1, "kernel-rejfree-dense",
-         rejfree_dense, SK_ITERS_BKL, "virtual iterations", 10,
+         "rejfree_dense", SK_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(sk1, b4, SK_ITERS_BKL, step=SK_ITERS_BKL // 10,
                           chains=CHAINS, seed=23)),
         ("wtmMC GraphSK(1024) beta=4", sk1, "kernel-rejfree-dense",
-         rejfree_dense, SK_WTM_SAMPLES * n1, "virtual iterations",
+         "rejfree_dense", SK_WTM_SAMPLES * n1, "virtual iterations",
          SK_WTM_SAMPLES,
          lambda: rt.wtmMC(sk1, b4, SK_WTM_SAMPLES, step=float(n1),
                           chains=CHAINS, seed=24, device=DEV)),
-        ("rrrMC GraphSK(1024)", sk1, "kernel-rejfree-dense", rejfree_dense,
-         SK_ITERS_RRR, "moves", 8,
+        ("rrrMC GraphSK(1024)", sk1, "kernel-rejfree-dense",
+         "rejfree_dense", SK_ITERS_RRR, "moves", 8,
          lambda: rt.rrrMC(sk1, BETA, SK_ITERS_RRR, step=SK_ITERS_RRR // 8,
                           chains=CHAINS, seed=25, device=DEV)),
         ("bklMC GraphSKNormal(4096) beta=4", skn, "kernel-rejfree-dense",
-         rejfree_dense, SKN_ITERS_BKL, "virtual iterations", 10,
+         "rejfree_dense", SKN_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(skn, b4, SKN_ITERS_BKL, step=SKN_ITERS_BKL // 10,
                           chains=128, seed=26, device=DEV)),
         ("bklMC densify(GraphRRG(10^4)) beta=4", drrg, "kernel-rejfree-dense",
-         rejfree_dense, DRRG_ITERS_BKL, "virtual iterations", 10,
+         "rejfree_dense", DRRG_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(drrg, b4, DRRG_ITERS_BKL,
                           step=DRRG_ITERS_BKL // 10, chains=CHAINS, seed=27,
                           device=DEV)),
         ("bklMC GraphRRG(10^4) beta=4 (sparse)", rrg,
-         "kernel-rejfree-sparse", rejfree_classes, DRRG_ITERS_BKL,
+         "kernel-rejfree-sparse", "rejfree_classes", DRRG_ITERS_BKL,
          "virtual iterations", 10,
          lambda: rt.bklMC(rrg, b4, DRRG_ITERS_BKL, step=DRRG_ITERS_BKL // 10,
                           chains=CHAINS, seed=27, device=DEV)),
     ]
-    records, counts = _drive(runs, card, {"sk_sweep": sk,
-                                          "rejfree_dense": rejfree_dense,
-                                          "rejfree_classes": rejfree_classes})
+    records, counts = _drive(runs, card,
+                             {"sk_sweep": "sk_sweep",
+                              "rejfree_dense": "rejfree_dense",
+                              "rejfree_classes": "rejfree_classes"})
     d, s = records[-2], records[-1]
     print(f"one factor table, bklMC beta=4 on GraphRRG(10^4): dense race E/N "
           f"{d['E_per_spin']!r} mean z/N {d['mean_z_over_n']!r}; sparse class "
@@ -2578,7 +2586,6 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
     give identical results. Returns the run records, the path's launch
     counts and the launches of each kernel entry."""
     import torch
-    from rrrmc_tpu_torch.ops import eo, eo_dense
 
     rows = _physics_rows()
     # (name, model, route, kernel entry, chains, moves, seed, physics row)
@@ -2599,13 +2606,14 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
          EO_MOVES, 46, None),
     ]
     torch.cuda.synchronize()
-    eo.LAUNCHES = eo_dense.LAUNCHES = 0
+    reset_launches("eo_sparse", "eo_dense")
     records, results, per_entry = [], {}, {}
     for name, model, route, entry, chains, moves, seed, row in runs:
         if row is not None:
             chains, moves = rows[row]["chains"], EO_ROW_MOVES[row]
         rec, r = _eo_run(name, model, route, chains, moves, seed,
-                         lambda: eo.LAUNCHES + eo_dense.LAUNCHES, card)
+                         lambda: launched(("eo_sparse", "eo_dense")),
+                         card)
         per_entry[entry] = per_entry.get(entry, 0) + rec["launches"]
         if row is not None:
             _check_row(rec, row, rows[row]["best_E_per_spin"])
@@ -2619,8 +2627,8 @@ def eo_path(card, rrg, rrgn, ea, sk, drrg, skn):
           f"sparse GraphRRG(10^4), one seed: identical {same}  [{card}]")
     require(same, "EO: the dense and the sparse kernel differ on one graph")
     torch.cuda.synchronize()
-    return records, {"eo_sparse+eo_lattice": eo.LAUNCHES,
-                     "eo_dense+eo_stream": eo_dense.LAUNCHES}, per_entry
+    return records, {"eo_sparse+eo_lattice": launched("eo_sparse"),
+                     "eo_dense+eo_stream": launched("eo_dense")}, per_entry
 
 
 def _sat_eo_row() -> dict:
@@ -2640,36 +2648,35 @@ def pspin_path(card, ps):
     chains and moves. Returns the run records and the launches of both
     kernel entries."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo_pspin, pspin
 
-    route, B = "kernel-rejfree-pspin", HYPER_CHAINS
+    route, kernel, B = "kernel-rejfree-pspin", "rejfree_pspin", HYPER_CHAINS
     bkl_b, rrr_b, n = PS_BETA_BKL, PS_BETA_RRR, ps.N
     runs = [
-        ("bklMC GraphPSpin3(7500, 3) beta=1.5", ps, route, pspin,
+        ("bklMC GraphPSpin3(7500, 3) beta=1.5", ps, route, kernel,
          PS_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(ps, bkl_b, PS_ITERS_BKL, step=PS_ITERS_BKL // 10,
                           chains=B, seed=51)),
-        ("rrrMC GraphPSpin3(7500, 3) beta=1.0", ps, route, pspin,
+        ("rrrMC GraphPSpin3(7500, 3) beta=1.0", ps, route, kernel,
          PS_ITERS_RRR, "moves", 10,
          lambda: rt.rrrMC(ps, rrr_b, PS_ITERS_RRR, step=PS_ITERS_RRR // 10,
                           chains=B, seed=52)),
-        ("wtmMC GraphPSpin3(7500, 3) beta=1.5", ps, route, pspin,
+        ("wtmMC GraphPSpin3(7500, 3) beta=1.5", ps, route, kernel,
          PS_WTM_SAMPLES * n, "virtual iterations", PS_WTM_SAMPLES,
          lambda: rt.wtmMC(ps, bkl_b, PS_WTM_SAMPLES, step=float(n),
                           chains=B, seed=53)),
-        ("bklMC GraphPSpin3(7500, 3) beta=1.5, 1024 chains", ps, route, pspin,
+        ("bklMC GraphPSpin3(7500, 3) beta=1.5, 1024 chains", ps, route, kernel,
          PS_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(ps, bkl_b, PS_ITERS_BKL, step=PS_ITERS_BKL // 10,
                           chains=CHAINS, seed=54)),
     ]
-    records, counts = _drive(runs, card, {"rejfree_pspin": pspin})
+    records, counts = _drive(runs, card, {"rejfree_pspin": kernel})
     row = _physics_rows()["eo_pspin7500"]
-    eo_pspin.LAUNCHES = 0
+    reset_launches("eo_pspin")
     rec, _ = _eo_run("GraphPSpin3(7500, 3)", ps, "kernel-eo-pspin",
                      row["chains"], EO_ROW_MOVES["eo_pspin7500"], 55,
-                     lambda: eo_pspin.LAUNCHES, card)
+                     lambda: launched("eo_pspin"), card)
     _check_row(rec, "eo_pspin7500", row["best_E_per_spin"])
-    return records + [rec], {**counts, "eo_pspin": eo_pspin.LAUNCHES}
+    return records + [rec], {**counts, "eo_pspin": launched("eo_pspin")}
 
 
 def sat_path(card, sat):
@@ -2680,30 +2687,29 @@ def sat_path(card, sat):
     row's. Returns the run records and the launches of both kernel
     entries."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo_sat
-    from rrrmc_tpu_torch.ops import sat as sat_ops
 
-    route, B, beta, n = "kernel-rejfree-sat", HYPER_CHAINS, SAT_BETA, sat.N
+    route, kernel = "kernel-rejfree-sat", "rejfree_sat"
+    B, beta, n = HYPER_CHAINS, SAT_BETA, sat.N
     runs = [
-        ("bklMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+        ("bklMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, kernel,
          SAT_ITERS_BKL, "virtual iterations", 10,
          lambda: rt.bklMC(sat, beta, SAT_ITERS_BKL,
                           step=SAT_ITERS_BKL // 10, chains=B, seed=61)),
-        ("wtmMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+        ("wtmMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, kernel,
          SAT_WTM_SAMPLES * n, "virtual iterations", SAT_WTM_SAMPLES,
          lambda: rt.wtmMC(sat, beta, SAT_WTM_SAMPLES, step=float(n),
                           chains=B, seed=62)),
-        ("rrrMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, sat_ops,
+        ("rrrMC GraphSAT(10^4, 3, 4.2) beta=4", sat, route, kernel,
          SAT_ITERS_RRR, "moves", 10,
          lambda: rt.rrrMC(sat, beta, SAT_ITERS_RRR,
                           step=SAT_ITERS_RRR // 10, chains=B, seed=63)),
     ]
-    records, counts = _drive(runs, card, {"rejfree_sat": sat_ops})
+    records, counts = _drive(runs, card, {"rejfree_sat": kernel})
     row = _sat_eo_row()
-    eo_sat.LAUNCHES = 0
+    reset_launches("eo_sat")
     rec, r = _eo_run("GraphSAT(10^4, 3, 4.2)", sat, "kernel-eo-sat",
                      row["chains"], SAT_EO_MOVES, 64,
-                     lambda: eo_sat.LAUNCHES, card)
+                     lambda: launched("eo_sat"), card)
     mean_best = rec["mean_Emin_per_spin"] * n
     best = rec["best_E_per_spin"] * n
     emin = r.Emin.double()
@@ -2719,7 +2725,7 @@ def sat_path(card, sat):
     require(abs(mean_best - row["mean_best_E"])
             <= SAT_EO_RTOL * row["mean_best_E"],
             f"EO SAT: mean best E {mean_best} against {row['mean_best_E']}")
-    return records + [rec], {**counts, "eo_sat": eo_sat.LAUNCHES}
+    return records + [rec], {**counts, "eo_sat": launched("eo_sat")}
 
 
 def _perc_law(card, beta=PERC_BETA):
@@ -2731,7 +2737,6 @@ def _perc_law(card, beta=PERC_BETA):
     Each record carries the race launches of its own run."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import perc
 
     n = PERC_LAW_N
     states = 2 * ((torch.arange(2 ** n, device=DEV)[:, None]
@@ -2747,7 +2752,7 @@ def _perc_law(card, beta=PERC_BETA):
         E = model.to_physical(model.energy(states)).double()
         w = torch.exp(-beta * (E - E.min()))
         exact = float((w * E).sum() / w.sum())
-        launches0 = perc.LAUNCHES
+        launches0 = launched("rejfree_perc")
         Es, _ = rt.bklMC(model, beta, PERC_LAW_ITERS,
                          step=PERC_LAW_ITERS // 200, chains=PERC_CHAINS,
                          seed=71)
@@ -2763,7 +2768,7 @@ def _perc_law(card, beta=PERC_BETA):
         require(abs(got - exact) < max(5 * sem, 0.05),
                 f"perceptron law {name}: {got} against {exact} ({sem})")
         out.append({"run": f"bklMC law {name}({n}, {PERC_LAW_P})",
-                    "launches": perc.LAUNCHES - launches0,
+                    "launches": launched("rejfree_perc") - launches0,
                     "mean_E": got, "exact_E": exact, "sem": sem})
     return out
 
@@ -2780,38 +2785,37 @@ def perc_path(card, percs):
     run records and the launches of both kernel entries on the path."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo_perc, perc
 
-    route, B, beta = "kernel-rejfree-perc", PERC_CHAINS, PERC_BETA
+    route, kernel = "kernel-rejfree-perc", "rejfree_perc"
+    B, beta = PERC_CHAINS, PERC_BETA
     runs = []
     for seed, (fam, m) in enumerate(percs.items()):
         label = f"{PERC_NAMES[fam]}({PERC_N}, {PERC_P})"
         runs += [
-            (f"bklMC {label} beta=1", m, route, perc, PERC_ITERS_BKL,
+            (f"bklMC {label} beta=1", m, route, kernel, PERC_ITERS_BKL,
              "virtual iterations", 10,
              lambda m=m, seed=seed: rt.bklMC(
                  m, beta, PERC_ITERS_BKL, step=PERC_ITERS_BKL // 10,
                  chains=B, seed=81 + seed)),
-            (f"rrrMC {label} beta=1", m, route, perc, PERC_ITERS_RRR,
+            (f"rrrMC {label} beta=1", m, route, kernel, PERC_ITERS_RRR,
              "moves", 10,
              lambda m=m, seed=seed: rt.rrrMC(
                  m, beta, PERC_ITERS_RRR, step=PERC_ITERS_RRR // 10,
                  chains=B, seed=84 + seed))]
     step = percs["step"]
     runs.append((f"wtmMC GraphPercStep({PERC_N}, {PERC_P}) beta=1", step,
-                 route, perc, PERC_WTM_SAMPLES * step.N,
+                 route, kernel, PERC_WTM_SAMPLES * step.N,
                  "virtual iterations", PERC_WTM_SAMPLES,
                  lambda: rt.wtmMC(step, beta, PERC_WTM_SAMPLES,
                                   step=float(step.N), chains=B, seed=87)))
-    mods = {"rejfree_perc": perc, "eo_perc": eo_perc}
+    kernels = ("rejfree_perc", "eo_perc")
     torch.cuda.synchronize()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
-    records, _ = _drive(runs, card, {"rejfree_perc": perc})
+    reset_launches(*kernels)
+    records, _ = _drive(runs, card, {"rejfree_perc": kernel})
     for seed, fam in enumerate(("step", "xentr")):
         rec, _ = _eo_run(f"{PERC_NAMES[fam]}({PERC_N}, {PERC_P})", percs[fam],
                          "kernel-eo-perc", B, PERC_EO_MOVES, 88 + seed,
-                         lambda: eo_perc.LAUNCHES, card)
+                         lambda: launched("eo_perc"), card)
         records.append(rec)
     # the Metropolis row: the generic torch route, no kernel
     for fam, m in percs.items():
@@ -2839,7 +2843,7 @@ def perc_path(card, percs):
                         "launches": 0, "chains": B, "rate": rate,
                         "rate_unit": "moves*chains/s", "energy_err": err})
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launches = {k: launched(k) for k in kernels}
     return records + _perc_law(card), launches
 
 
@@ -2877,7 +2881,7 @@ def replica_path(card, qskt, skre, qrrg, rerrg, qnt, qeat):
     REPLICA_RTOL. Returns the run records, the path's launch counts and the
     launches of each kernel entry."""
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import replica, replica_sweep
+    race = ("rejfree_replica", "rejfree_replica_sparse")
 
     states = {}
 
@@ -2889,41 +2893,41 @@ def replica_path(card, qskt, skre, qrrg, rerrg, qnt, qeat):
                   "kernel-rejfree-replica-sparse", "kernel-replica-sweep")
     nq, nr, B = qskt.N, skre[2.0].N, CHAINS
     runs = [
-        ("sweepMC_quant QSKT(1024, 16)", qskt, sw, replica_sweep,
+        ("sweepMC_quant QSKT(1024, 16)", qskt, sw, "replica_sweep",
          Q_SWEEPS * nq, "attempted flips", 5,
          lambda: keep("QIsing met", rt.sweepMC_quant(
              qskt, Q_BETA, Q_SWEEPS, step=Q_SWEEPS // 5, chains=B,
              seed=71))),
-        ("rrrMC QSKT(1024, 16)", qskt, dr, replica, Q_RRR, "moves", 4,
+        ("rrrMC QSKT(1024, 16)", qskt, dr, race, Q_RRR, "moves", 4,
          lambda: keep("QIsing rrr", rt.rrrMC(
              qskt, Q_BETA, Q_RRR, step=Q_RRR // 4, chains=B, seed=72))),
-        ("bklMC QSKT(1024, 16)", qskt, dr, replica, Q_ITERS_BKL,
+        ("bklMC QSKT(1024, 16)", qskt, dr, race, Q_ITERS_BKL,
          "virtual iterations", 10,
          lambda: rt.bklMC(qskt, Q_BETA, Q_ITERS_BKL,
                           step=Q_ITERS_BKL // 10, chains=B, seed=73)),
-        ("wtmMC QSKT(1024, 16)", qskt, dr, replica, Q_WTM_SAMPLES * nq,
+        ("wtmMC QSKT(1024, 16)", qskt, dr, race, Q_WTM_SAMPLES * nq,
          "virtual iterations", Q_WTM_SAMPLES,
          lambda: rt.wtmMC(qskt, Q_BETA, Q_WTM_SAMPLES, step=float(nq),
                           chains=B, seed=74)),
         ("sweepMC_replica SKRE(1024, 5) gamma=2", skre[2.0], sw,
-         replica_sweep, RE_SWEEPS * nr, "attempted flips", 1,
+         "replica_sweep", RE_SWEEPS * nr, "attempted flips", 1,
          lambda: keep("REIsing met", rt.sweepMC_replica(
              skre[2.0], RE_BETA, RE_SWEEPS, step=RE_SWEEPS, chains=B,
              seed=75))),
-        ("rrrMC SKRE(1024, 5) gamma=2", skre[2.0], dr, replica, RE_RRR,
+        ("rrrMC SKRE(1024, 5) gamma=2", skre[2.0], dr, race, RE_RRR,
          "moves", 4,
          lambda: keep("REIsing rrr", rt.rrrMC(
              skre[2.0], RE_BETA, RE_RRR, step=RE_RRR // 4, chains=B,
              seed=76))),
     ] + [
         (f"sweepMC_replica SKRE(1024, 5) gamma={g:g}", skre[g], sw,
-         replica_sweep, RE_GRID_SWEEPS * nr, "attempted flips", 1,
+         "replica_sweep", RE_GRID_SWEEPS * nr, "attempted flips", 1,
          lambda g=g: rt.sweepMC_replica(skre[g], RE_BETA, RE_GRID_SWEEPS,
                                         step=RE_GRID_SWEEPS, chains=B,
                                         seed=77))
         for g in RE_GAMMAS[1:]
     ] + [
-        (f"{fn.__name__} {label}", m, sp, replica, iters, unit, 10,
+        (f"{fn.__name__} {label}", m, sp, race, iters, unit, 10,
          lambda fn=fn, m=m, iters=iters: fn(m, SP_BETA, iters,
                                             step=iters // 10,
                                             chains=SP_CHAINS, seed=78))
@@ -2933,19 +2937,19 @@ def replica_path(card, qskt, skre, qrrg, rerrg, qnt, qeat):
                                 (rt.bklMC, SP_ITERS_BKL,
                                  "virtual iterations"))
     ] + [
-        ("bklMC QSKNormalT(1024, 16)", qnt, dr, replica, FLT_ITERS_BKL,
+        ("bklMC QSKNormalT(1024, 16)", qnt, dr, race, FLT_ITERS_BKL,
          "virtual iterations", 10,
          lambda: rt.bklMC(qnt, Q_BETA, FLT_ITERS_BKL,
                           step=FLT_ITERS_BKL // 10, chains=SP_CHAINS,
                           seed=79)),
-        ("bklMC QEAT(8, 3, M=8)", qeat, sp, replica, FLT_ITERS_BKL,
+        ("bklMC QEAT(8, 3, M=8)", qeat, sp, race, FLT_ITERS_BKL,
          "virtual iterations", 10,
          lambda: rt.bklMC(qeat, Q_BETA, FLT_ITERS_BKL,
                           step=FLT_ITERS_BKL // 10, chains=SP_CHAINS,
                           seed=80)),
     ]
-    records, counts = _drive(runs, card, {"rejfree_replica": replica,
-                                          "replica_sweep": replica_sweep})
+    records, counts = _drive(runs, card, {"rejfree_replica": race,
+                                          "replica_sweep": "replica_sweep"})
     rows = _paper_rows()
     re2 = skre[2.0]
     qe = qskt.Qenergy
@@ -3032,18 +3036,17 @@ def factors_path(card):
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.experiments import equilibrated_factors
-    from rrrmc_tpu_torch.ops import rejfree, site
 
     m = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED)
     ref = _factor_row("rrg_pmJ", FACTORS_BETA)
     torch.cuda.synchronize()
-    site.LAUNCHES = rejfree.LAUNCHES = 0
+    reset_launches("site", "rejfree_sparse")
     t0 = time.perf_counter()
     r = equilibrated_factors(m, FACTORS_BETA, chains=FACTORS_CHAINS,
                              target_s=FACTORS_TARGET_S)
     dt = time.perf_counter() - t0
-    counts = {"site_metropolis": site.LAUNCHES,
-              "rejfree_sparse": rejfree.LAUNCHES}
+    counts = {"site_metropolis": launched("site"),
+              "rejfree_sparse": launched("rejfree_sparse")}
     require(all(n > 0 for n in counts.values()),
             f"factors: launch counts {counts}")
     want = {"standard": "kernel-site", "rrr": "kernel-rejfree-sparse",
@@ -3106,11 +3109,10 @@ def generic_path(card):
     import torch
     import rrrmc_tpu_torch as rt
     from rrrmc_tpu_torch.experiments import stats_overlaps
-    from rrrmc_tpu_torch.ops import rejfree
 
     X = rt.GraphRRG(GEN_N, 3, (-1, 1), seed=SEED)
     torch.cuda.synchronize()
-    rejfree.LAUNCHES = 0
+    reset_launches("rejfree_sparse")
     t_path = time.perf_counter()
     eq = GEN_EQ_SWEEPS * GEN_N
     _, st = rt.bklMC(X, GEN_BETA, eq, step=eq, chains=GEN_CHAINS, seed=1,
@@ -3237,7 +3239,7 @@ def generic_path(card):
           f"{np.round(ov['x2_mean'], 4).tolist()}, {dt:.2f} s  [{card}]")
     records.append(wide_snapshots(card))
     torch.cuda.synchronize()
-    counts = {"rejfree_sparse": rejfree.LAUNCHES}
+    counts = {"rejfree_sparse": launched("rejfree_sparse")}
     require(counts["rejfree_sparse"] > 0, "generic path: no race launch")
     print(f"generic path: {time.perf_counter() - t_path:.1f} s, launches "
           f"{json.dumps(counts)}  [{card}]")
@@ -3384,19 +3386,19 @@ def wrapper_path(card):
     counts)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import eo, rejfree, replica, site
     from rrrmc_tpu_torch.samplers.moves import acceptance_weights
     from rrrmc_tpu_torch.samplers.sweep import composite_masks
 
-    mods = {"site_metropolis": site, "rejfree_sparse": rejfree,
-            "eo_sparse": eo, "rejfree_replica": replica}
+    kernels = {"site_metropolis": "site", "rejfree_sparse": "rejfree_sparse",
+               "eo_sparse": "eo_sparse",
+               "rejfree_replica": ("rejfree_replica",
+                                   "rejfree_replica_sparse")}
     le, fle, tle = _le_models()
     require(le.resid_m.base.J.device.type == "cuda"
             and fle.J.device.type == "cuda", "LE without a device is not on "
                                              "the card")
     torch.cuda.synchronize()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    reset_launches(*kernels.values())
     t_path = time.perf_counter()
     N, B, beta = le.N, LE_CHAINS, LE_BETA
     eq = LE_EQ_SWEEPS * N
@@ -3486,7 +3488,7 @@ def wrapper_path(card):
                              kernel=True)
         records.append(rec)
     rec, _ = _eo_run("flatten(LE)", fle, "kernel-eo-sparse", B, LE_EO_MOVES,
-                     8, lambda: eo.LAUNCHES, card)
+                     8, lambda: launched("eo_sparse"), card)
     records.append(rec)
     masks = composite_masks(le)
     require(masks is not None and masks.shape[0] % (LE_M + 1) == 0,
@@ -3542,7 +3544,7 @@ def wrapper_path(card):
             records.append(rec)
 
     torch.cuda.synchronize()
-    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    counts = {name: launched(k) for name, k in kernels.items()}
     for name in ("site_metropolis", "rejfree_sparse", "eo_sparse"):
         require(counts[name] > 0, f"wrapper path: {name} not launched")
     require(counts["rejfree_replica"] == 0,
@@ -3624,21 +3626,20 @@ def pt_path(card):
     under profiling.trace. Returns (records, counts, the model)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import site
     from rrrmc_tpu_torch.utils import profiling
 
     X = rt.GraphRRG(N_MAIN, 3, (-1, 1), seed=SEED)
     betas = pt_betas().tolist()
     T, B, N = PT_T, PT_CHAINS, X.N
     torch.cuda.synchronize()
-    site.LAUNCHES = 0
+    reset_launches("site")
     t0 = time.perf_counter()
     Es, ranks, st = rt.parallel_tempering(X, betas, PT_ROUNDS,
                                           sweeps_per_round=PT_SWEEPS,
                                           chains=B, seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = site.LAUNCHES
+    launches = launched("site")
     route = dict(rt.LAST_ROUTE)
     require(route["backend"] == "kernel-site-tempering"
             and route["impl"] == "cuda", f"pt: route {route}")
@@ -3771,20 +3772,19 @@ def et_path(card):
     counts)."""
     import torch
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import site
 
     base = rt.GraphRRG(ET_NK, 3, (-1, 1), seed=ET_SEED)
     models = [rt.flatten(rt.GraphQuant(ET_NK, ET_M, g, ET_BETA, base))
               for g in et_gammas()]
     torch.cuda.synchronize()
-    site.LAUNCHES = 0
+    reset_launches("site")
     t0 = time.perf_counter()
     Es, walkers, st = rt.tempered_ensembles(
         models, [ET_BETA] * ET_T, ET_ROUNDS, chains=ET_CHAINS, seed=SEED,
         kernel=rt.sweep_kernel)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = site.LAUNCHES
+    launches = launched("site")
     require(rt.LAST_ROUTE["backend"] == "kernel-site-sweep"
             and rt.LAST_ROUTE["impl"] == "cuda",
             f"et: slot route {rt.LAST_ROUTE}")
@@ -3834,7 +3834,6 @@ def shard_path(card, X):
     import torch
     import torch.distributed as tdist
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import rejfree, site
     from rrrmc_tpu_torch.parallel import distributed as dist
     from rrrmc_tpu_torch.parallel.mesh import (make_mesh, sample_disorder,
                                                sample_sharded)
@@ -3843,7 +3842,7 @@ def shard_path(card, X):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
     torch.cuda.synchronize()
-    site.LAUNCHES = rejfree.LAUNCHES = 0
+    reset_launches("site", "rejfree_sparse")
     t0 = time.perf_counter()
     mesh = make_mesh({"chains": 4}, devices=[DEV] * 4)
     kw = dict(step=SHARD_ITERS // 10, chains=CHAINS, seed=SEED,
@@ -3919,16 +3918,22 @@ def shard_path(card, X):
           f"call ({time.perf_counter() - t0:.1f} s for the shard path)  "
           f"[{card}]")
     torch.cuda.synchronize()
-    return {"site_metropolis": site.LAUNCHES,
-            "rejfree_sparse": rejfree.LAUNCHES}
+    return {"site_metropolis": launched("site"),
+            "rejfree_sparse": launched("rejfree_sparse")}
 
 
-#: the kernel modules whose launch counts scripts_path reads: every one of
-#: them runs on some scoreboard row or QIsing engine
-SCRIPT_KERNELS = ("site", "rejfree", "rejfree_classes", "sweep", "sk",
-                  "rejfree_dense", "eo",
-                  "eo_dense", "pspin", "eo_pspin", "sat", "eo_sat",
-                  "replica", "replica_sweep", "perc", "eo_perc")
+#: the kernel modules whose launch counts scripts_path reads, each with
+#: its kernels' names in ops/launch.py's LAUNCHES: every one of them runs
+#: on some scoreboard row or QIsing engine
+SCRIPT_KERNELS = {"site": "site", "rejfree": "rejfree_sparse",
+                  "rejfree_classes": "rejfree_classes", "sweep": "sweep",
+                  "sk": "sk_sweep", "rejfree_dense": "rejfree_dense",
+                  "eo": "eo_sparse", "eo_dense": "eo_dense",
+                  "pspin": "rejfree_pspin", "eo_pspin": "eo_pspin",
+                  "sat": "rejfree_sat", "eo_sat": "eo_sat",
+                  "replica": ("rejfree_replica", "rejfree_replica_sparse"),
+                  "replica_sweep": "replica_sweep", "perc": "rejfree_perc",
+                  "eo_perc": "eo_perc"}
 #: the scoreboard sections scripts_path runs (the factor sections stay out:
 #: factors_path runs equilibrated_factors)
 SCRIPT_SECTIONS = ("kernels", "sat", "composite_sparse", "sparse_chains",
@@ -3985,7 +3990,6 @@ def scripts_path(card):
     computed; the tempering scaling at T = 2 and 32 for 3
     rounds (scripts/torch_tempering_scaling.py). Returns the launches of
     the kernel modules, counted from 0 just before."""
-    import importlib
     from pathlib import Path
 
     import torch
@@ -3996,11 +4000,8 @@ def scripts_path(card):
     temper = _script("torch_tempering_scaling")
     jax_rows = json.loads((Path(__file__).resolve().parent
                            / "bench_all_results.json").read_text())
-    mods = {m: importlib.import_module(f"rrrmc_tpu_torch.ops.{m}")
-            for m in SCRIPT_KERNELS}
     torch.cuda.synchronize()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    reset_launches(*SCRIPT_KERNELS.values())
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/scoreboard.json"
@@ -4067,7 +4068,7 @@ def scripts_path(card):
               f"call {r['first_call_s']:.3f} s, swap_acc_mean "
               f"{r['swap_acc_mean']:.3f}  [{card}]")
     torch.cuda.synchronize()
-    counts = {m: mod.LAUNCHES for m, mod in mods.items()}
+    counts = {m: launched(k) for m, k in SCRIPT_KERNELS.items()}
     for m, n in counts.items():
         require(n > 0, f"scripts path: no {m} kernel launch")
     print(f"scripts path: {time.perf_counter() - t0:.1f} s, launches "
@@ -4083,6 +4084,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     import rrrmc_tpu_torch as rt   # fails in a directory without the repo
+    from rrrmc_tpu_torch.bench import card_line
     from rrrmc_tpu_torch.ops import cuda_build, rejfree
 
     card = card_line()

@@ -17,11 +17,3 @@ def check_args(want: dict, device) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-
-def require_smem(smem: int, cap: int, N: int, what: str) -> None:
-    """Raise NotImplementedError when a chain's resident state (`smem`
-    bytes) exceeds the shared memory a block may have (`cap`)."""
-    if smem > cap:
-        raise NotImplementedError(
-            f"the {what} kernel keeps a chain's state in shared memory: "
-            f"N={N} needs {smem} bytes, a block may have {cap}")

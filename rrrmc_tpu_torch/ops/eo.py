@@ -38,18 +38,14 @@ E < Emin (strict) records Emin, sigma_min and itmin = move0 + m + 1.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import torch
 
-from . import check_args, prng, require_smem
-from .rejfree import info_fn, pair_de
+from . import check_args, launch, prng
+from .rejfree import pair_de
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
-
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 
 #: the most bins of the kernels' integer histogram select (kEoHistMax)
 HIST_MAX = 4096
@@ -73,10 +69,6 @@ WARPS_PER_SM = 16
 MIN_SITES_PER_LANE = 6
 #: the most sites a lane of the dense EO kernel's plan (ops/eo_dense.py)
 DENSE_SITES_PER_LANE = 40
-#: the last sparse EO launch's plan: route, warps a chain, chains a block,
-#: threads a block, key type, select and bins, dynamic shared bytes, blocks
-#: per SM, registers and local bytes a thread (spills)
-LAST_PLAN: dict = {}
 #: the last run of `eo_chunk_reference`: its chain-moves and the groups of
 #: four sites (i // 4) that held a member of the selected class where it
 #: had more than one (a class of one site wins without a draw), summed over
@@ -175,7 +167,8 @@ def eo_plan(N: int, B: int, key: torch.dtype, nb: int, n_sm: int,
     fits = [w for w in EO_WARPS if need[w] <= facts[w][4] and facts[w][0] > 0]
     if not fits:
         w = min(EO_WARPS, key=lambda w: need[w])
-        require_smem(need[w], max(f[4] for f in facts.values()), N, what)
+        launch.require_smem(need[w], max(f[4] for f in facts.values()), N,
+                            what)
         raise NotImplementedError(f"{what}: no block fits ({facts})")
     per_sm = -(-B // n_sm)
 
@@ -222,39 +215,22 @@ def coarse_map(key: torch.dtype, nb: int, half_max: Optional[int], J, lf):
     return -H, nb / (2.0 * H)
 
 
-@functools.lru_cache(maxsize=None)
-def launch_facts(entry: str, head: tuple, device: int, threads: int,
-                 need: int) -> tuple:
-    """An instantiation's [blocks per SM, registers, local bytes, static
-    shared bytes, most dynamic shared bytes] at `need` dynamic bytes from
-    the library's C entry `entry` (info_fn's), kept once asked: they hold
-    for the process's library and device."""
-    from .cuda_build import library
-
-    return tuple(info_fn(getattr(library(), entry), *head,
-                         device=device)(threads, need))
-
-
-def planned(what: str, record: dict, info_entry: str, head: tuple,
-            smem_of: Callable, N: int, B: int, key: torch.dtype, nb: int,
-            dev, label: str = "sparse EO", **rule) -> dict:
+def planned(what: str, info_entry: str, head: tuple, smem_of: Callable,
+            N: int, B: int, key: torch.dtype, nb: int, dev,
+            label: str = "sparse EO", **rule) -> dict:
     """The `eo_plan` of an EO kernel of csrc/eo_chain.cuh on device dev
     (`rule`: its extra bytes and sites a lane), its instantiations' facts
     from the C entry `info_entry` (with the key code and flags `head`),
     checked against the kernel's own shared bytes smem_of(W), and recorded
-    in `record` (the module's LAST_PLAN) under the kernel's name `what`."""
-    plan = eo_plan(N, B, key, nb,
-                   torch.cuda.get_device_properties(dev).multi_processor_count,
-                   lambda w, need: list(launch_facts(
-                       info_entry, head, dev.index or 0, w, need)),
-                   what=label, **rule)
+    in launch.PLANS under the kernel's name `what`."""
+    dev_i = dev.index or 0
+    plan = eo_plan(N, B, key, nb, launch.sm_count(dev_i),
+                   launch.info(info_entry, head, dev_i), what=label, **rule)
     smem = smem_of(plan["warps"])
     if smem != plan["smem"]:
         raise RuntimeError(f"{what}: the kernel's shared bytes {smem} differ "
                            f"from the plan's {plan['smem']}")
-    record.clear()
-    record.update(kernel=what, **plan)
-    return plan
+    return launch.record(what, {"kernel": what, **plan})
 
 
 def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
@@ -263,16 +239,16 @@ def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
                   half_max: Optional[int] = None):
     """Plan and launch the sparse EO kernel (eo_sparse.cu) on CUDA tensors:
     neigh [N, K] int32 (PSpin3: the partner table read as [N, 2K']) and J
-    (None for PSpin3); keys of type `key` in nb bins. Records the plan in
-    LAST_PLAN."""
-    from .cuda_build import check, library
+    (None for PSpin3); keys of type `key` in nb bins. Records the plan and
+    the launch under `what`."""
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
     dev = sigma.device
     code = KEY_CODES[key]
     K = neigh.shape[1] if neigh.dim() == 2 else 2 * neigh.shape[1]
-    plan = planned(what, LAST_PLAN, "rrrmc_eo_sparse_info", (code, int(pspin)),
+    plan = planned(what, "rrrmc_eo_sparse_info", (code, int(pspin)),
                    lambda w: lib.rrrmc_eo_sparse_smem(N, code, nb, w), N, B,
                    key, nb, dev)
     W = plan["warps"]
@@ -285,7 +261,7 @@ def sparse_launch(what: str, sigma, lf, E, emin, smin, itmin, neigh, J, cdf,
             B, n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
             chain0 & 0xFFFFFFFF, code, int(pspin), nb, lo, scale, W,
             torch.cuda.current_stream().cuda_stream)
-    check(err, f"{what} launch")
+    launch.launched(what, err)
 
 
 def sort_key(half: torch.Tensor) -> torch.Tensor:
@@ -362,10 +338,10 @@ def eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *,
     Random words are Philox under key (seed, chain0 + b), counter
     (word, move0 + m, draw, 0) (ops/prng.py: DRAW_EO_RANK, DRAW_EO_TIE). On
     a CUDA tensor this launches the kernel with the plan of `eo_plan`
-    (LAST_PLAN); on a CPU tensor it runs the plain version. `bits` (move, draw) -> int32 ([B] for the rank, [B, N]
+    (launch.PLANS["eo_sparse"]); on a CPU tensor it runs the plain version.
+    `bits` (move, draw) -> int32 ([B] for the rank, [B, N]
     for the tie race) replaces the generator and is taken by the plain
     version only."""
-    global LAUNCHES
     B, N = sigma.shape
     K = neigh.shape[1]
     _check_args(sigma, lf, E, emin, smin, itmin, cdf,
@@ -386,7 +362,6 @@ def eo_sparse_chunk(sigma, lf, E, emin, smin, itmin, neigh, J, cdf, *,
                   cdf, n_moves=n_moves, seed=seed, move0=move0,
                   chain0=chain0, key=key, nb=nb, pspin=False,
                   half_max=half_max)
-    LAUNCHES += 1
 
 
 def eo_sparse_chunk_reference(sigma, lf, E, emin, smin, itmin, neigh, J, cdf,

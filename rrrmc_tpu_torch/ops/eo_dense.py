@@ -36,16 +36,13 @@ from typing import Optional
 
 import torch
 
+from . import launch
 from .eo import (COARSE_BINS, DENSE_SITES_PER_LANE, KEY_CODES, BitsFn,
                  _check_args, coarse_map, eo_chunk_reference, hist_bins,
                  key_type, launch_args, planned)
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
-#: the last dense EO launch's plan (ops/eo.py::eo_plan's keys)
-LAST_PLAN: dict = {}
 
 
 def dense_select(integer: bool, half_max: Optional[int]):
@@ -68,10 +65,10 @@ def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
     tables.
 
     On a CUDA tensor this launches the kernel with the plan of
-    ops/eo.py::eo_plan (LAST_PLAN); on a CPU tensor it runs the plain
+    ops/eo.py::eo_plan (launch.PLANS["eo_dense"]); on a CPU tensor it
+    runs the plain
     version. `bits` (move, draw) replaces the generator and is taken
     by the plain version only."""
-    global LAUNCHES
     B, N = sigma.shape
     integer = is_integer(J)
     jt = torch.int8 if integer else torch.float32
@@ -88,12 +85,12 @@ def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
         raise ValueError(f"no EO kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     key, nb = dense_select(integer, half_max)
     code = KEY_CODES[key]
-    plan = planned("eo_dense", LAST_PLAN, "rrrmc_eo_dense_info", (code,),
+    plan = planned("eo_dense", "rrrmc_eo_dense_info", (code,),
                    lambda w: lib.rrrmc_eo_dense_smem(N, code, nb, w), N, B,
                    key, nb, sigma.device, label="dense EO",
                    sites_per_lane=DENSE_SITES_PER_LANE)
@@ -108,8 +105,7 @@ def eo_dense_chunk(sigma, lf, E, emin, smin, itmin, J, cdf, *, n_moves: int,
             cdf.data_ptr(), N, B, n_moves, seed & 0xFFFFFFFF,
             move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, code, nb, lo, scale,
             plan["warps"], torch.cuda.current_stream().cuda_stream)
-    check(err, "eo_dense launch")
-    LAUNCHES += 1
+    launch.launched("eo_dense", err)
 
 
 def eo_dense_chunk_reference(sigma, lf, E, emin, smin, itmin, J, cdf, *,

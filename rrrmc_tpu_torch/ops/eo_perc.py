@@ -8,7 +8,7 @@ EO select ranking the sites by dE itself (eo.cuh's key policy without the
 spin factor), recomputed from the stabilities at every move as the race
 kernel computes it, from the same pattern bits xb (ops/perc.py::
 pack_patterns): in shared memory where they fit beside the state, else in
-global memory (`LAST_PLAN["patterns"]`). Step and linear give integer keys
+global memory (the plan's "patterns"). Step and linear give integer keys
 with |dE| <= P (a flip moves each pattern's loss by at most one), counted
 in a histogram of 2 P + 1 bins in the same pass that computes dE, and
 raced among the groups of four sites that hold a member by every warp at
@@ -23,19 +23,14 @@ from typing import Callable, Optional
 
 import torch
 
-from . import require_smem
+from . import launch
 from .eo import (TIE_QUEUE, BitsFn, _align16, eo_chunk_reference,
-                 hist_bins, launch_facts)
+                 hist_bins)
 from .perc import FAMILY_CODES, check_perc_args, de_flip, table_family
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: threads a chain (one block; csrc/eo.cuh kEoThreads)
 THREADS = 256
-#: the last launch's plan: threads, pattern memory, select and bins,
-#: dynamic shared bytes, blocks per SM, registers and local bytes a thread
-LAST_PLAN: dict = {}
 
 
 def eo_perc_bytes(N: int, P: int, fam: str, nb: int, sx: bool) -> int:
@@ -73,7 +68,7 @@ def eo_perc_plan(N: int, P: int, fam: str, info: Callable) -> dict:
                     "select": "histogram" if nb else "radix", "bins": nb,
                     "smem": need, "blocks_per_sm": f[0], "registers": f[1],
                     "spill_bytes": f[2]}
-    require_smem(need, f[4], N, "perceptron EO")
+    launch.require_smem(need, f[4], N, "perceptron EO")
     raise NotImplementedError(f"perceptron EO: no block fits ({f})")
 
 
@@ -90,7 +85,6 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
     xiT. The key is dE: the kernel counts integer
     keys in 2 P + 1 histogram bins when that is at most HIST_MAX, else (and
     for xentr) it takes the radix select."""
-    global LAUNCHES
     B, N = sigma.shape
     et = E.dtype
     fam, c = check_perc_args(sigma, delta, E, {
@@ -106,22 +100,22 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
         raise ValueError(f"no EO kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     P = xiT.shape[1]
     dev = sigma.device
     code = FAMILY_CODES[fam]
-    plan = eo_perc_plan(N, P, fam, lambda sx, need: list(launch_facts(
-        "rrrmc_eo_perc_info", (code, int(hist_bins(fam != "xentr", P) > 0),
-                               sx), dev.index or 0, THREADS, need)))
+    hist = int(hist_bins(fam != "xentr", P) > 0)
+    plan = eo_perc_plan(N, P, fam, lambda sx, need: launch.facts(
+        "rrrmc_eo_perc_info", (code, hist, sx), THREADS, need,
+        dev.index or 0))
     sx = int(plan["patterns"] == "shared")
     nbins = plan["bins"]
     if lib.rrrmc_eo_perc_smem(N, P, code, nbins, sx) != plan["smem"]:
         raise RuntimeError("eo_perc: the kernel's shared bytes differ from "
                            "the plan's")
-    LAST_PLAN.clear()
-    LAST_PLAN.update(kernel="eo_perc", **plan)
+    launch.record("eo_perc", {"kernel": "eo_perc", **plan})
     with torch.cuda.device(dev):
         err = lib.rrrmc_eo_perc(
             sigma.data_ptr(), delta.data_ptr(), E.data_ptr(),
@@ -129,8 +123,7 @@ def eo_perc_chunk(sigma, delta, E, emin, smin, itmin, xi4, xiT, loss, xb,
             xb.data_ptr(), cdf.data_ptr(), N, P, B, n_moves,
             seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
             nbins, code, c, sx, torch.cuda.current_stream().cuda_stream)
-    check(err, "eo_perc launch")
-    LAUNCHES += 1
+    launch.launched("eo_perc", err)
 
 
 def eo_perc_chunk_reference(sigma, delta, E, emin, smin, itmin, xi4, xiT,

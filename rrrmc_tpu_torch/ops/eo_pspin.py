@@ -22,9 +22,6 @@ from .eo import (BitsFn, _check_args, eo_chunk_reference, key_bins,
 from ..models.pspin import flip_cavity
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
-
 
 @spanned("rrrmc.op.eo_pspin")
 def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
@@ -35,8 +32,7 @@ def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
     place of lf and the partner table A [N, K, 2] int32 in the place of
     neigh/J. The keys sigma_i c_i lie in [-K, K]: the kernel keeps them as
     int8 (int16 above K = 127) and counts them in 2K + 1 histogram bins,
-    with the plan of ops/eo.py::eo_plan (eo.LAST_PLAN)."""
-    global LAUNCHES
+    with the plan of ops/eo.py::eo_plan (launch.PLANS["eo_pspin"])."""
     B, N = sigma.shape
     K = A.shape[1]
     _check_args(sigma, c, E, emin, smin, itmin, cdf,
@@ -56,7 +52,6 @@ def eo_pspin_chunk(sigma, c, E, emin, smin, itmin, A, cdf, *, n_moves: int,
                   n_moves=n_moves, seed=seed, move0=move0, chain0=chain0,
                   key=torch.int8 if K <= 127 else torch.int16, nb=nbins,
                   pspin=True)
-    LAUNCHES += 1
 
 
 def eo_pspin_chunk_reference(sigma, c, E, emin, smin, itmin, A, cdf, *,

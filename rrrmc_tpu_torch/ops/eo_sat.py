@@ -20,15 +20,12 @@ from typing import Optional
 
 import torch
 
+from . import launch
 from .eo import BitsFn, eo_chunk_reference, key_bins, planned
 from .sat import check_sat_args, de_flip
 from ..models.sat import flip_counts
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
-#: the last SAT EO launch's plan (ops/eo.py::eo_plan's keys)
-LAST_PLAN: dict = {}
 #: the kernel's key types by its codes: dE biased by 128 in a uint8, by
 #: 32768 in a uint16
 SAT_KEY_CODES = {torch.uint8: 0, torch.uint16: 1}
@@ -51,8 +48,7 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
     in the place of lf and the model's tables A, L, T, TL in the place of
     neigh/J. The key is dE, |dE| <= Cmax = T.shape[1]: the kernel counts
     the keys in 2 Cmax + 1 histogram bins, with the plan of
-    ops/eo.py::eo_plan (LAST_PLAN)."""
-    global LAUNCHES
+    ops/eo.py::eo_plan (launch.PLANS["eo_sat"])."""
     B, N = sigma.shape
     check_sat_args(sigma, sat, E, {
         "emin": (emin, (B,), torch.int32),
@@ -68,7 +64,7 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
         raise ValueError(f"no EO kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     Mc, K = A.shape
@@ -76,7 +72,7 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
     nbins = key_bins(cmax, "SAT")
     key = sat_key_type(cmax)
     code = SAT_KEY_CODES[key]
-    plan = planned("eo_sat", LAST_PLAN, "rrrmc_eo_sat_info", (code,),
+    plan = planned("eo_sat", "rrrmc_eo_sat_info", (code,),
                    lambda w: lib.rrrmc_eo_sat_smem(N, Mc, code, nbins, w), N,
                    B, key, nbins, sigma.device, extra=Mc, label="SAT EO")
     with torch.cuda.device(sigma.device):
@@ -87,8 +83,7 @@ def eo_sat_chunk(sigma, sat, E, emin, smin, itmin, A, L, T, TL, cdf, *,
             n_moves, seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF,
             chain0 & 0xFFFFFFFF, code, nbins, plan["warps"],
             torch.cuda.current_stream().cuda_stream)
-    check(err, "eo_sat launch")
-    LAUNCHES += 1
+    launch.launched("eo_sat", err)
 
 
 def eo_sat_chunk_reference(sigma, sat, E, emin, smin, itmin, A, L, T, TL,

@@ -70,15 +70,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import check_args, require_smem
-from .rejfree import (BitsFn, FUSED_THREADS, LAST_PLAN, MODES, THREADS,
-                      block_sum, coord_dtype, fused_plan, info_fn,
-                      race_chunk_reference)
+from . import check_args, launch
+from .rejfree import (BitsFn, FUSED_THREADS, MODES, THREADS, block_sum,
+                      coord_dtype, race_chunk_reference, race_plan)
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
-
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 
 #: the kernels' family codes
 FAMILY_CODES = {"step": 0, "linear": 1, "xentr": 2}
@@ -276,11 +272,10 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
     +-1 patterns, which the kernel reads in their place). beta_s = beta *
     model.scale. On a CUDA tensor this launches the kernel with the launch
     rule's block size, the bits in shared memory where they fit beside the
-    state, else in global memory (`LAST_PLAN["patterns"]`), and the step
+    state, else in global memory (the plan's "patterns"), and the step
     and linear families' exp table over |dE| <= P; on a CPU tensor it runs
     the plain version. Returns the per-move (coordinate, E) streams, each
     [n_moves, B]."""
-    global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     B, N = sigma.shape
@@ -297,7 +292,7 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     P = xiT.shape[1]
@@ -305,25 +300,19 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
     code = FAMILY_CODES[fam]
     n_ez = 0 if fam == "xentr" else P + 1
     wtm = int(mode == "wtm")
+    dev_i = dev.index or 0
 
-    def plan(sx):
-        """(info, need) of the instantiations with the pattern bits in
-        shared memory (sx = 1) or in global memory."""
-        return (info_fn(lib.rrrmc_rejfree_perc_info, code, wtm, sx,
-                        device=dev.index or 0),
-                lib.rrrmc_rejfree_perc_smem(N, P, code, n_ez, sx))
+    def need(sx):
+        return lib.rrrmc_rejfree_perc_smem(N, P, code, n_ez, sx)
 
     # the pattern bits in shared memory where some block size fits them
-    info, need = plan(1)
-    sx = int(any(need <= f[4] and f[0] > 0
-                 for f in (info(t, need) for t in FUSED_THREADS)))
-    if not sx:
-        info, need = plan(0)
-    threads = fused_plan(
-        "rejfree_perc", info, B, N, need,
-        torch.int16 if N <= 32767 else torch.int32, dev,
-        lambda need, cap: require_smem(need, cap, N, "perceptron race"))
-    LAST_PLAN["patterns"] = "shared" if sx else "global"
+    sx = int(any(need(1) <= f[4] and f[0] > 0 for f in (
+        launch.facts("rrrmc_rejfree_perc_info", (code, wtm, 1), t, need(1),
+                     dev_i) for t in FUSED_THREADS)))
+    threads = race_plan("rejfree_perc", "rrrmc_rejfree_perc_info",
+                        (code, wtm, sx), B, N, need(sx),
+                        torch.int16 if N <= 32767 else torch.int32, dev_i,
+                        patterns="shared" if sx else "global")["threads"]
     ct = coord_dtype(mode)
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=E.dtype, device=dev)
@@ -336,8 +325,7 @@ def rejfree_perc_chunk(sigma, delta, E, coord, acc, zacc, xi4, xiT, loss,
             beta_s, int(target) if ct == torch.int32 else 0, float(target),
             MODES[mode], code, c, n_ez, threads, sx,
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_perc launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_perc", err)
     return cs, es
 
 

@@ -34,15 +34,11 @@ from typing import Optional
 
 import torch
 
-from . import check_args, require_smem
+from . import check_args, launch
 from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
-                      fused_plan, info_fn, race_chunk_reference,
-                      resident_dtype)
+                      race_chunk_reference, race_plan, resident_dtype)
 from ..models.pspin import flip_cavity
 from ..utils.profiling import spanned
-
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 
 
 def pspin_rejfree_ok(model) -> bool:
@@ -80,7 +76,6 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
     of lf, int32 E and the partner table A [N, K, 2] int32 in the place of
     neigh/J. beta_s = beta * model.scale. Returns the per-move (coordinate,
     E) streams, each [n_moves, B]."""
-    global LAUNCHES
     _check_race(sigma, c, E, coord, acc, zacc, A, mode)
     if sigma.device.type == "cpu":
         return rejfree_pspin_chunk_reference(
@@ -91,7 +86,7 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
@@ -99,12 +94,10 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
     dev = sigma.device
     ct = coord_dtype(mode)
     field = resident_dtype(True, field_bound)
-    T = fused_plan(
-        "rejfree_pspin",
-        info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
-                int(mode == "wtm"), device=dev.index or 0),
-        B, N, lib.rrrmc_rejfree_sparse_smem(N, K2, field.itemsize), field,
-        dev, lambda need, cap: require_smem(need, cap, N, "PSpin3 race"))
+    T = race_plan("rejfree_pspin", "rrrmc_rejfree_sparse_info",
+                  (FIELD_CODES[field], int(mode == "wtm")), B, N,
+                  lib.rrrmc_rejfree_sparse_smem(N, K2, field.itemsize), field,
+                  dev.index or 0)["threads"]
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -116,8 +109,7 @@ def rejfree_pspin_chunk(sigma, c, E, coord, acc, zacc, A, *, mode: str,
             int(target) if ct == torch.int32 else 0, float(target),
             MODES[mode], 1, T, FIELD_CODES[field],
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_pspin launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_pspin", err)
     return cs, es
 
 

@@ -57,12 +57,9 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from . import check_args, prng
+from . import check_args, launch, prng
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
-
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 
 MODES = {"bkl": 0, "wtm": 1, "rrr": 2}
 #: the plain versions' default block size, whose order of additions they
@@ -81,10 +78,6 @@ MIN_SITES_PER_THREAD = 3
 #: the fused kernels' codes of the resident field types
 FIELD_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
                torch.float32: 3}
-#: the last fused race launch: its kernel, block size, resident field type,
-#: blocks per SM, dynamic shared bytes, registers and local bytes a thread
-#: (spills), for chip_smoke.py to print and to hand the plain version
-LAST_PLAN: dict = {}
 #: the block size `pinned_threads` holds every fused launch to (None: the
 #: launch rule's)
 _PINNED: Optional[int] = None
@@ -157,17 +150,17 @@ def race_threads(B: int, n_sm: int, blocks_per_sm: dict, N: int) -> int:
 
 
 def fused_plan(kernel: str, info: Callable, B: int, N: int, need: int,
-               field: torch.dtype, dev, refuse: Callable) -> int:
-    """The block size of a fused race launch of B chains of N sites
-    (`race_threads`), recorded in LAST_PLAN with the resident `field`
-    type. info(T, need) gives the instantiation's [blocks per SM,
+               field: torch.dtype, n_sm: int) -> dict:
+    """The plan of a fused race launch of B chains of N sites on n_sm SMs:
+    the block size (`race_threads`, or the pinned one) and the resident
+    `field` type. info(T, need) gives the instantiation's [blocks per SM,
     registers, local bytes, static shared bytes, most dynamic shared
-    bytes] at `need` dynamic bytes; refuse(need, cap) raises when no size
-    fits."""
+    bytes] at `need` dynamic bytes; where no size fits, require_smem
+    refuses."""
     facts = {t: info(t, need) for t in FUSED_THREADS}
     blocks = {t: (f[0] if need <= f[4] else 0) for t, f in facts.items()}
     if not any(blocks.values()):
-        refuse(need, max(f[4] for f in facts.values()))
+        launch.require_smem(need, max(f[4] for f in facts.values()), N, kernel)
         raise RuntimeError(f"{kernel}: no block size fits ({facts})")
     if _PINNED is not None:
         if not blocks.get(_PINNED):
@@ -175,15 +168,20 @@ def fused_plan(kernel: str, info: Callable, B: int, N: int, need: int,
                              f"fit at {need} shared bytes ({facts})")
         threads = _PINNED
     else:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         threads = race_threads(B, n_sm, blocks, N)
     f = facts[threads]
-    LAST_PLAN.clear()
-    LAST_PLAN.update(kernel=kernel, threads=threads,
-                     field=str(field).replace("torch.", ""),
-                     blocks_per_sm=f[0], smem=need, registers=f[1],
-                     spill_bytes=f[2])
-    return threads
+    return {"kernel": kernel, "threads": threads,
+            "field": str(field).replace("torch.", ""), "blocks_per_sm": f[0],
+            "smem": need, "registers": f[1], "spill_bytes": f[2]}
+
+
+def race_plan(kernel: str, entry: str, head: tuple, B: int, N: int,
+              need: int, field: torch.dtype, device: int, **extra) -> dict:
+    """`fused_plan` on the facts of the C entry `entry` (with `head`) on
+    CUDA device `device`, recorded with `extra` in launch.PLANS."""
+    plan = fused_plan(kernel, launch.info(entry, head, device), B, N, need,
+                      field, launch.sm_count(device))
+    return launch.record(kernel, {**plan, **extra})
 
 
 @contextlib.contextmanager
@@ -202,21 +200,6 @@ def pinned_threads(threads: Optional[int]) -> Iterator[None]:
         yield
     finally:
         _PINNED = before
-
-
-def info_fn(lib_fn, *head, device: int) -> Callable:
-    """info(T, smem) of `fused_plan` through a C entry
-    lib_fn(T, *head, smem, device, out[5])."""
-    import ctypes
-
-    from .cuda_build import check
-
-    def info(t, need):
-        out = (ctypes.c_int * 5)()
-        check(lib_fn(t, *head, need, device, out), f"{lib_fn.__name__}")
-        return list(out)
-
-    return info
 
 
 @spanned("rrrmc.op.rejfree_sparse")
@@ -242,7 +225,6 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     on a CPU tensor it runs the plain version. `bits`
     (move, draw) -> int32 ([B, N] for the race, [B] otherwise) replaces the
     generator and is taken by the plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, coord, acc, zacc, neigh, J, mode)
     if sigma.device.type == "cpu":
         return rejfree_sparse_chunk_reference(
@@ -253,7 +235,7 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
@@ -261,20 +243,10 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     dev = sigma.device
     ct = coord_dtype(mode)
     field = resident_dtype(is_integer(J), field_bound)
-
-    def refuse(need, cap):
-        raise NotImplementedError(
-            f"the sparse race kernel keeps a chain's spins and local fields "
-            f"in shared memory: N={N} needs {need} bytes, a block may have "
-            f"{cap}; sparse state in global memory is not ported yet "
-            f"(ROADMAP.md queue 2, item 1)")
-
-    T = fused_plan(
-        "rejfree_sparse",
-        info_fn(lib.rrrmc_rejfree_sparse_info, FIELD_CODES[field],
-                int(mode == "wtm"), device=dev.index or 0),
-        B, N, lib.rrrmc_rejfree_sparse_smem(N, K, field.itemsize), field,
-        dev, refuse)
+    T = race_plan("rejfree_sparse", "rrrmc_rejfree_sparse_info",
+                  (FIELD_CODES[field], int(mode == "wtm")), B, N,
+                  lib.rrrmc_rejfree_sparse_smem(N, K, field.itemsize), field,
+                  dev.index or 0)["threads"]
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=lf.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -286,8 +258,7 @@ def rejfree_sparse_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
             2.0 * beta_s, int(target) if ct == torch.int32 else 0,
             float(target), MODES[mode], 0, T, FIELD_CODES[field],
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_sparse launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_sparse", err)
     return cs, es
 
 

@@ -35,7 +35,7 @@ What bounds it on the H100: a move is a short dependent chain (the class
 sums, two warp scans, the table row from L2, K + 1 count moves), one warp a
 chain; the card is filled by chains, and the narrow state (2 bytes a site,
 21 KB a chain at N = 10^4) keeps every chain of a 1024-chain launch
-resident at once (`LAST_PLAN`: registers, spills, blocks an SM).
+resident at once (its plan: registers, spills, blocks an SM).
 
 Random words: Philox under key (seed, chain0 + b), counter (0, move,
 DRAW_CLASS, 0) (word 0 the class, word 1 the site) and (0, move, DRAW_SKIP,
@@ -50,24 +50,17 @@ from typing import Optional
 
 import torch
 
-from . import check_args, prng
+from . import check_args, launch, prng
 from .rejfree import BitsFn, _geom_skip, coord_dtype
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
-#: the last launch's plan: dynamic shared bytes, classes, groups, blocks
-#: per SM, registers and local bytes a thread (spills)
-LAST_PLAN: dict = {}
 #: sites of a group, the unit of the class counts the site pick scans
 GROUP = 512
 #: the most sites a chain: 64 groups, two a lane of the chain's warp
 MAX_SITES = 32767
 #: the most classes: h = max(sigma lf, 0) of int8 resident fields
 MAX_CLASSES = 128
-
-_PLANS: dict = {}
 
 
 def classes_ok(model, mode: str, field_bound: Optional[int], device) -> bool:
@@ -85,25 +78,24 @@ def classes_ok(model, mode: str, field_bound: Optional[int], device) -> bool:
 
 
 def plan(N: int, C: int, dev) -> dict:
-    """The launch facts of the kernel for chains of N sites in C classes on
-    CUDA device dev (cached): dynamic shared bytes, blocks per SM (0 where
-    a chain does not fit), registers and local bytes a thread."""
-    key = (N, C, dev.index or 0)
-    if key not in _PLANS:
-        import ctypes
+    """The launch plan of the kernel for chains of N sites in C classes on
+    CUDA device dev: dynamic shared bytes, blocks per SM (0 where a chain
+    does not fit), registers and local bytes a thread."""
+    from .cuda_build import library
 
-        from .cuda_build import check, library
+    smem = int(library().rrrmc_rejfree_classes_smem(N, C))
+    f = _facts(smem, dev)
+    return {"kernel": "rejfree_classes", "smem": smem, "classes": C,
+            "groups": -(-N // GROUP),
+            "blocks_per_sm": f[0] if smem <= f[4] else 0, "registers": f[1],
+            "spill_bytes": f[2]}
 
-        lib = library()
-        smem = int(lib.rrrmc_rejfree_classes_smem(N, C))
-        out = (ctypes.c_int * 5)()
-        check(lib.rrrmc_rejfree_classes_info(smem, dev.index or 0, out),
-              "rrrmc_rejfree_classes_info")
-        _PLANS[key] = {"kernel": "rejfree_classes", "smem": smem,
-                       "classes": C, "groups": -(-N // GROUP),
-                       "blocks_per_sm": out[0] if smem <= out[4] else 0,
-                       "registers": out[1], "spill_bytes": out[2]}
-    return _PLANS[key]
+
+def _facts(smem: int, dev) -> tuple:
+    """The kernel's launch facts at `smem` dynamic bytes on CUDA device
+    dev (one warp a chain, a chain a block)."""
+    return launch.facts("rrrmc_rejfree_classes_info", (), None, smem,
+                        dev.index or 0)
 
 
 def _check_args(sigma, lf, E, coord, acc, zacc, neigh, J, mode,
@@ -140,7 +132,6 @@ def rejfree_classes_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
     tensor it runs the plain version. `bits` (move, draw) -> int32 ([B, 2]
     for DRAW_CLASS, [B] for DRAW_SKIP) replaces the generator and is taken
     by the plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, coord, acc, zacc, neigh, J, mode, field_bound)
     if sigma.device.type == "cpu":
         return rejfree_classes_chunk_reference(
@@ -151,19 +142,15 @@ def rejfree_classes_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
         raise ValueError(f"no class kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
     dev = sigma.device
     C = field_bound + 1
     p = plan(N, C, dev)
-    if p["blocks_per_sm"] == 0:
-        raise NotImplementedError(
-            f"the class kernel keeps a chain in shared memory: N={N} needs "
-            f"{p['smem']} bytes, more than a block may have")
-    LAST_PLAN.clear()
-    LAST_PLAN.update(p)
+    launch.require_smem(p["smem"], _facts(p["smem"], dev)[4], N, "class")
+    launch.record("rejfree_classes", p)
     cs = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -174,8 +161,7 @@ def rejfree_classes_chunk(sigma, lf, E, coord, acc, zacc, neigh, J, *,
             seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
             2.0 * beta_s, int(target),
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_classes launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_classes", err)
     return cs, es
 
 

@@ -22,7 +22,7 @@ float32 for float J), the spins as bits, so that a site takes 1.125 to
 still fits; up to 55 000 with int32 or float32 fields at 256 threads).
 rrr flips tentatively, as the sparse kernel: it saves the fields its flip
 overwrites in shared memory where they fit beside the state at both block
-sizes (LAST_PLAN["saved"] "shared"), else in a global scratch row a chain
+sizes (plan "saved": "shared"), else in a global scratch row a chain
 ("global"), and puts them back if the flip is refused, so that every move
 reads the winner's row once from device memory or L2. It is bound by the
 arithmetic of the pass over the resident sites, as the sparse kernel, plus
@@ -43,15 +43,13 @@ from typing import Optional
 
 import torch
 
-from . import check_args
-from .rejfree import (FIELD_CODES, FUSED_THREADS, LAST_PLAN, MODES, THREADS,
-                      BitsFn, coord_dtype, fused_plan, info_fn,
-                      race_chunk_reference, resident_dtype)
+from . import check_args, launch
+from .rejfree import (FIELD_CODES, FUSED_THREADS, MODES, THREADS, BitsFn,
+                      coord_dtype, race_chunk_reference, race_plan,
+                      resident_dtype)
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: where rrr keeps the fields its tentative flip overwrites (the kernel's
 #: codes): bkl and wtm keep none
 SAVED = {"none": 0, "shared": 1, "global": 2}
@@ -127,7 +125,6 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
     size (ops/rejfree.py::fused_plan); on a CPU tensor it runs the plain
     version. `bits` (move, draw) replaces the generator and is taken by the
     plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, coord, acc, zacc, J, mode)
     if sigma.device.type == "cpu":
         return rejfree_dense_chunk_reference(
@@ -138,7 +135,7 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
@@ -146,29 +143,24 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
     ct = coord_dtype(mode)
     field = dense_field(is_integer(J), field_bound)
     tab_n = field_bound + 1 if field in (torch.int8, torch.int16) else 0
-    info = info_fn(lib.rrrmc_rejfree_dense_info, FIELD_CODES[field],
-                   int(mode == "wtm"), device=dev.index or 0)
+    dev_i = dev.index or 0
+    head = (FIELD_CODES[field], int(mode == "wtm"))
 
     def smem(saved):
         return lib.rrrmc_rejfree_dense_smem(N, field.itemsize,
                                             SAVED[saved], tab_n)
-
-    def refuse(need, cap):
-        raise NotImplementedError(
-            f"the dense race kernel keeps a chain's local fields and spins "
-            f"in shared memory: N={N} needs {need} bytes, a block may have "
-            f"{cap}")
 
     # rrr saves the fields its tentative flip overwrites in shared memory
     # where they fit beside the state at every block size, else in a
     # global scratch row a chain
     saved = "none"
     if mode == "rrr":
-        saved = "shared" if all(smem("shared") <= info(t, 0)[4]
-                                for t in FUSED_THREADS) else "global"
-    T = fused_plan("rejfree_dense", info, B, N, smem(saved), field, dev,
-                   refuse)
-    LAST_PLAN["saved"] = saved
+        saved = "shared" if all(
+            smem("shared") <= launch.facts("rrrmc_rejfree_dense_info", head,
+                                           t, 0, dev_i)[4]
+            for t in FUSED_THREADS) else "global"
+    T = race_plan("rejfree_dense", "rrrmc_rejfree_dense_info", head, B, N,
+                  smem(saved), field, dev_i, saved=saved)["threads"]
     scratch = None
     if saved == "global":
         stride = -(-N * field.itemsize // 16) * 16
@@ -185,8 +177,7 @@ def rejfree_dense_chunk(sigma, lf, E, coord, acc, zacc, J, *, mode: str,
             int(target) if ct == torch.int32 else 0, float(target),
             MODES[mode], T, FIELD_CODES[field], SAVED[saved], tab_n,
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_dense launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_dense", err)
     return cs, es
 
 

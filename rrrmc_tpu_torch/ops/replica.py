@@ -48,16 +48,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import check_args, require_smem
+from . import check_args, launch
 from .rejfree import (BitsFn, FIELD_CODES, MODES, THREADS, coord_dtype,
-                      fused_plan, info_fn, race_chunk_reference,
-                      resident_dtype, sparse_rejfree_ok)
+                      race_chunk_reference, race_plan, resident_dtype,
+                      sparse_rejfree_ok)
 from .rejfree_dense import dense_rejfree_ok, kernel_couplings
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
-
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 
 
 class ReplicaTables(NamedTuple):
@@ -231,7 +228,6 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
     plain version. `bits` (move, draw) replaces the generator and is taken
     by the plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, coord, acc, zacc, tab, mode)
     if sigma.device.type == "cpu":
         return rejfree_replica_chunk_reference(
@@ -242,7 +238,7 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
         raise ValueError(f"no race kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B = sigma.shape[0]
@@ -252,16 +248,13 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
     star = tab.term == "star"
     ct = coord_dtype(mode)
     field = resident_dtype(is_integer(lf), field_bound)
-    T = fused_plan(
-        "rejfree_replica" + ("_sparse" if sparse else ""),
-        info_fn(lib.rrrmc_rejfree_replica_info, FIELD_CODES[field],
-                int(star), int(mode == "wtm"), device=dev.index or 0),
-        B, sigma.shape[1],
-        lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse, star,
-                                       field.itemsize),
-        field, dev,
-        lambda need, cap: require_smem(need, cap, sigma.shape[1],
-                                       "replica race"))
+    kernel = "rejfree_replica" + ("_sparse" if sparse else "")
+    T = race_plan(kernel, "rrrmc_rejfree_replica_info",
+                  (FIELD_CODES[field], int(star), int(mode == "wtm")), B,
+                  sigma.shape[1],
+                  lib.rrrmc_rejfree_replica_smem(tab.Nk, tab.M, K, sparse,
+                                                 star, field.itemsize),
+                  field, dev.index or 0)["threads"]
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -274,8 +267,7 @@ def rejfree_replica_chunk(sigma, lf, E, coord, acc, zacc, tab: ReplicaTables,
             float(beta_s), int(target) if ct == torch.int32 else 0,
             float(target), MODES[mode], int(sparse), int(star), T,
             FIELD_CODES[field], torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_replica launch")
-    LAUNCHES += 1
+    launch.launched(kernel, err)
     return cs, es
 
 

@@ -39,15 +39,13 @@ from typing import Callable, Optional
 
 import torch
 
-from . import check_args, prng
+from . import check_args, launch, prng
 from .replica import ReplicaTables, replica_base, replica_tables
 from .sk import (BLOCK_CHAINS, BLOCK_SPAN, check_symmetric, load_width,
                  span_stride)
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: spins decided between two commits of a float base's fields (the
 #: plain version's span, and the float kernel's: its float32 sums follow it;
 #: an integer base's sums are exact, so its kernel's span, ops/sk.py's
@@ -55,8 +53,6 @@ LAUNCHES = 0
 SPAN = 512
 #: chains (warps) of a float base's block
 FLOAT_CHAINS = 8
-#: the plan of the last launch (`sweep_plan`'s dict)
-LAST_PLAN: dict = {}
 
 #: (sweep) -> [B, N] int32 bits of one sweep, replacing the generator
 SweepBitsFn = Callable[[int], torch.Tensor]
@@ -139,7 +135,6 @@ def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
     version does and needs no symmetry. On a CPU tensor it runs the plain
     version. `bits` (sweep) -> [B, N] int32 replaces the generator and is
     taken by the plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, acc, tab)
     if sigma.device.type == "cpu":
         replica_sweep_chunk_reference(sigma, lf, E, acc, tab, beta=beta,
@@ -154,8 +149,7 @@ def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
     integer = is_integer(lf)
     if integer and not checked:
         check_symmetric(tab.J, "replica sweep")
-    from . import require_smem
-    from .cuda_build import check, library
+    from .cuda_build import library
     lib = library()
     B = sigma.shape[0]
     dev = sigma.device.index or 0
@@ -163,10 +157,10 @@ def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
                       aligned16=tab.J.data_ptr() % 16 == 0
                       and lf.data_ptr() % 16 == 0
                       and sigma.data_ptr() % 4 == 0)
-    require_smem(plan["smem"], lib.rrrmc_replica_sweep_max_smem(dev), tab.Nk,
-                 "replica sweep")
-    LAST_PLAN.clear()
-    LAST_PLAN.update(plan)
+    launch.require_smem(plan["smem"],
+                        launch.max_smem("rrrmc_replica_sweep_max_smem", dev),
+                        tab.Nk, "replica sweep")
+    launch.record("replica_sweep", plan)
     with torch.cuda.device(sigma.device):
         err = lib.rrrmc_replica_sweep(
             sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), acc.data_ptr(),
@@ -175,8 +169,7 @@ def replica_sweep_chunk(sigma, lf, E, acc, tab: ReplicaTables, *,
             chain0 & 0xFFFFFFFF, 0 if integer else 1,
             int(tab.term == "star"), plan["loads"],
             torch.cuda.current_stream().cuda_stream)
-    check(err, "replica_sweep launch")
-    LAUNCHES += 1
+    launch.launched("replica_sweep", err)
 
 
 def _extra(tab, sig, k, i0, i1):

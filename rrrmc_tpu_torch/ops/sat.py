@@ -43,14 +43,12 @@ from typing import Optional
 
 import torch
 
-from . import check_args, require_smem
-from .rejfree import (BitsFn, MODES, THREADS, coord_dtype, fused_plan,
-                      info_fn, race_chunk_reference)
+from . import check_args, launch
+from .rejfree import (BitsFn, MODES, THREADS, coord_dtype,
+                      race_chunk_reference, race_plan)
 from ..models.sat import delta_from_counts, flip_counts
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: the race kernel's bound on Cmax, which bounds |dE| (its 16-bit dE)
 DE_MAX = 32767
 
@@ -120,7 +118,6 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
     (`fused_plan`; a variable in more than 32767 clauses, beyond its 16-bit
     dE, is refused); on a CPU tensor it runs the plain version. Returns the
     per-move (coordinate, E) streams, each [n_moves, B]."""
-    global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
     B = sigma.shape[0]
@@ -142,19 +139,17 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
         raise NotImplementedError(
             f"the SAT race kernel keeps dE in 16 bits: a variable in "
             f"{Cmax} clauses exceeds its bound {DE_MAX}")
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     N = sigma.shape[1]
     Mc, K = A.shape
     dev = sigma.device
     ct = coord_dtype(mode)
-    threads = fused_plan(
-        "rejfree_sat",
-        info_fn(lib.rrrmc_rejfree_sat_info, int(mode == "wtm"),
-                device=dev.index or 0),
-        B, N, lib.rrrmc_rejfree_sat_smem(N, Mc, Cmax), torch.int16,
-        dev, lambda need, cap: require_smem(need, cap, N, "SAT race"))
+    threads = race_plan("rejfree_sat", "rrrmc_rejfree_sat_info",
+                        (int(mode == "wtm"),), B, N,
+                        lib.rrrmc_rejfree_sat_smem(N, Mc, Cmax), torch.int16,
+                        dev.index or 0)["threads"]
     cs = torch.empty((n_moves, B), dtype=ct, device=dev)
     es = torch.empty((n_moves, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -167,8 +162,7 @@ def rejfree_sat_chunk(sigma, sat, E, coord, acc, zacc, A, L, T, TL, *,
             int(target) if ct == torch.int32 else 0, float(target),
             MODES[mode], threads,
             torch.cuda.current_stream().cuda_stream)
-    check(err, "rejfree_sat launch")
-    LAUNCHES += 1
+    launch.launched("rejfree_sat", err)
     return cs, es
 
 

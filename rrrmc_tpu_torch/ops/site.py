@@ -37,20 +37,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import check_args, prng
-from .rejfree import FIELD_CODES, info_fn, resident_dtype
+from . import check_args, launch, prng
+from .rejfree import FIELD_CODES, resident_dtype
 from ..core.dtypes import is_integer
 from ..utils.profiling import annotate, spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: the most moves of a group (one a lane of a warp; csrc/site.cu kGroupMax)
 GROUP_MAX = 32
 #: chains a block the resident route may take (one warp each)
 CHAIN_CHOICES = (8, 4, 2, 1)
-#: the last launch's plan: route, field type, chains a block, warps, shared
-#: bytes, blocks per SM, registers and local bytes a thread (spills)
-LAST_PLAN: dict = {}
 
 BitsFn = Callable[[int, int], torch.Tensor]
 
@@ -147,7 +142,7 @@ def group_lengths(sites, neigh, N: int, cap: int = GROUP_MAX):
     that would start at each move, as the kernel's cut finds it: move m's
     group ends before the first later move m + l (l < cap) whose closed
     neighbourhood meets that of a move in [m, m + l). Launches the cut
-    kernel alone (not counted in LAUNCHES) on CUDA tensors."""
+    kernel alone (not counted in launch.LAUNCHES) on CUDA tensors."""
     if sites.device.type != "cuda":
         raise ValueError(f"no cut kernel for device {sites.device}")
     from .cuda_build import check, library
@@ -205,10 +200,9 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
     half_bound; None: int32 resident fields for integer J).
 
     On a CUDA tensor this launches the kernel on `site_plan`'s route
-    (LAST_PLAN); on a CPU tensor it runs the plain version. `bits`
+    (launch.PLANS["site"]); on a CPU tensor it runs the plain version. `bits`
     (move, draw) -> [B] int32 replaces the generator and is taken by the
     plain version only."""
-    global LAUNCHES
     betas = chain_betas(beta_s, sigT.shape[1], sigT.device)
     _check_args(sigT, lfT, E, acc, sites, neigh, J, betas)
     if sigT.device.type == "cpu":
@@ -227,12 +221,10 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
     dev = sigT.device
     field = field_type(J, field_bound)
     code = FIELD_CODES[field]
-    plan = site_plan(
-        N, B, field,
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        info_fn(lib.rrrmc_site_info, code, device=dev.index or 0))
-    LAST_PLAN.clear()
-    LAST_PLAN.update(plan)
+    dev_i = dev.index or 0
+    plan = launch.record("site", site_plan(
+        N, B, field, launch.sm_count(dev_i),
+        launch.info("rrrmc_site_info", (code,), dev_i)))
     resident = plan["route"] == "resident"
     glen = torch.empty_like(sites) if resident else sites
     with torch.cuda.device(dev):
@@ -243,8 +235,7 @@ def site_chunk(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,
             move0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, betas.data_ptr(), code,
             plan["chains"] if resident else 0, glen.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    check(err, "site_metropolis launch")
-    LAUNCHES += 1
+    launch.launched("site", err)
 
 
 def site_chunk_reference(sigT, lfT, E, acc, sites, neigh, J, *, seed: int,

@@ -37,12 +37,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import check_args, prng
+from . import check_args, launch, prng
 from ..core.dtypes import is_integer
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: sites of one window (the TPU kernel's W): one Philox window step each
 WINDOW = 128
 #: the span of the integer sweep kernels, N (or a replica block's Nk)
@@ -53,8 +51,6 @@ BLOCK_SPAN = 256
 BLOCK_CHAINS = 16
 #: sites of one K chunk of the commit's tensor-core product
 CHUNK = 64
-#: the plan of the last launch (`sweep_plan`'s dict)
-LAST_PLAN: dict = {}
 _INT32_MIN = -2 ** 31
 
 BitsFn = Callable[[int, int], torch.Tensor]
@@ -163,7 +159,6 @@ def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
     `SKSweeper` does once, when it is built). On a CPU tensor it runs the
     plain version, which needs neither. `bits` (sweep, window) -> [B, W]
     int32 replaces the generator and is taken by the plain version only."""
-    global LAUNCHES
     _check_args(sigma, lf, E, J8, th)
     if sigma.device.type == "cpu":
         sk_sweep_chunk_reference(sigma, lf, E, J8, th, n_sweeps=n_sweeps,
@@ -177,8 +172,7 @@ def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
     if not checked:
         check_symmetric(J8, "dense sweep")
         check_thresholds(th.cpu().numpy())
-    from . import require_smem
-    from .cuda_build import check, library
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
@@ -187,17 +181,16 @@ def sk_sweep_chunk(sigma, lf, E, J8, th, *, n_sweeps: int, seed: int,
                       aligned16=J8.data_ptr() % 16 == 0
                       and lf.data_ptr() % 16 == 0
                       and sigma.data_ptr() % 4 == 0)
-    require_smem(plan["smem"], lib.rrrmc_sk_max_smem(dev), N, "dense sweep")
-    LAST_PLAN.clear()
-    LAST_PLAN.update(plan)
+    launch.require_smem(plan["smem"], launch.max_smem("rrrmc_sk_max_smem",
+                                                      dev), N, "dense sweep")
+    launch.record("sk_sweep", plan)
     with torch.cuda.device(sigma.device):
         err = lib.rrrmc_sk_sweep(
             sigma.data_ptr(), lf.data_ptr(), E.data_ptr(), J8.data_ptr(),
             th.data_ptr(), th.shape[0], N, B, n_sweeps, seed & 0xFFFFFFFF,
             sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, plan["hmax_bytes"],
             plan["loads"], torch.cuda.current_stream().cuda_stream)
-    check(err, "sk_sweep launch")
-    LAUNCHES += 1
+    launch.launched("sk_sweep", err)
 
 
 def sk_sweep_chunk_reference(sigma, lf, E, J8, th, *, n_sweeps: int,

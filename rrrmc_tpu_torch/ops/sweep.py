@@ -42,13 +42,11 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import check_args, prng
+from . import check_args, launch, prng
 from ..core.dtypes import is_integer
 from ..models.lattice import LatticeEA, parity
 from ..utils.profiling import spanned
 
-#: kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
 #: the threshold table is used when every |half| is at most this
 TABLE_MAX = 64
 #: the largest sum of |J| around a site that the four-chains-a-lane kernel
@@ -61,9 +59,6 @@ CHAIN_CHOICES = (32, 16, 8, 4, 2, 1)
 LOAD_SLACK = 1.1
 #: threads a block (at most csrc/sweep.cu kMaxThreads)
 THREADS = 1024
-#: the last launch's plan: chains a block, threads, shared bytes, blocks,
-#: blocks per SM, registers and local bytes a thread (spills)
-LAST_PLAN: dict = {}
 
 BitsFn = Callable[[int, int], torch.Tensor]
 
@@ -205,10 +200,9 @@ def sweep_plan(N: int, B: int, n_th: int, n_sm: int, info: Callable,
         if fits:
             break
     else:
-        raise NotImplementedError(
-            f"the sweep kernel keeps a chain's spins in shared memory: N={N}"
-            f" needs {min(need.values())} bytes, a block may have "
-            f"{facts[choices[-1]][4]}")
+        launch.require_smem(min(need.values()), facts[choices[-1]][4], N,
+                            "sweep")
+        raise NotImplementedError(f"sweep: no block fits ({facts})")
     least = min(_chain_load(B, c, n_sm) for c in fits)
     C = max(c for c in fits if _chain_load(B, c, n_sm) <= LOAD_SLACK * least)
     f = facts[C]
@@ -247,14 +241,14 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
     `accept_thresholds`, and an empty th selects the exp path.
     beta2s = 2 * beta * model.scale.
 
-    On a CUDA tensor this launches the kernel (`sweep_plan`, LAST_PLAN)
+    On a CUDA tensor this launches the kernel (`sweep_plan`,
+    launch.PLANS["sweep"])
     on `rows`, these tables' `site_rows` in either lane layout (built
     here, for one chain a lane, when not given); on a CPU tensor it runs
     the plain version. `bits` (sweep, colour) -> [B, N]
     int32 replaces the generator and is taken by the plain version only.
     `aux` [B, N] int32, when given, receives the final spins' local
     fields."""
-    global LAUNCHES
     _check_args(sigma, E, Jp, Jm, th, L, D, aux)
     if sigma.device.type == "cpu":
         sweep_chunk_reference(sigma, E, Jp, Jm, th, L=L, D=D,
@@ -266,8 +260,7 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
         raise ValueError(f"no sweep kernel for device {sigma.device}")
     if bits is not None:
         raise ValueError("injected bits are taken by the plain version only")
-    from .cuda_build import check, library
-    import ctypes
+    from .cuda_build import library
 
     lib = library()
     B, N = sigma.shape
@@ -278,20 +271,14 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
     check_args({"rows": (rows.data, (2, N // 2, row_len(D)), torch.int32)},
                dev)
 
-    def info(T, smem, four):
-        out = (ctypes.c_int * 5)()
-        check(lib.rrrmc_sweep_info(T, D, int(n_th > 0), int(four), smem,
-                                   dev.index or 0, out), "sweep_info")
-        return list(out)
-
-    plan = sweep_plan(
-        N, B, n_th,
-        torch.cuda.get_device_properties(dev).multi_processor_count, info,
-        rows.swar)
+    dev_i = dev.index or 0
+    plan = launch.record("sweep", sweep_plan(
+        N, B, n_th, launch.sm_count(dev_i),
+        lambda T, smem, four: launch.facts(
+            "rrrmc_sweep_info", (D, int(n_th > 0), int(four)), T, smem,
+            dev_i), rows.swar))
     if plan["swar"] != rows.swar:  # four chains a lane do not fit
         rows = site_rows(Jp, Jm, L, D)
-    LAST_PLAN.clear()
-    LAST_PLAN.update(plan)
     with torch.cuda.device(dev):
         err = lib.rrrmc_sweep(
             sigma.data_ptr(), E.data_ptr(), rows.data.data_ptr(),
@@ -300,8 +287,7 @@ def sweep_chunk(sigma, E, Jp, Jm, th, *, L: int, D: int, n_sweeps: int,
             plan["threads"], n_sweeps,
             seed & 0xFFFFFFFF, sweep0 & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
             beta2s, torch.cuda.current_stream().cuda_stream)
-    check(err, "sweep launch")
-    LAUNCHES += 1
+    launch.launched("sweep", err)
 
 
 def sweep_chunk_reference(sigma, E, Jp, Jm, th, *, L: int, D: int,

@@ -312,7 +312,7 @@ def parallel_tempering(model: Pairwise, betas, n_rounds: int, *,
     the state's tensors). LAST_ROUTE:
     "kernel-site-tempering" (impl "cuda" or "plain") or "torch" (the
     colour masks), with the call's site-kernel launches."""
-    from ..ops import site as site_ops
+    from ..ops.launch import LAUNCHES
 
     _check_model(model)
     betas_np = np.asarray([float(b) for b in np.asarray(betas).ravel()])
@@ -368,7 +368,7 @@ def parallel_tempering(model: Pairwise, betas, n_rounds: int, *,
                                        device=sh.device) for sh in shards}
     runners = [SiteSampler(m, 1.0) if site else _cached_masks(m)
                for m in models]
-    launches0 = site_ops.LAUNCHES
+    launches0 = LAUNCHES["site"]
     moves = sweeps_per_round * N
     seed, move0 = state.kernel_seed, state.move0
     Es = [[] for _ in shards]
@@ -430,7 +430,7 @@ def parallel_tempering(model: Pairwise, betas, n_rounds: int, *,
     impl = ("torch" if not site else
             "cuda" if dev_out.type == "cuda" else "plain")
     set_route("kernel-site-tempering" if site else "torch", impl=impl,
-              launches=site_ops.LAUNCHES - launches0, rounds=n_rounds,
+              launches=LAUNCHES["site"] - launches0, rounds=n_rounds,
               shards=len(shards))
     return series(Es, ftype()), series(ranks, torch.int32), out
 

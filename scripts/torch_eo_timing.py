@@ -57,6 +57,7 @@ without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -83,13 +84,6 @@ PATHS = (("extremal_opt GraphEA(8, 3)", "ea8", 1024, 400_000),
          ("extremal_opt densify(GraphRRG(10^4))", "drrg", 1024, 20_000),
          ("extremal_opt GraphSKNormal(4096)", "skn", 512, 20_000),
          ("extremal_opt GraphSAT(10^4, 3, 4.2)", "sat", 128, 30_000))
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
 
 
 def events_ms(torch, fn) -> float:
@@ -155,13 +149,28 @@ def eo_state(torch, rt, model, B):
 
 
 def plan_of(fam_eo):
-    """The tree's last plan of the wrapper's module, if it records one."""
-    mod = sys.modules[fam_eo.__module__]
-    plan = getattr(mod, "LAST_PLAN", None)
-    if plan is None and fam_eo.__name__ == "eo_pspin_chunk":
-        plan = getattr(sys.modules["rrrmc_tpu_torch.ops.eo"], "LAST_PLAN",
-                       None)
+    """The tree's last plan of the wrapper's kernel (ops/launch.py's PLANS,
+    by the name of the wrapper `<kernel>_chunk`), if it records one."""
+    from rrrmc_tpu_torch.ops.launch import PLANS
+
+    plan = PLANS.get(fam_eo.__name__.removesuffix("_chunk"))
     return dict(plan) if plan else None
+
+
+@contextlib.contextmanager
+def library(cuda_build, lib):
+    """Within the block the wrappers and the launch seam's facts use `lib`,
+    a variant build of the package's library."""
+    from rrrmc_tpu_torch.ops import launch
+
+    package = cuda_build.library()
+    cuda_build._lib = lib
+    launch.facts.cache_clear()      # the facts hold for one library
+    try:
+        yield
+    finally:
+        cuda_build._lib = package
+        launch.facts.cache_clear()
 
 
 def time_case(torch, root, card, row, label, chunk, tables, kw, start, cdf,
@@ -341,15 +350,14 @@ VARIANTS = {
 COARSE_WIDTHS = (4, 16)
 
 
-def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
-                  coarse=None):
+def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, coarse=None):
     """The EO wrapper's launch through its kernel's C entry (the sparse or
     PSpin3, dense or K-SAT one) on w warps a chain, with the key code and
-    bins of `plan` (the wrapper's LAST_PLAN) unless `code` / `nb` are given,
-    from the library `lib` (the package's by default); `coarse` (lo, scale)
-    gives the bin map of a coarse select. A ValueError where the block does
-    not fit on an SM."""
-    from rrrmc_tpu_torch.ops import cuda_build, eo
+    bins of `plan` (the wrapper's last plan) unless `code` / `nb` are
+    given, from the library in use (a variant's within `library`);
+    `coarse` (lo, scale) gives the bin map of a coarse select. A ValueError
+    where the block does not fit on an SM."""
+    from rrrmc_tpu_torch.ops import cuda_build, eo, launch
 
     kind = chunk.__module__.rsplit(".", 1)[1]
     key = getattr(torch, plan["key"])
@@ -362,7 +370,7 @@ def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
             move0=0, half_max=None):
         *tables, cdf = tables_cdf
         B, N = sigma.shape
-        L = lib or cuda_build.library()
+        L = cuda_build.library()
         dev = sigma.device.index or 0
         st = torch.cuda.current_stream().cuda_stream
         state = eo.launch_args(sigma, lf, E, emin, smin, itmin)
@@ -379,8 +387,8 @@ def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
             neigh, J = (tables[0], None) if pspin else tables
             K = 2 * neigh.shape[1] if pspin else neigh.shape[1]
             smem = L.rrrmc_eo_sparse_smem(N, code, nb, w)
-            facts = eo.info_fn(L.rrrmc_eo_sparse_info, code, int(pspin),
-                               device=dev)(w, smem)
+            facts = launch.facts("rrrmc_eo_sparse_info", (code, int(pspin)),
+                                 w, smem, dev)
             call = lambda: L.rrrmc_eo_sparse(
                 *state, neigh.data_ptr(),
                 J.data_ptr() if J is not None else None, cdf.data_ptr(), N,
@@ -389,8 +397,7 @@ def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
         elif kind == "eo_dense":
             (J,) = tables
             smem = L.rrrmc_eo_dense_smem(N, code, nb, w)
-            facts = eo.info_fn(L.rrrmc_eo_dense_info, code, device=dev)(
-                w, smem)
+            facts = launch.facts("rrrmc_eo_dense_info", (code,), w, smem, dev)
             call = lambda: L.rrrmc_eo_dense(
                 *state, J.data_ptr(), cdf.data_ptr(), N, B, n_moves,
                 seed & 0xFFFFFFFF, move0 & 0xFFFFFFFF, 0, code, nb, lo,
@@ -399,8 +406,7 @@ def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
             A, Lt, T, TL = tables
             Mc, K = A.shape
             smem = L.rrrmc_eo_sat_smem(N, Mc, code, nb, w)
-            facts = eo.info_fn(L.rrrmc_eo_sat_info, code, device=dev)(
-                w, smem)
+            facts = launch.facts("rrrmc_eo_sat_info", (code,), w, smem, dev)
             call = lambda: L.rrrmc_eo_sat(
                 sigma.data_ptr(), lf.data_ptr(), E.data_ptr(),
                 emin.data_ptr(), smin.data_ptr(), itmin.data_ptr(),
@@ -411,7 +417,7 @@ def c_entry_chunk(torch, chunk, plan, w, code=None, nb=None, lib=None,
             raise ValueError(f"{w} warps a chain do not fit ({facts})")
         cuda_build.check(call(), f"{kind} on {w} warps a chain")
 
-    run.__module__ = chunk.__module__
+    run.__name__ = chunk.__name__
     return run
 
 
@@ -455,8 +461,9 @@ def ablation(torch, rt, root, card, reps):
                 timed(chunk, "no move (the load and the store)", moves=0)
             for name, (_, _, keys) in VARIANTS.items():
                 if key in keys:
-                    timed(c_entry_chunk(torch, chunk, plan, plan["warps"],
-                                        lib=libs[name]), name)
+                    with library(cuda_build, libs[name]):
+                        timed(c_entry_chunk(torch, chunk, plan,
+                                            plan["warps"]), name)
             if key in ("ea8", "rrg"):
                 timed(c_entry_chunk(torch, chunk, plan, plan["warps"],
                                     code=1), "int16 keys")
@@ -467,11 +474,12 @@ def ablation(torch, rt, root, card, reps):
                 half = half_bound(ms[key])
                 for width in COARSE_WIDTHS:
                     nb = (2 * half) // width + 1
-                    timed(c_entry_chunk(
-                        torch, chunk, plan, plan["warps"], code=1, nb=nb,
-                        lib=libs["int16 keys in coarse bins"],
-                        coarse=(-float(half), 1.0 / width)),
-                        f"int16 keys in coarse bins of {width}")
+                    with library(cuda_build,
+                                 libs["int16 keys in coarse bins"]):
+                        timed(c_entry_chunk(
+                            torch, chunk, plan, plan["warps"], code=1,
+                            nb=nb, coarse=(-float(half), 1.0 / width)),
+                            f"int16 keys in coarse bins of {width}")
             if move0:
                 continue
             for w in eo.EO_WARPS:
@@ -495,6 +503,7 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.bench import card_line
     from rrrmc_tpu_torch.ops import cuda_build
 
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__

@@ -32,11 +32,11 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import subprocess
 
 import torch
 
 import rrrmc_tpu_torch as rt
+from rrrmc_tpu_torch.bench import card_line
 from rrrmc_tpu_torch.utils import profiling
 
 MOVES = 200
@@ -46,14 +46,6 @@ CASES = {
     "le": lambda: (rt.GraphLocalEntropy(
         1000, 8, 1.0, 1.0, rt.GraphRRG(1000, 3, (-1, 1), seed=13)), 128, 1.0),
     "comm": lambda: (rt.GraphCommStep(65, 15, 487, seed=5), 256, 1.0)}
-
-
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
 
 
 def calls(X, C0, beta):

@@ -17,7 +17,6 @@ scripts/ needs the repo on PYTHONPATH.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 import rrrmc_tpu_torch as rt
+from rrrmc_tpu_torch.bench import card_line
 from rrrmc_tpu_torch.experiments import stats_time
 
 
@@ -39,10 +39,7 @@ def main():
     iters, step = 100_000, 1000
     if not torch.cuda.is_available():
         raise SystemExit("torch_paper_rrg: no CUDA device is visible")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_line()
     print(card)
 
     models = [rt.GraphRRG(N, 3, (-1, 1), seed=100 + s)

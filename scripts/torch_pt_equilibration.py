@@ -39,11 +39,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 
 import torch
+
+from rrrmc_tpu_torch.bench import card_line
 
 SEED = 167
 N_SITES = 10_000
@@ -53,14 +54,6 @@ LENGTHS = (200, 600, 2000, 6000)
 REF_CHAINS = 1024
 CONT = 200
 LADDERS = {"hot end at 1": (1.0, 0), "hot end at 0.8": (0.8, 10)}
-
-
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
 
 
 def second_half(series, L):

@@ -157,7 +157,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import cuda_build, rejfree
+    from rrrmc_tpu_torch.bench import card_line
+    from rrrmc_tpu_torch.ops import cuda_build, launch
     from rrrmc_tpu_torch.samplers.families import family_of
 
     source, own = KERNELS[args.kernel]
@@ -178,10 +179,7 @@ def main() -> int:
                                for ln in log.splitlines())}
     libs = {n: load(cuda_build, os.path.join(out_dir, n, "lib.so"))
             for n in variants}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
+    card = card_line()
     for label, m, B, beta, modes in cases(args.kernel, rt):
         fam = family_of(m)
         st = rt.init_state(m, B, seed=167, device="cuda")
@@ -206,10 +204,12 @@ def main() -> int:
             for rep in range(args.reps + 1):   # the first turn warms up
                 for name, lib in libs.items():
                     cuda_build._lib = lib
+                    launch.facts.cache_clear()  # they hold for one library
+                    launch.PLANS.clear()
                     t = once()
                     if rep:
                         ms[name].append(t)
-                    plans[name] = dict(rejfree.LAST_PLAN)
+                    (plans[name],) = launch.PLANS.values()
             for name in variants:
                 print(json.dumps({"variant": name, "case": label,
                                   "chains": B, "mode": mode, "moves": 1024,

@@ -28,7 +28,6 @@ import argparse
 import contextlib
 import json
 import os
-import subprocess
 import sys
 
 SEED = 167
@@ -68,13 +67,6 @@ CROSSOVER = tuple(
     (f"GraphPercStep({n}, {p})", lambda rt, n=n, p=p: rt.GraphPercStep(
         n, p, seed=5, device="cuda"), 128, 1.0)
     for n, p in ((2047, 255), (4095, 127)))
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
 
 
 def events_ms(torch, fn) -> float:
@@ -145,7 +137,8 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import rrrmc_tpu_torch as rt
-    from rrrmc_tpu_torch.ops import cuda_build
+    from rrrmc_tpu_torch.bench import card_line
+    from rrrmc_tpu_torch.ops import cuda_build, launch
 
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__
     cuda_build.library()
@@ -164,11 +157,10 @@ def main() -> int:
         sizes = [None] + (list(rejfree.FUSED_THREADS) if args.sweep else [])
         for mode in ("bkl", "rrr"):
             for threads in sizes:
-                # a kernel before the fused pass leaves no plan
-                getattr(rejfree, "LAST_PLAN", {}).clear()
+                launch.PLANS.clear()
                 full, half = time_case(torch, rt, model, B, beta, mode,
                                        args.reps, threads)
-                plan = getattr(rejfree, "LAST_PLAN", None)
+                plan = next(iter(launch.PLANS.values()), None)
                 print(json.dumps({
                     "root": root, "row": row, "case": label, "chains": B,
                     "mode": mode, "moves": MOVES, "threads": threads,

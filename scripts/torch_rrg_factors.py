@@ -32,12 +32,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
 import rrrmc_tpu_torch as rt
+from rrrmc_tpu_torch.bench import card_line
 from rrrmc_tpu_torch.experiments import (equal_wallclock_factors,
                                          equilibrated_factors, runtest)
 
@@ -46,14 +46,6 @@ CHAINS, TARGET_S, EQUIL_SWEEPS = 128, 6.0, 1000
 BETAS = (2.0, 3.0, 4.0)
 GRAPHS = {"rrg_pmJ": lambda: rt.GraphRRG(N, K, (-1, 1), seed=SEED),
           "rrg_normal": lambda: rt.GraphRRGNormal(N, K, seed=SEED)}
-
-
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
 
 
 def densified_check(X, Xd, beta: float, sweeps: int, chains: int,

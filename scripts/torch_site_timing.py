@@ -74,13 +74,6 @@ SWEEP_L, SWEEP_B, SWEEPS, CALL_SWEEPS = 16, 8192, 100, 10
 MET_ITERS, MET_STEP, RRG_SWEEPS, RRG_STEP = 3_000_000, 300_000, 100, 10
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
-
-
 def events_ms(torch, fn) -> float:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -151,10 +144,13 @@ def sweep_launcher(torch, rt, model, sweeps=SWEEPS, aux=False):
     return launch, run, sw
 
 
-def case_line(torch, root, card, label, row, fresh, run, reps, mod,
+def case_line(torch, root, card, label, row, fresh, run, reps, kernel,
               plan=None, **extra):
     """Time run() on fresh() inputs: a warm-up, then `reps` launches; the
-    plan printed is `plan`, else the tree's LAST_PLAN of `mod`."""
+    plan printed is `plan`, else the tree's last plan of `kernel`
+    (ops/launch.py's PLANS)."""
+    from rrrmc_tpu_torch.ops.launch import PLANS
+
     def once():
         a = fresh()
         return events_ms(torch, lambda: run(a))
@@ -162,7 +158,7 @@ def case_line(torch, root, card, label, row, fresh, run, reps, mod,
     once()                                                # warm-up
     ms = [once() for _ in range(reps)]
     if plan is None:
-        plan = getattr(mod, "LAST_PLAN", None)
+        plan = PLANS.get(kernel)
     print(json.dumps({
         "root": root, "row": row, "case": label, "ms": ms,
         "median_ms": statistics.median(ms), "min_ms": min(ms),
@@ -178,23 +174,23 @@ def kernel_cases(torch, rt, root, card, reps):
                      ("RRG+-J, 300 000 moves (a standardMC launch)",
                       PATH_MOVES)):
         fresh, run = site_launcher(torch, rt, m, n)
-        case_line(torch, root, card, label, 1, fresh, run, reps, site,
+        case_line(torch, root, card, label, 1, fresh, run, reps, "site",
                   chains=SITE_B, moves=n)
     if hasattr(site, "chain_betas"):   # a tree whose kernel takes them
         fresh, run = site_launcher(torch, rt, m, m.N, ladder=True)
         case_line(torch, root, card, f"RRG+-J, {SITE_B // PT_CHAINS} betas "
                   f"a chain's rung, one sweep (the PT path's case)", 1,
-                  fresh, run, reps, site, chains=SITE_B, moves=m.N)
+                  fresh, run, reps, "site", chains=SITE_B, moves=m.N)
     lat = rt.GraphEA(SWEEP_L, 3, (-1, 1), seed=42, device="cuda")
     fresh, run, _ = sweep_launcher(torch, rt, lat)
     case_line(torch, root, card, "EA3D-L16+-J, 100 sweeps (the row)", 3,
-              fresh, run, reps, sweep, chains=SWEEP_B, sweeps=SWEEPS)
+              fresh, run, reps, "sweep", chains=SWEEP_B, sweeps=SWEEPS)
     takes_aux = "aux" in inspect.signature(sweep.Sweeper.__call__).parameters
     for aux in (False, True) if takes_aux else (False,):
         fresh, run, _ = sweep_launcher(torch, rt, lat, CALL_SWEEPS, aux)
         case_line(torch, root, card, f"EA3D-L16+-J, {CALL_SWEEPS} sweeps (a "
                   f"launch of the benchmark's call){', with aux' * aux}", 3,
-                  fresh, run, reps, sweep, chains=SWEEP_B,
+                  fresh, run, reps, "sweep", chains=SWEEP_B,
                   sweeps=CALL_SWEEPS, aux=aux)
 
 
@@ -269,16 +265,14 @@ def sweep_pinned(torch, sw, chains, threads, four):
     on a = [sigma, E] with `chains` chains and `threads` threads a block,
     four chains a lane or one (the Sweeper's wrapper takes its plan's);
     facts as the plan's keys."""
-    from rrrmc_tpu_torch.ops import cuda_build, sweep
+    from rrrmc_tpu_torch.ops import cuda_build, launch, sweep
 
     lib = cuda_build.library()
     rows = sweep.site_rows(sw.Jp, sw.Jm, sw.L, sw.D, four).data
     n_th = sw.th.shape[0]
     smem = n_th * 4 + sw.L ** sw.D * sweep.site_bytes(chains)
-    out = (ctypes.c_int * 5)()
-    cuda_build.check(lib.rrrmc_sweep_info(threads, sw.D, int(n_th > 0),
-                                          int(four), smem, 0, out),
-                     "sweep_info")
+    out = launch.facts("rrrmc_sweep_info", (sw.D, int(n_th > 0), int(four)),
+                       threads, smem, 0)
     facts = {"chains": chains, "threads": threads, "smem": smem,
              "lanes": "4 chains" if four else "1 chain",
              "blocks_per_sm": out[0], "registers": out[1],
@@ -297,7 +291,7 @@ def sweep_pinned(torch, sw, chains, threads, four):
 
 
 def ablation(torch, rt, root, card, reps):
-    from rrrmc_tpu_torch.ops import cuda_build, site, sweep
+    from rrrmc_tpu_torch.ops import cuda_build, launch, site
 
     package = cuda_build.library()
     one_by_one = site_variant(cuda_build, "site_cap1", [
@@ -305,10 +299,11 @@ def ablation(torch, rt, root, card, reps):
     m = rt.GraphRRG(SITE_N, 3, (-1, 1), seed=SEED, device="cuda")
     for cap, lib in ((1, one_by_one), (site.GROUP_MAX, package)):
         cuda_build._lib = lib
+        launch.facts.cache_clear()      # the facts hold for one library
         try:
             fresh, run = site_launcher(torch, rt, m, SITE_MOVES)
             case_line(torch, root, card, f"site groups capped at {cap}", 1,
-                      fresh, run, reps, site, ablation="site", cap=cap)
+                      fresh, run, reps, "site", ablation="site", cap=cap)
             t0 = time.perf_counter()
             rt.standardMC(m, BETA, MET_ITERS, step=MET_STEP, chains=SITE_B,
                           seed=1, backend="kernel", device="cuda")
@@ -321,10 +316,11 @@ def ablation(torch, rt, root, card, reps):
                 "rate_unit": "moves*chains/s", "card": card}), flush=True)
         finally:
             cuda_build._lib = package
+            launch.facts.cache_clear()
     lat = rt.GraphEA(SWEEP_L, 3, (-1, 1), seed=42, device="cuda")
     fresh, run, sw = sweep_launcher(torch, rt, lat)
     run(fresh())                                # the plan's C and threads
-    C, T = sweep.LAST_PLAN["chains"], sweep.LAST_PLAN["threads"]
+    C, T = launch.PLANS["sweep"]["chains"], launch.PLANS["sweep"]["threads"]
     for label, chains, threads, four in (
             ("rows alone: 1 chain a block, 1 a lane", 1, T, False),
             ("chains in step: the plan's C, 1 chain a lane", C, T, False),
@@ -333,8 +329,8 @@ def ablation(torch, rt, root, card, reps):
             ("4 chains a lane, C=16, 512 threads", 16, 512, True),
             ("4 chains a lane, C=8", 8, T, True),
             ("4 chains a lane, C=32, 512 threads", 32, 512, True)):
-        launch, facts = sweep_pinned(torch, sw, chains, threads, four)
-        case_line(torch, root, card, label, 3, fresh, launch, reps, sweep,
+        pinned, facts = sweep_pinned(torch, sw, chains, threads, four)
+        case_line(torch, root, card, label, 3, fresh, pinned, reps, "sweep",
                   plan=facts, ablation="sweep")
 
 
@@ -354,6 +350,7 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.bench import card_line
     from rrrmc_tpu_torch.ops import cuda_build
 
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__

@@ -260,6 +260,7 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.bench import card_line
     from rrrmc_tpu_torch.ops import cuda_build
 
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__
@@ -282,10 +283,7 @@ def main() -> int:
                                for ln in log.splitlines())}
     libs = {n: load(cuda_build, os.path.join(out_dir, n, "lib.so"))
             for n in variants}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
+    card = card_line()
     for label, m, B, beta, sweeps, warm in cases(args.kernel, rt):
         cuda_build._lib = libs["base"]
         once = runner(torch, args.kernel, m, B, beta, sweeps, warm)

@@ -38,7 +38,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 SEED = 167
@@ -77,13 +76,6 @@ CASES = (
 )
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0].strip()
-
-
 def events_ms(torch, fn) -> float:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -95,7 +87,8 @@ def events_ms(torch, fn) -> float:
 
 
 def sweeper(torch, rt, model, B, beta):
-    """(state tensors, launch(tensors, n_sweeps, sweep0), its module)."""
+    """(state tensors, launch(tensors, n_sweeps, sweep0), its kernel's
+    name in ops/launch.py's PLANS)."""
     st = rt.init_state(model, B, seed=SEED, device="cuda")
     if hasattr(model, "resid_m"):
         from rrrmc_tpu_torch.ops import replica, replica_sweep
@@ -105,12 +98,13 @@ def sweeper(torch, rt, model, B, beta):
         acc = torch.zeros(B, dtype=torch.int32, device="cuda")
         return ([st.sigma, lf, E, acc],
                 lambda a, n, s0: sw(*a, seed=SEED, n_sweeps=n, sweep0=s0),
-                replica_sweep)
+                "replica_sweep")
     from rrrmc_tpu_torch.ops import sk
 
     sw = sk.SKSweeper(model, beta)
     return ([st.sigma, model.local_fields(st.sigma), st.E],
-            lambda a, n, s0: sw(*a, seed=SEED, n_sweeps=n, sweep0=s0), sk)
+            lambda a, n, s0: sw(*a, seed=SEED, n_sweeps=n, sweep0=s0),
+            "sk_sweep")
 
 
 def time_paths(torch, rt, root, card, reps) -> None:
@@ -155,7 +149,9 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import rrrmc_tpu_torch as rt
+    from rrrmc_tpu_torch.bench import card_line
     from rrrmc_tpu_torch.ops import cuda_build
+    from rrrmc_tpu_torch.ops.launch import PLANS
 
     assert os.path.dirname(os.path.dirname(rt.__file__)) == root, rt.__file__
     cuda_build.library()
@@ -166,7 +162,7 @@ def main() -> int:
         return 0
     for row, label, build, B, beta, sweeps, warm in CASES:
         model = build(rt)
-        state, launch, mod = sweeper(torch, rt, model, B, beta)
+        state, launch, kernel = sweeper(torch, rt, model, B, beta)
         for w in (0, warm):
             start = [t.clone() for t in state]
             if w:
@@ -181,7 +177,7 @@ def main() -> int:
 
             once()                                        # warm-up
             ms = [once() for _ in range(args.reps)]
-            plan = getattr(mod, "LAST_PLAN", None)
+            plan = PLANS.get(kernel)
             print(json.dumps({
                 "root": root, "row": row, "case": label, "chains": B,
                 "sweeps": sweeps, "warm_sweeps": w, "state": check,

@@ -304,8 +304,8 @@ def test_pinned_threads(threads):
     whatever the rule would pick, and the rule is back after it."""
     with rejfree.pinned_threads(threads):
         got = rejfree.fused_plan("k", _facts({256: 5, 512: 2}), 128, 10_000,
-                                 1000, torch.int8, None, None)
-    assert got == threads and rejfree.LAST_PLAN["threads"] == threads
+                                 1000, torch.int8, 132)
+    assert got["threads"] == threads
     assert rejfree._PINNED is None
 
 
@@ -318,5 +318,5 @@ def test_pinned_threads_refused():
     with pytest.raises(ValueError, match="do not fit"):
         with rejfree.pinned_threads(512):
             rejfree.fused_plan("k", _facts({256: 5, 512: 0}), 128, 10_000,
-                               1000, torch.int8, None, None)
+                               1000, torch.int8, 132)
     assert rejfree._PINNED is None

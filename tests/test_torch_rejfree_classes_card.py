@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import rrrmc_tpu_torch as pt
+from rrrmc_tpu_torch.ops import launch
 from rrrmc_tpu_torch.ops import rejfree_classes as rc
 from rrrmc_tpu_torch.samplers.families import half_bound
 
@@ -62,7 +63,7 @@ def test_class_kernel_equals_plain(cuda_device, model, start):
         _, st = pt.bklMC(m, beta, 200_000, step=200_000, state=st)
         assert pt.LAST_ROUTE["pick"] == "classes"
     first = _outputs(rc.rejfree_classes_chunk, m, st.sigma, beta, 2 ** 30)
-    plan = dict(rc.LAST_PLAN)
+    plan = dict(launch.PLANS["rejfree_classes"])
     assert plan["spill_bytes"] == 0 and plan["blocks_per_sm"] > 0, plan
     half = max(int(first["coord"].double().median().item()), 1)
     for target in (2 ** 30, half):
@@ -82,11 +83,12 @@ def test_bklmc_takes_the_class_kernel(cuda_device):
     """bklMC on the +-J RRG runs the class kernel (its launch count rises),
     exact energies and fields."""
     m, beta = _models(cuda_device)["RRG"]
-    before = rc.LAUNCHES
+    before = launch.LAUNCHES["rejfree_classes"]
     Es, st = pt.bklMC(m, beta, 2_000_000, step=100_000, chains=CHAINS,
                       seed=9)
     assert pt.LAST_ROUTE["pick"] == "classes"
-    assert pt.LAST_ROUTE["impl"] == "cuda" and rc.LAUNCHES > before
+    assert (pt.LAST_ROUTE["impl"] == "cuda"
+            and launch.LAUNCHES["rejfree_classes"] > before)
     assert torch.equal(m.energy(st.sigma), st.E)
     assert torch.equal(m.local_fields(st.sigma), st.aux)
     assert bool(torch.isfinite(Es).all())

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import rrrmc_tpu_torch as pt
-from rrrmc_tpu_torch.ops import sweep
+from rrrmc_tpu_torch.ops import launch, sweep
 
 #: D: L (N = 4096) and the coupling level of the exp path, which keeps
 #: every site's sum of |J| at 120: four chains a lane, max |half| above 64
@@ -53,8 +53,9 @@ def test_epilogue_writes_local_fields(cuda_device, D, path, lanes, B):
         sweep.sweep_chunk(s, E, sw.Jp, sw.Jm, sw.th, rows=rows, aux=aux,
                           **kw)
         torch.cuda.synchronize()
-        assert sweep.LAST_PLAN["lanes"] == lanes
-        assert sweep.LAST_PLAN["spill_bytes"] == 0, sweep.LAST_PLAN
+        plan = launch.PLANS["sweep"]
+        assert plan["lanes"] == lanes
+        assert plan["spill_bytes"] == 0, plan
         out.append((s, E, aux))
     (s0, E0, _), (s1, E1, aux) = out
     assert torch.equal(s1, s0) and torch.equal(E1, E0)
